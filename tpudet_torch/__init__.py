@@ -1,0 +1,11 @@
+"""tpudet_torch — the PyTorch/CUDA port of tpudet for NVIDIA Hopper.
+
+Plain tensor code is PyTorch; every Pallas kernel of tpudet on a ported
+path is a hand-written CUDA kernel (``ops/csrc``), built with ``nvcc`` on
+first use. The JAX package ``tpudet`` is the reference the port is tested
+against; the port imports none of it.
+"""
+from .config import Config
+from .registry import Registry, build_from_cfg
+
+__all__ = ['Config', 'Registry', 'build_from_cfg']
