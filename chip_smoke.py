@@ -1,32 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: every hand-written kernel of the path, from ``tpudet_torch/ops/
-   csrc``, one nvcc per source, all started together;
-3. kernels: each kernel against its plain PyTorch version on the card, in
-   fp32, bf16 and fp16, at the largest shape of the main path, at a ragged
-   size and on special values, then timed against the plain version and
-   the one PyTorch call that computes the same function;
-4. the slice: YOLOv4-l 640 (``configs/yolov4/yolov4l_coco_mosaic.py``,
+2. build: every hand-written kernel of the paths, from ``tpudet_torch/ops/
+   csrc``, one nvcc per source, all started together; the registers of
+   each kernel (``cuobjdump -res-usage``);
+3. kernels: each kernel (mish forward and backward) against its plain
+   PyTorch version on the card, in fp32, bf16 and fp16, at the largest
+   shape of its path, at a ragged size and on special values, then timed
+   against the plain version and the one PyTorch call that computes the
+   same function;
+4. inference: YOLOv4-l 640 (``configs/yolov4/yolov4l_coco_mosaic.py``,
    80 classes) built by the port's Config and builder, weights drawn from
    a numpy seed in tpudet's layout and carried by ``flax_import``; a
    batch of 8 in bf16 through ``init_detector`` / ``Detector``; the launch
    counts of that one run; the card in fp32 against the same model on the
    CPU; bf16 against fp32; forward / decode / NMS / end-to-end times;
-5. output: a ``kernels`` JSON line, the nvidia-smi line, and last
+5. training: the same config with ``compute_dtype='bfloat16'`` through
+   ``init_trainer(...).step``: 3 optimizer steps of 72 images (6
+   micro-batches of 12, fp32 master weights), the launch counts of every
+   step, losses, step times, peak memory, then a profiled fourth step;
+   one fp32 step (micro-batch 2, accumulation 2, TF32 off) on the card
+   against the same code on the CPU;
+6. output: a ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Times come from CUDA events: warm-up, then the median of the timed runs.
 Kernel times (and their plain and library counterparts) replay a CUDA
-graph of the launches, so they hold device time only; end-to-end times
-include the host.
+graph of the launches, so they hold device time only; end-to-end and step
+times include the host.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,12 +48,23 @@ SEED = 0
 BATCH = 8
 IMG = 640
 MISH_PER_FORWARD = 108  # BN sites of YOLOv4-l, each followed by mish
+# training: the config's samples_per_gpu 12, nominal batch 64 -> 6 micro-
+# batches, 72 images per optimizer step; gts padded to the config's max_gts
+TRAIN_STEPS = 3
+MICRO_BATCH = 12
+ACCUMULATION = 6
+MAX_GTS = 120
+# the fp32 card-vs-CPU step: micro-batch 2, accumulation 2
+CHECK_MICRO, CHECK_ACCUM = 2, 2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 # mish per element: abs, neg, exp, log1p, max, add, tanh, mul
 MISH_OPS_PER_ELEMENT = 8
+# its gradient: the forward's softplus and tanh (7), sigmoid (neg, exp,
+# add, div), t*t, 1-, two muls, add, times g
+MISH_BWD_OPS_PER_ELEMENT = 17
 
 # fp32: <= 2 ulp; bf16 / fp16: <= 1 ulp of the output type (both the
 # kernel and the plain version round once from fp32)
@@ -63,6 +83,11 @@ BF16_PRED_TOL = 1e-1
 # stays at a few percent, as in a trained network.
 BN_SCALE = 0.25
 MATCH_IOU = 0.99
+# card fp32 (TF32 off) train step against the CPU: the loss to rtol 1e-4;
+# params, BN statistics, EMA and momentum buffers within 5e-3 of the
+# largest change the step made to them (sums run in other orders)
+STEP_LOSS_RTOL = 1e-4
+STEP_TREE_TOL = 5e-3
 
 
 def log(*args):
@@ -75,6 +100,33 @@ def nvidia_smi():
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_resources(build, names):
+    """Log the registers, stack and local memory of every kernel function
+    in the built libraries, as ``cuobjdump -res-usage`` reports them."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
+    if not os.path.exists(tool):
+        log('kernel resources: not measured (no cuobjdump beside nvcc)')
+        return
+    for name in names:
+        proc = subprocess.run([tool, '-res-usage',
+                               str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=60)
+        if proc.returncode != 0:
+            log(f'resources of {name}: not measured (cuobjdump exited '
+                f'{proc.returncode})')
+            continue
+        func = None
+        for line in proc.stdout.splitlines():
+            line = line.strip()
+            if line.startswith('Function '):
+                func = line[len('Function '):].rstrip(':')
+            elif func and line.startswith('REG:'):
+                f = dict(t.split(':', 1) for t in line.split() if ':' in t)
+                log(f'resources {func}: registers {f.get("REG")}, stack '
+                    f'{f.get("STACK")}, local {f.get("LOCAL")}')
+                func = None
 
 
 def cuda_ms(fn, warmup=3, runs=20):
@@ -137,7 +189,8 @@ def special_values(n, dtype, device):
     gen = torch.Generator(device=device).manual_seed(SEED)
     x = torch.randn(n, generator=gen, device=device) * 4
     sp = torch.tensor([0., -0., 8., -8., 20., -20., 88., -88., 1e4, -1e4,
-                       float('inf'), float('-inf')], device=device)
+                       float('inf'), float('-inf'), float('nan')],
+                      device=device)
     x[:len(sp)] = sp
     return x.to(dtype)
 
@@ -174,6 +227,52 @@ def check_mish_kernel(torch, mish):
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
                 log(f'mish {name} stem shape: ' + json.dumps(stem[name]))
             del x, got, ref
+    return worst_abs, stem
+
+
+def check_mish_bwd_kernel(torch, mish):
+    """Backward kernel vs plain on the card: three dtypes, the largest
+    shape of the training path (a micro-batch of 12 at the stem,
+    channels_last) and a ragged size, special values in x and in the
+    incoming gradient g. Returns (max abs err, stem-shape times)."""
+    worst_abs = 0.0
+    stem = {}
+    for name in ('float32', 'bfloat16', 'float16'):
+        dtype = getattr(torch, name)
+        for shape in ((MICRO_BATCH, 32, IMG, IMG), (1000003,)):
+            n = 1
+            for s in shape:
+                n *= s
+            x = special_values(n, dtype, 'cuda').reshape(shape)
+            gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
+            g = torch.randn(n, generator=gen, device='cuda') + 1
+            g[13:15] = torch.tensor([float('nan'), float('inf')])
+            g = g.to(dtype).reshape(shape)
+            if len(shape) == 4:
+                x = x.contiguous(memory_format=torch.channels_last)
+                g = g.contiguous(memory_format=torch.channels_last)
+            got = mish.mish_backward_cuda(x, g)
+            ref = mish.mish_backward_reference(x, g)
+            torch.cuda.synchronize()
+            ulps, err = ulp_error(got, ref, name)
+            worst_abs = max(worst_abs, err)
+            log(f'mish_bwd {name} {tuple(shape)}: {ulps:.3f} ulp '
+                f'(tolerance {ULP_TOL[name]}), max abs err {err:.3e}')
+            if ulps > ULP_TOL[name]:
+                raise AssertionError(f'mish backward kernel {name} {shape}: '
+                                     f'{ulps} ulp > {ULP_TOL[name]}')
+            if len(shape) == 4:
+                nbytes = 3 * x.numel() * x.element_size()
+                stem[name] = dict(
+                    ms=graph_ms(lambda: mish.mish_backward_cuda(x, g)),
+                    plain_ms=graph_ms(
+                        lambda: mish.mish_backward_reference(x, g)),
+                    library_ms=graph_ms(
+                        lambda: torch.ops.aten.mish_backward(g, x)),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+                log(f'mish_bwd {name} stem shape: ' + json.dumps(stem[name]))
+            del x, g, got, ref
+            torch.cuda.empty_cache()
     return worst_abs, stem
 
 
@@ -316,14 +415,18 @@ def run_slice(torch):
         if isinstance(m, (ConvModule, BatchNormAct)) and m.act is not None]
     img = torch.from_numpy(img_np).cuda()
 
-    # the main path, once, with every kernel count at 0 just before
+    # the inference path, once, with every kernel count at 0 just before
     mish.mish_cuda.launches = 0
+    mish.mish_backward_cuda.launches = 0
     res = det(img)
     torch.cuda.synchronize()
-    launches = {'mish_fwd': mish.mish_cuda.launches}
+    launches = {'mish_fwd': mish.mish_cuda.launches,
+                'mish_bwd': mish.mish_backward_cuda.launches}
     for h in hooks:
         h.remove()
-    log(f'main path launches: {json.dumps(launches)}')
+    log(f'inference path launches: {json.dumps(launches)}')
+    if launches['mish_bwd']:
+        raise AssertionError('the inference path launched a backward')
     if not launches['mish_fwd'] == len(mish_shapes) == MISH_PER_FORWARD:
         raise AssertionError(f'mish kernel launched {launches["mish_fwd"]} '
                              f'times in one forward, not {MISH_PER_FORWARD}')
@@ -409,28 +512,30 @@ def run_slice(torch):
     times['img_per_s'] = BATCH / times['e2e_ms'] * 1e3
     times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
     log(f'bf16 batch {BATCH} x {IMG}^2: ' + json.dumps(times))
-    profile_e2e(torch, det, img)
-    return launches, mish_shapes
+    with torch.inference_mode():
+        profile_device(torch, lambda: det(img), 'e2e call')
+    del det, model, cpu32
+    torch.cuda.empty_cache()
+    return tree, launches, mish_shapes
 
 
-def profile_e2e(torch, det, img, calls=3):
-    """torch.profiler over ``calls`` end-to-end calls: the device's busy
+def profile_device(torch, fn, label, calls=3, top=15):
+    """torch.profiler over ``calls`` calls of ``fn``: the device's busy
     share of the wall time and the kernels that take it, by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                det(img)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        log('profile: the profiler recorded no device activity; device busy '
-            'share not measured')
+        log(f'profile {label}: the profiler recorded no device activity; '
+            f'device busy share not measured')
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float('-inf')
@@ -443,13 +548,208 @@ def profile_e2e(torch, det, img, calls=3):
         t = by_name.setdefault(e.name, [0.0, 0])
         t[0] += (e.time_range.end - e.time_range.start) / 1e3 / calls
         t[1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     busy_ms = busy / 1e3 / calls
-    log(f'profile per e2e call: wall {wall_ms:.3f} ms, device busy '
+    log(f'profile per {label}: wall {wall_ms:.3f} ms, device busy '
         f'{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), '
         f'{len(kernels) // calls} kernels')
-    for name, (ms, n) in top:
-        log(f'  {ms:8.3f} ms  {n // calls:4d}x  {name[:100]}')
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:top]:
+        log(f'  {ms:8.3f} ms  {n // calls:5d}x  {name[:100]}')
+
+
+def train_batch(n, seed):
+    """A training batch from a numpy seed: ``n`` images of random pixels,
+    normalized as the train pipeline does, and 1-20 gts per image padded
+    to MAX_GTS. Each gt takes the shape of one of the 9 anchors (level and
+    anchor drawn uniformly) scaled by e^U(-0.7, 0.7) per side, so targets
+    land on all three levels; labels 0-79."""
+    import numpy as np
+    from tpudet_torch.models.dense_heads.yolocsp_head import \
+        DEFAULT_BASE_SIZES
+    rng = np.random.RandomState(seed)
+    px = rng.randint(0, 256, (n, IMG, IMG, 3), dtype=np.uint8)
+    img = (px.astype(np.float32) - 114.0) / 255.0
+    anchors = np.asarray(DEFAULT_BASE_SIZES, np.float32).reshape(-1, 2)
+    boxes = np.zeros((n, MAX_GTS, 4), np.float32)
+    valid = np.zeros((n, MAX_GTS), bool)
+    for i in range(n):
+        k = rng.randint(1, 21)
+        wh = anchors[rng.randint(0, len(anchors), k)] * np.exp(
+            rng.uniform(-0.7, 0.7, (k, 2)))
+        wh = np.minimum(wh, IMG - 2.0)
+        c = rng.uniform(wh / 2, IMG - wh / 2)
+        boxes[i, :k] = np.concatenate([c - wh / 2, c + wh / 2], -1)
+        valid[i, :k] = True
+    labels = rng.randint(0, 80, (n, MAX_GTS)).astype(np.int64)
+    return dict(img=img, gt_bboxes=boxes, gt_labels=labels, gt_valid=valid)
+
+
+def tree_gap(a, b):
+    """max |a - b| over the leaves of two nested dicts of arrays."""
+    import numpy as np
+    if isinstance(a, dict):
+        return max([tree_gap(a[k], b[k]) for k in a] or [0.0])
+    return float(np.abs(np.asarray(a, np.float64) -
+                        np.asarray(b, np.float64)).max())
+
+
+def run_training(torch, tree):
+    """YOLOv4-l 640 at full width and depth, bf16 compute with fp32 master
+    weights, through ``init_trainer(...).step``: TRAIN_STEPS optimizer
+    steps of 72 images, each with its launch counts (every count set to 0
+    just before the step and read just after), then one profiled step.
+    Returns the launch counts of a step."""
+    from tpudet_torch.apis import init_trainer
+    from tpudet_torch.config import Config
+    from tpudet_torch.ops import mish
+    cfg = Config.fromfile(CONFIG)
+    cfg['compute_dtype'] = 'bfloat16'
+    trainer = init_trainer(cfg, variables=tree, device='cuda',
+                           max_steps=TRAIN_STEPS + 1)
+    if (trainer.accumulation, cfg['data']['samples_per_gpu']) != (
+            ACCUMULATION, MICRO_BATCH):
+        raise AssertionError(f'accumulation {trainer.accumulation} x '
+                             f'{cfg["data"]["samples_per_gpu"]}, not '
+                             f'{ACCUMULATION} x {MICRO_BATCH}')
+    model = trainer.model
+    if model.dtype != torch.bfloat16 or any(
+            p.dtype != torch.float32 for p in model.parameters()):
+        raise AssertionError('not bf16 compute with fp32 master weights')
+    images = ACCUMULATION * MICRO_BATCH
+    log(f'training: YOLOv4-l {IMG}^2, {images} images per optimizer step '
+        f'({ACCUMULATION} x {MICRO_BATCH}), bf16 compute, fp32 master '
+        f'weights, warm-up {trainer.opt_cfg.warmup_iters} steps')
+    p0 = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+    e0 = {k: v.clone() for k, v in trainer.state.ema_params.items()}
+    per_step = []
+    for step in range(TRAIN_STEPS):
+        batch = train_batch(images, SEED + 100 + step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mish.mish_cuda.launches = 0
+        mish.mish_backward_cuda.launches = 0
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = {'mish_fwd': mish.mish_cuda.launches,
+                    'mish_bwd': mish.mish_backward_cuda.launches}
+        m = {k: float(v) for k, v in metrics.items()}
+        row = dict(step=step, **m, step_ms=step_s * 1e3,
+                   img_per_s=images / step_s,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=launches)
+        log('train step: ' + json.dumps(row))
+        per_step.append(row)
+        want = ACCUMULATION * MISH_PER_FORWARD
+        if launches != {'mish_fwd': want, 'mish_bwd': want}:
+            raise AssertionError(f'step {step}: launches {launches}, not '
+                                 f'{want} each')
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f'step {step}: non-finite {bad}')
+    moved = max(float((trainer.state.params[k].detach() - v).abs().max())
+                for k, v in p0.items())
+    ema_moved = max(float((trainer.state.ema_params[k] - v).abs().max())
+                    for k, v in e0.items())
+    log(f'after {TRAIN_STEPS} steps: params moved by {moved:.3e}, EMA by '
+        f'{ema_moved:.3e} (max |delta|)')
+    if not (moved > 0 and ema_moved > 0):
+        raise AssertionError('params or EMA did not move')
+    batch = train_batch(images, SEED + 100 + TRAIN_STEPS)
+    profile_device(torch, lambda: trainer.step(batch), 'train step',
+                   calls=1, top=25)
+    del trainer, p0, e0
+    torch.cuda.empty_cache()
+    return per_step[-1]['launches']
+
+
+def check_train_step_cpu(torch, tree):
+    """One fp32 optimizer step (micro-batch 2, accumulation 2) of YOLOv4-l
+    640 through ``init_trainer`` on the card (TF32 off) and on the CPU,
+    from the same variables and batch."""
+    from tpudet_torch.apis import init_trainer
+    from tpudet_torch.config import Config
+    from tpudet_torch.utils.flax_import import train_state_to_flax
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.fromfile(CONFIG)
+    cfg['data'] = dict(cfg['data'], samples_per_gpu=CHECK_MICRO)
+    cfg['nominal_batch_size'] = CHECK_MICRO * CHECK_ACCUM
+    batch = train_batch(CHECK_MICRO * CHECK_ACCUM, SEED + 200)
+    out = {}
+    for device in ('cuda', 'cpu'):
+        trainer = init_trainer(cfg, variables=tree, device=device,
+                               max_steps=1)
+        init = train_state_to_flax(trainer.state, trainer.model)
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in trainer.step(batch).items()}
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        log(f'fp32 step on {device}: {time.perf_counter() - t0:.1f} s, '
+            + json.dumps(metrics))
+        out[device] = (metrics, train_state_to_flax(trainer.state,
+                                                    trainer.model))
+        del trainer
+        torch.cuda.empty_cache()
+    (mc, sc), (mr, sr) = out['cuda'], out['cpu']
+    rel = abs(mc['loss'] - mr['loss']) / abs(mr['loss'])
+    log(f'fp32 step, card vs CPU: loss rel diff {rel:.3e} (tolerance '
+        f'{STEP_LOSS_RTOL}), grad_norm {mc["grad_norm"]:.6f} vs '
+        f'{mr["grad_norm"]:.6f}')
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError('fp32 card loss differs from the CPU')
+    for name, got, ref, start in (
+            ('params', sc.params, sr.params, init.params),
+            ('batch_stats', sc.batch_stats, sr.batch_stats,
+             init.batch_stats),
+            ('ema_params', sc.ema_params, sr.ema_params, init.ema_params),
+            ('ema_batch_stats', sc.ema_batch_stats, sr.ema_batch_stats,
+             init.ema_batch_stats),
+            ('momentum_buf', sc.opt_state.momentum_buf,
+             sr.opt_state.momentum_buf, init.opt_state.momentum_buf)):
+        diff, upd = tree_gap(got, ref), tree_gap(ref, start)
+        log(f'fp32 step, card vs CPU {name}: max |delta| {diff:.3e}, '
+            f'update {upd:.3e} (tolerance {STEP_TREE_TOL} x update)')
+        if not (upd > 0 and diff <= STEP_TREE_TOL * upd):
+            raise AssertionError(f'fp32 card {name} differ from the CPU')
+
+
+def time_mish_bwd_main_path(torch, mish, shapes):
+    """The backward kernel over the 108 shapes of one bf16 micro-batch of
+    12 (channels_last, as the training step lays them out): kernel, plain
+    version and ``aten.mish_backward``, each as one CUDA graph of 108
+    launches; bound from bytes and operations."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 3)
+
+    def draw(s):
+        return torch.randn(s, generator=gen, device='cuda').to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    xs = [draw(s) for s in shapes]
+    gs = [draw(s) for s in shapes]
+    n = sum(x.numel() for x in xs)
+    bytes_ms = 3 * n * 2 / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * MISH_BWD_OPS_PER_ELEMENT / FP32_FLOPS * 1e3
+    errs = [float((mish.mish_backward_cuda(x, g).float() -
+                   mish.mish_backward_reference(x, g).float()).abs().max())
+            for x, g in zip(xs, gs)]
+
+    def over_all(fn):
+        return lambda: [fn(x, g) for x, g in zip(xs, gs)]
+
+    out = dict(
+        elements=n, max_abs_err=max(errs),
+        ms=graph_ms(over_all(mish.mish_backward_cuda)),
+        plain_ms=graph_ms(over_all(mish.mish_backward_reference)),
+        library_ms=graph_ms(over_all(
+            lambda x, g: torch.ops.aten.mish_backward(g, x))),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by='bytes' if bytes_ms >= ops_ms else 'operations')
+    log(f'mish_bwd over one bf16 micro-batch of {MICRO_BATCH} (108 '
+        f'launches): ' + json.dumps(out))
+    del xs, gs
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_mish_main_path(torch, mish, shapes):
@@ -503,24 +803,40 @@ def main():
     t0 = time.perf_counter()
     secs = build.build(['mish'])
     log(f'build: {json.dumps(secs)} (wall {time.perf_counter() - t0:.1f} s)')
+    kernel_resources(build, ['mish'])
 
-    # 3. kernel against its plain version
-    worst, _ = check_mish_kernel(torch, mish)
+    # 3. kernels against their plain versions
+    worst_fwd, _ = check_mish_kernel(torch, mish)
+    worst_bwd, _ = check_mish_bwd_kernel(torch, mish)
 
-    # 4. the slice
-    launches, mish_shapes = run_slice(torch)
-    timed = time_mish_main_path(torch, mish, mish_shapes)
+    # 4. inference; its main path once, counts at 0 just before
+    t0 = time.perf_counter()
+    tree, infer_launches, mish_shapes = run_slice(torch)
+    timed_fwd = time_mish_main_path(torch, mish, mish_shapes)
+    log(f'inference phases: {time.perf_counter() - t0:.1f} s')
 
-    # 5. output
-    kernels = [dict(
-        name='mish_fwd', route='cuda',
-        source='tpudet_torch/ops/csrc/mish.cu',
-        replaces='tpudet/ops/mish.py:68',
-        launches=launches['mish_fwd'],
-        max_abs_err=max(worst, timed['max_abs_err']),
-        ms=timed['ms'], plain_ms=timed['plain_ms'],
-        bound_ms=timed['bound_ms'], bound_by=timed['bound_by'],
-        library_ms=timed['library_ms'])]
+    # 5. training; every step with counts at 0 just before
+    t0 = time.perf_counter()
+    train_launches = run_training(torch, tree)
+    check_train_step_cpu(torch, tree)
+    timed_bwd = time_mish_bwd_main_path(
+        torch, mish, [(MICRO_BATCH,) + s[1:] for s in mish_shapes])
+    log(f'training phases: {time.perf_counter() - t0:.1f} s')
+
+    # 6. output
+    def row(name, replaces, worst, timed):
+        return dict(
+            name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
+            replaces=replaces, launches=train_launches[name],
+            launches_by_path={
+                'inference_forward': infer_launches.get(name, 0),
+                'train_step': train_launches[name]},
+            max_abs_err=max(worst, timed['max_abs_err']),
+            ms=timed['ms'], plain_ms=timed['plain_ms'],
+            bound_ms=timed['bound_ms'], bound_by=timed['bound_by'],
+            library_ms=timed['library_ms'])
+    kernels = [row('mish_fwd', 'tpudet/ops/mish.py:68', worst_fwd, timed_fwd),
+               row('mish_bwd', 'tpudet/ops/mish.py:73', worst_bwd, timed_bwd)]
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -1,6 +1,6 @@
 """YOLO anchor grids, numpy: the port's own copy of
 ``tpudet/core/anchors.py::YOLOAnchorGenerator`` / ``YOLOV4AnchorGenerator``
-(grid anchors only).
+(grid anchors and base anchor sizes).
 
 Base anchors are xyxy around a per-level centre at stride/2; grid anchors
 shift them by (x*stride_w, y*stride_h), row-major with the base-anchor axis
@@ -37,6 +37,12 @@ class YOLOV4AnchorGenerator:
     @property
     def num_levels(self) -> int:
         return len(self.base_sizes)
+
+    def base_anchor_wh(self) -> List[np.ndarray]:
+        """(A, 2) widths/heights of the base anchors, per level
+        (``tpudet/core/anchors.py:249-254``)."""
+        return [np.stack([a[:, 2] - a[:, 0], a[:, 3] - a[:, 1]], axis=-1)
+                for a in self.base_anchors]
 
     def grid_anchors(self, featmap_sizes: Sequence[Tuple[int, int]]
                      ) -> List[np.ndarray]:

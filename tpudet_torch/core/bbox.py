@@ -24,3 +24,33 @@ class YOLOV4BBoxCoder:
         h_pred = pred_bboxes[..., 3] * h
         return torch.stack((x_pred - w_pred / 2, y_pred - h_pred / 2,
                             x_pred + w_pred / 2, y_pred + h_pred / 2), dim=-1)
+
+
+def _area(boxes):
+    return ((boxes[..., 2] - boxes[..., 0]) *
+            (boxes[..., 3] - boxes[..., 1]))
+
+
+def bbox_overlaps_aligned(bboxes1, bboxes2, mode: str = 'iou',
+                          eps: float = 1e-6):
+    """Element-wise IoU or GIoU between same-shape (..., 4) xyxy boxes
+    (``tpudet/core/bbox.py:229-253``). ``torch.maximum``/``minimum`` split
+    the gradient at a tie, as ``jnp.maximum``/``jnp.clip`` do."""
+    zero = bboxes1.new_zeros(())
+    lt = torch.maximum(bboxes1[..., :2], bboxes2[..., :2])
+    rb = torch.minimum(bboxes1[..., 2:], bboxes2[..., 2:])
+    wh = torch.maximum(rb - lt, zero)
+    overlap = wh[..., 0] * wh[..., 1]
+    union = _area(bboxes1) + _area(bboxes2) - overlap
+    union = torch.maximum(union, union.new_tensor(eps))
+    ious = overlap / union
+    if mode == 'iou':
+        return ious
+    if mode == 'giou':
+        enclose_lt = torch.minimum(bboxes1[..., :2], bboxes2[..., :2])
+        enclose_rb = torch.maximum(bboxes1[..., 2:], bboxes2[..., 2:])
+        enclose_wh = torch.maximum(enclose_rb - enclose_lt, zero)
+        enclose_area = torch.maximum(enclose_wh[..., 0] * enclose_wh[..., 1],
+                                     union.new_tensor(eps))
+        return ious - (enclose_area - union) / enclose_area
+    raise ValueError(f'unknown mode {mode} (the port has iou and giou)')

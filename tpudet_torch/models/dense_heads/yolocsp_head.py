@@ -1,10 +1,11 @@
-"""YOLOv4/v5 dense head, inference: port of
+"""YOLOv4/v5 dense head: port of
 ``tpudet/models/dense_heads/yolocsp_head.py`` (``__call__``,
-``decode_pred_maps``, ``_prefiltered_decode``, ``get_bboxes``).
+``decode_pred_maps``, ``_prefiltered_decode``, ``get_bboxes``, ``loss``).
 
 One 1x1 conv with bias per level. Pred maps leave the head in tpudet's
 layout, (B, H, W, A*attrib) with the anchor axis fastest, so they reshape
-straight onto the anchor grid. Decode is batched and in fp32.
+straight onto the anchor grid. Decode is batched and in fp32; so is the
+loss, over tpudet's dense padded match slots (``core/targets.py``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,10 @@ from torch import nn
 from ...core.anchors import YOLOV4AnchorGenerator
 from ...core.bbox import YOLOV4BBoxCoder
 from ...core.nms import batched_class_lane_nms, topk_scores
+from ...core.targets import responsible_matches
 from ...registry import HEADS
+from .. import losses as L
+from ..layers import Conv
 
 # COCO default anchors (reference yolocsp_head.py:83-90)
 DEFAULT_BASE_SIZES = (
@@ -32,15 +36,32 @@ DEFAULT_BASE_SIZES = (
 class YOLOCSPHead(nn.Module):
     """COCO anchors at strides 8/16/32, class-aware (the configuration of
     every YOLOv4 config); 4 box + 1 objectness + ``num_classes`` logits per
-    anchor."""
+    anchor. The keyword arguments are tpudet's training fields
+    (``yolocsp_head.py:52,55-61``), with its defaults."""
 
     base_sizes = DEFAULT_BASE_SIZES
     featmap_strides = (8, 16, 32)
-    num_obj_avg = 8  # objectness prior: 8 objects per 640^2 image
 
-    def __init__(self, num_classes: int, in_channels: Sequence[int]):
+    def __init__(self, num_classes: int, in_channels: Sequence[int],
+                 one_hot_smoother: float = 0.,
+                 shape_match_thres: float = 4.,
+                 conf_iou_loss_ratio: float = 1.,
+                 conf_level_balance: Sequence[float] = (4.0, 1.0, 0.4, 0.1,
+                                                        0.1),
+                 num_obj_avg: int = 8,
+                 loss_cls_weight: float = 32.,
+                 loss_conf_weight: float = 64.,
+                 loss_bbox_weight: float = 3.2):
         super().__init__()
         self.num_classes = num_classes
+        self.one_hot_smoother = one_hot_smoother
+        self.shape_match_thres = shape_match_thres
+        self.conf_iou_loss_ratio = conf_iou_loss_ratio
+        self.conf_level_balance = tuple(conf_level_balance)
+        self.num_obj_avg = num_obj_avg  # objectness prior per 640^2 image
+        self.loss_cls_weight = loss_cls_weight
+        self.loss_conf_weight = loss_conf_weight
+        self.loss_bbox_weight = loss_bbox_weight
         self.num_attrib = 5 + num_classes
         self.num_levels = len(self.featmap_strides)
         assert len(in_channels) == self.num_levels
@@ -48,7 +69,7 @@ class YOLOCSPHead(nn.Module):
             strides=list(self.featmap_strides),
             base_sizes=[list(b) for b in self.base_sizes])
         for i, cin in enumerate(in_channels):
-            self.add_module(f'conv_pred{i}', nn.Conv2d(
+            self.add_module(f'conv_pred{i}', Conv(
                 cin, len(self.base_sizes[i]) * self.num_attrib, 1))
         # anchor grids on the device, per (featmap sizes, device)
         self._grids: Dict = {}
@@ -182,3 +203,83 @@ class YOLOCSPHead(nn.Module):
             f"nms_type='nms') is ported; nms_type={nms_type!r}, "
             f'lane_pre={lane_pre}, class_pre={class_pre}, nms_pre={nms_pre} '
             f'comes with ROADMAP.md\'s "other NMS branches" item')
+
+    # ------------------------------------------------------------------
+    # training loss (assigner-free path)
+    # ------------------------------------------------------------------
+
+    def loss(self, pred_maps, gt_bboxes, gt_labels, gt_valid
+             ) -> Dict[str, torch.Tensor]:
+        """Assigner-free YOLOv5-style loss over dense padded targets
+        (``tpudet/models/dense_heads/yolocsp_head.py:268-355``), in fp32.
+
+        Args:
+            pred_maps: per-level (B, H, W, A*attrib) raw outputs.
+            gt_bboxes: (B, G, 4) zero-padded gt boxes, xyxy image coords.
+            gt_labels: (B, G) int class ids (0-based), arbitrary at padding.
+            gt_valid: (B, G) bool.
+
+        Returns:
+            dict with loss_cls / loss_conf / loss_bbox scalars (weighted and
+            level-balanced, ready to sum) and num_gts.
+        """
+        levels, _, _ = self._grid(pred_maps)
+        anchor_whs = self.anchor_generator.base_anchor_wh()
+        gt_bboxes = gt_bboxes.float()
+        classes = torch.arange(self.num_classes, device=gt_labels.device)
+        total_cls = total_conf = total_bbox = 0.
+        for lvl, pred in enumerate(pred_maps):
+            b = pred.shape[0]
+            pred = pred.float().reshape(b, -1, self.num_attrib)
+            stride = float(self.featmap_strides[lvl])
+            matches = responsible_matches(
+                gt_bboxes, gt_valid, tuple(pred_maps[lvl].shape[1:3]),
+                stride, anchor_whs[lvl], neighbor=2,
+                shape_match_thres=self.shape_match_thres)
+            idx = matches.anchor_idx.reshape(b, -1)  # (B, M)
+            mask = matches.mask.reshape(b, -1).float()
+            slots_per_gt = idx.shape[1] // gt_bboxes.shape[1]
+
+            pred_pos = torch.gather(
+                pred, 1, idx[..., None].expand(-1, -1, self.num_attrib))
+            # decode the positives
+            pbox = YOLOV4BBoxCoder.decode(
+                levels[lvl][idx], self._transform(torch.sigmoid(
+                    pred_pos[..., :4])), stride)
+            # slot (g, a, o) -> gt g
+            tbox = gt_bboxes.repeat_interleave(slots_per_gt, dim=1)
+            tlabel = gt_labels.repeat_interleave(slots_per_gt, dim=1)
+
+            giou_l = L.giou_loss(pbox, tbox, reduction='none')  # (B, M)
+            num_pos = torch.clamp_min(mask.sum(), 1.0)
+            total_bbox = total_bbox + ((giou_l * mask).sum() / num_pos *
+                                       self.loss_bbox_weight)
+
+            # one-hot with zero rows for out-of-range (padding) labels, as
+            # jax.nn.one_hot gives
+            tcls = (tlabel[..., None] == classes).float()
+            if self.one_hot_smoother != 0:
+                tcls = (tcls * (1 - self.one_hot_smoother) +
+                        self.one_hot_smoother / self.num_classes)
+            cls_bce = L.binary_cross_entropy_with_logits(pred_pos[..., 5:],
+                                                         tcls)
+            total_cls = total_cls + ((cls_bce * mask[..., None]).sum() /
+                                     (num_pos * self.num_classes) *
+                                     self.loss_cls_weight)
+
+            # IoU-aware conf target, scatter-max over the slots that land
+            # on one anchor; no gradient flows through it
+            r = self.conf_iou_loss_ratio
+            conf_t = ((1 - r) + r * torch.clamp(1.0 - giou_l.detach(), 0.0,
+                                                1.0)) * mask
+            target_conf = torch.zeros_like(pred[..., 4]).scatter_reduce(
+                1, idx, conf_t, 'amax', include_self=True)
+            conf_bce = L.binary_cross_entropy_with_logits(pred[..., 4],
+                                                          target_conf)
+            total_conf = total_conf + (conf_bce.mean() *
+                                       self.loss_conf_weight *
+                                       self.conf_level_balance[lvl])
+
+        num_gts = gt_valid.float().sum(dim=1).mean()
+        return dict(loss_cls=total_cls, loss_conf=total_conf,
+                    loss_bbox=total_bbox, num_gts=num_gts)

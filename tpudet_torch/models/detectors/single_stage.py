@@ -29,9 +29,13 @@ class SingleStageDetector(nn.Module):
         self.dtype = torch.float32
 
     def set_dtype(self, dtype: torch.dtype) -> 'SingleStageDetector':
-        """Compute dtype, as tpudet's module ``dtype``: conv weights (and
-        the head's biases) are cast to it; BatchNorm keeps fp32 parameters
-        and statistics and returns its input's dtype."""
+        """Compute dtype for inference, as tpudet's module ``dtype``: conv
+        weights (and the head's biases) are stored in it; BatchNorm keeps
+        fp32 parameters and statistics and returns its input's dtype.
+
+        Training keeps fp32 master weights and sets only ``self.dtype``, the
+        dtype the image is cast to: every conv then casts its fp32
+        parameters to its input's dtype at each call (``layers.Conv``)."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 m.to(dtype)
@@ -50,6 +54,10 @@ class SingleStageDetector(nn.Module):
         (B, H/s, W/s, A*attrib)."""
         x = img.to(self.dtype).permute(0, 3, 1, 2)
         return self.bbox_head(self.extract_feat(x))
+
+    def loss(self, pred_maps, gt_bboxes, gt_labels, gt_valid):
+        """The head's training loss of the pred maps (fp32)."""
+        return self.bbox_head.loss(pred_maps, gt_bboxes, gt_labels, gt_valid)
 
     def get_bboxes(self, pred_maps, **kwargs):
         """The head's ``get_bboxes`` with the config's ``test_cfg``

@@ -3,13 +3,19 @@
 Modules run NCHW (``channels_last`` memory on the card); the detector
 takes and returns tpudet's NHWC layout at its surface. Attribute names
 follow the flax names (``conv``, ``bn``), so weights map by name
-(``utils/flax_import.py``). Inference only: BatchNorm uses its running
-statistics.
+(``utils/flax_import.py``).
+
+Compute dtype, as flax's module ``dtype`` field: convs compute in their
+input's dtype and cast fp32 parameters to it at each call, so training
+keeps fp32 master weights (inference casts them once, ``set_dtype``).
+BatchNorm keeps fp32 parameters and statistics and returns its input's
+dtype.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Union
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -35,13 +41,60 @@ def get_activation(act: ActCfg) -> Optional[Callable]:
     raise KeyError(f'activation {name} is not ported yet')
 
 
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype: the weight (and bias)
+    are cast to it at the call, as flax's ``nn.Conv(dtype=...)`` casts its
+    fp32 params. A no-op cast once ``set_dtype`` has stored them in that
+    dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-variance rule in train mode.
+
+    Both normalize with the batch mean and the biased batch variance, but
+    torch moves ``running_var`` toward the *unbiased* variance
+    (``n/(n-1)`` times the biased one) where flax (``tpudet/models/
+    layers.py:95-100``) and tpudet's ``PhaseBatchNorm`` use the biased
+    one. This keeps ``F.batch_norm``'s one fused pass (statistics, saved
+    mean and inverse std for the backward, cuDNN on the card) and corrects
+    its update afterwards: ``F.batch_norm`` moves a copy of the old
+    ``running_var`` ``r0`` to ``r = (1-m) r0 + m v n/(n-1)`` (factor ``m``),
+    and flax's ``(1-m) r0 + m v`` is ``((n-1) r + (1-m) r0) / n``. The
+    correction costs a few ops on (C,) vectors and divides by nothing
+    small; computing the statistics a second time would cost a pass over
+    the activations. (The copy, not ``running_var`` itself, goes to
+    ``F.batch_norm``: autograd keeps its input and refuses a later
+    in-place change to it.)
+    """
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        m = (self.momentum if self.momentum is not None
+             else 1.0 / float(self.num_batches_tracked))
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, m, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.copy_(torch.add(var * ((n - 1) / n),
+                                             self.running_var,
+                                             alpha=(1 - m) / n))
+        return y
+
+
 class Conv2d(nn.Module):
     """Raw bias-free 1x1 conv (the ``nn.Conv2d`` legs of CSP blocks); the
     torch conv is ``self.conv``, as flax names it."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 1, bias=False)
+        self.conv = Conv(in_channels, out_channels, 1, bias=False)
 
     def forward(self, x):
         return self.conv(x)
@@ -53,10 +106,9 @@ class ConvModule(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, stride: int = 1, act: ActCfg = 'Mish'):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                              kernel_size // 2, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS,
-                                 momentum=BN_MOMENTUM)
+        self.conv = Conv(in_channels, out_channels, kernel_size, stride,
+                         kernel_size // 2, bias=False)
+        self.bn = BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = get_activation(act)
 
     def forward(self, x):
@@ -70,7 +122,7 @@ class BatchNormAct(nn.Module):
 
     def __init__(self, channels: int, act: ActCfg = 'Mish'):
         super().__init__()
-        self.bn = nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = get_activation(act)
 
     def forward(self, x):
@@ -80,10 +132,13 @@ class BatchNormAct(nn.Module):
 
 def max_pool_same(x, kernel_size: int):
     """Stride-1 max pool with same padding (SPP legs). Both frameworks pad
-    with -inf, so this equals tpudet's separable form exactly."""
+    with -inf, so this equals tpudet's separable form exactly, and so does
+    its gradient wherever the window's maximum is unique (both route it to
+    the maximum; at a tie each picks one element, maybe another)."""
     return F.max_pool2d(x, kernel_size, 1, kernel_size // 2)
 
 
 def upsample_nearest_2x(x):
-    """Nearest-neighbour 2x upsample (neck top-down path)."""
+    """Nearest-neighbour 2x upsample (neck top-down path); its gradient sums
+    each 2x2 block, as the broadcast of tpudet's form does."""
     return F.interpolate(x, scale_factor=2, mode='nearest')

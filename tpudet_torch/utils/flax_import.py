@@ -1,5 +1,7 @@
-"""Carry tpudet weights across: a tpudet ``{'params', 'batch_stats'}`` tree
-of numpy arrays -> the port's ``state_dict``.
+"""Carry tpudet weights across, both ways: a tpudet ``{'params',
+'batch_stats'}`` tree of numpy arrays <-> the port's ``state_dict``, and a
+tpudet ``TrainState`` <-> the port's (``train_state_from_flax``,
+``train_state_to_flax``).
 
 The port's modules carry the flax names, so a leaf's path is its module
 path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
@@ -10,11 +12,14 @@ path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
   ``weight/bias/running_mean/running_var``.
 
 Every leaf must find its tensor, with its shape, and every tensor of the
-model must be reached: anything else raises. Nothing is dropped.
+model must be reached: anything else raises. Nothing is dropped. The only
+tensors tpudet has no leaf for are BatchNorm's ``num_batches_tracked``
+counters: zero on the way in, left out on the way out.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
+from types import SimpleNamespace
 from typing import Dict, Tuple
 
 import numpy as np
@@ -60,38 +65,130 @@ def flax_to_state_dict(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
 
     Raises ``KeyError`` for a leaf with no place in ``model`` or a tensor of
     ``model`` that no leaf fills, ``ValueError`` for a shape mismatch."""
-    table = leaf_table(model)
-    target = model.state_dict()
-    sd: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(variables).items():
-        if path not in table:
-            raise KeyError(f'flax leaf {"/".join(path)} has no place in '
-                           f'{type(model).__name__}')
-        key, is_kernel = table[path]
-        if is_kernel:
-            if value.ndim != 4:
-                raise ValueError(f'{"/".join(path)}: expected an HWIO conv '
-                                 f'kernel, got shape {value.shape}')
-            value = np.transpose(value, (3, 2, 0, 1))
-        want = tuple(target[key].shape)
-        if value.shape != want:
-            raise ValueError(f'{"/".join(path)}: shape {value.shape} does '
-                             f'not fit {key} {want}')
-        sd[key] = torch.from_numpy(np.ascontiguousarray(value,
-                                                        dtype=np.float32))
-    for key, tensor in target.items():
-        if key.endswith('num_batches_tracked'):
-            sd[key] = torch.zeros_like(tensor)
-        elif key not in sd:
-            raise KeyError(f'{key} of {type(model).__name__} is not in the '
-                           f'flax variables')
-    return sd
+    return _tensors(variables, leaf_table(model), model.state_dict(),
+                    type(model).__name__)
 
 
 def load_flax_variables(model: nn.Module, variables) -> nn.Module:
     """Load tpudet variables into ``model`` (strict)."""
     model.load_state_dict(flax_to_state_dict(variables, model), strict=True)
     return model
+
+
+def _from_flax_layout(value: np.ndarray, is_kernel: bool) -> np.ndarray:
+    """HWIO -> OIHW on the last four axes of a conv kernel leaf (a leading
+    axis, as in Adam's stacked (m, v) buffers, is kept)."""
+    if not is_kernel:
+        return value
+    lead = tuple(range(value.ndim - 4))
+    n = value.ndim
+    return np.transpose(value, lead + (n - 1, n - 2, n - 4, n - 3))
+
+
+def _to_flax_layout(value: np.ndarray, is_kernel: bool) -> np.ndarray:
+    """OIHW -> HWIO on the last four axes (inverse of the above)."""
+    if not is_kernel:
+        return value
+    lead = tuple(range(value.ndim - 4))
+    n = value.ndim
+    return np.transpose(value, lead + (n - 2, n - 1, n - 3, n - 4))
+
+
+def _tree(table, tensors: Dict[str, torch.Tensor], collection: str) -> Dict:
+    """The flax tree of ``collection`` from tensors keyed by torch name."""
+    tree: Dict = {}
+    for path, (key, is_kernel) in table.items():
+        if path[0] != collection:
+            continue
+        node = tree
+        for p in path[1:-1]:
+            node = node.setdefault(p, {})
+        value = tensors[key].detach().float().cpu().numpy()
+        # a copy: on the CPU ``numpy()`` shares the live tensor's memory
+        node[path[-1]] = np.array(_to_flax_layout(value, is_kernel),
+                                  order='C')
+    return tree
+
+
+def state_dict_to_flax(model: nn.Module) -> Dict:
+    """``model``'s weights as a tpudet ``{'params', 'batch_stats'}`` tree of
+    fp32 numpy arrays (conv kernels HWIO)."""
+    table = leaf_table(model)
+    sd = model.state_dict()
+    return {'params': _tree(table, sd, 'params'),
+            'batch_stats': _tree(table, sd, 'batch_stats')}
+
+
+def _tensors(tree, table, like: Dict[str, torch.Tensor], what: str,
+             prefix: Path = ()) -> Dict[str, torch.Tensor]:
+    """tpudet leaves (under ``prefix``, the collection when ``tree`` is one
+    collection's tree) -> fp32 tensors keyed and shaped as ``like``, on its
+    devices, strictly: a leaf with no place or a shape that does not fit
+    raises, and so does a float tensor of ``like`` that no leaf fills.
+    Tensors that are not floating point (``num_batches_tracked``) start at
+    zero."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(tree, prefix).items():
+        if path not in table:
+            raise KeyError(f'flax leaf {"/".join(path)} has no place in '
+                           f'{what}')
+        key, is_kernel = table[path]
+        if is_kernel and value.ndim < 4:
+            raise ValueError(f'{"/".join(path)}: expected an HWIO conv '
+                             f'kernel, got shape {value.shape}')
+        value = _from_flax_layout(value, is_kernel)
+        ref = like[key]
+        if value.shape != tuple(ref.shape):
+            raise ValueError(f'{"/".join(path)}: shape {value.shape} does '
+                             f'not fit {key} {tuple(ref.shape)}')
+        out[key] = torch.from_numpy(np.array(
+            value, dtype=np.float32, order='C')).to(ref.device)
+    for key, ref in like.items():
+        if key in out:
+            continue
+        if ref.is_floating_point():
+            raise KeyError(f'{key} of {what} is not in the flax variables')
+        out[key] = torch.zeros_like(ref)
+    return out
+
+
+def train_state_from_flax(flax_state, model: nn.Module, opt_cfg):
+    """A tpudet ``TrainState`` (numpy or jax leaves; anything with ``step``,
+    ``params``, ``batch_stats``, ``ema_params``, ``ema_batch_stats`` and
+    ``opt_state.momentum_buf``) -> the port's ``TrainState`` for
+    ``model``: params and BN statistics are loaded into the model (strict),
+    the EMA copies and momentum buffers are new tensors on its device."""
+    from ..train.train_state import create_train_state
+    load_flax_variables(model, {'params': flax_state.params,
+                                'batch_stats': flax_state.batch_stats})
+    state = create_train_state(model, opt_cfg)
+    table = leaf_table(model)
+    state.ema_params = _tensors(flax_state.ema_params, table, state.params,
+                                'ema_params', ('params',))
+    state.ema_batch_stats = _tensors(flax_state.ema_batch_stats, table,
+                                     state.batch_stats, 'ema_batch_stats',
+                                     ('batch_stats',))
+    state.opt_state = state.opt_state._replace(momentum_buf=_tensors(
+        flax_state.opt_state.momentum_buf, table,
+        state.opt_state.momentum_buf, 'momentum_buf', ('params',)))
+    state.step.fill_(int(np.asarray(flax_state.step)))
+    return state
+
+
+def train_state_to_flax(state, model: nn.Module) -> SimpleNamespace:
+    """The port's ``TrainState`` -> tpudet's leaves, as numpy trees with
+    the ``TrainState`` attribute names (``step``, ``params``,
+    ``batch_stats``, ``ema_params``, ``ema_batch_stats``,
+    ``opt_state.momentum_buf``); ``train_state_from_flax`` takes it back."""
+    table = leaf_table(model)
+    return SimpleNamespace(
+        step=np.asarray(int(state.step), np.int32),
+        params=_tree(table, state.params, 'params'),
+        batch_stats=_tree(table, state.batch_stats, 'batch_stats'),
+        ema_params=_tree(table, state.ema_params, 'params'),
+        ema_batch_stats=_tree(table, state.ema_batch_stats, 'batch_stats'),
+        opt_state=SimpleNamespace(momentum_buf=_tree(
+            table, state.opt_state.momentum_buf, 'params')))
 
 
 def _truncated_normal(rng: np.random.RandomState, shape, std: float):
