@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: every hand-written kernel of the paths, from ``tpudet_torch/ops/
    csrc``, one nvcc per source, all started together; the registers of
-   each kernel (``cuobjdump -res-usage``);
+   each kernel (``cuobjdump -res-usage``) and the SASS instructions of its
+   main loop per element (``cuobjdump -sass``);
 3. kernels: each kernel (mish forward and backward) against its plain
    PyTorch version on the card, in fp32, bf16 and fp16, at the largest
    shape of its path, at a ragged size and on special values, then timed
@@ -23,11 +24,14 @@ Phases, in order; any failure exits non-zero:
 5. training: the same config with ``compute_dtype='bfloat16'`` through
    ``init_trainer(...).step``: 3 optimizer steps of 72 images (6
    micro-batches of 12, fp32 master weights), the launch counts of every
-   step, losses, step times, peak memory, then a profiled fourth step;
+   step, losses, step times, peak memory, the copies of an incoming
+   gradient the backward wrapper had to make, then a profiled fourth
+   step;
    one fp32 step (micro-batch 2, accumulation 2, TF32 off) on the card
    against the same code on the CPU;
-6. output: a ``kernels`` JSON line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+6. output: a ``kernels`` JSON line (with each kernel's share of its
+   bound), the nvidia-smi line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Times come from CUDA events: warm-up, then the median of the timed runs.
 Kernel times (and their plain and library counterparts) replay a CUDA
@@ -37,6 +41,7 @@ times include the host.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,14 +65,18 @@ CHECK_MICRO, CHECK_ACCUM = 2, 2
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# mish per element: abs, neg, exp, log1p, max, add, tanh, mul
+# mish per element, the one-exp rational form: min, exp, add, mul, add,
+# reciprocal, mul, times x
 MISH_OPS_PER_ELEMENT = 8
-# its gradient: the forward's softplus and tanh (7), sigmoid (neg, exp,
-# add, div), t*t, 1-, two muls, add, times g
-MISH_BWD_OPS_PER_ELEMENT = 17
+# its gradient: the forward's t (7), x*u, u+1, mul, times 4, two times r,
+# add t, times g
+MISH_BWD_OPS_PER_ELEMENT = 15
 
-# fp32: <= 2 ulp; bf16 / fp16: <= 1 ulp of the output type (both the
-# kernel and the plain version round once from fp32)
+# fp32: <= 2 ulp; bf16 / fp16: <= 1 ulp of the output type. The kernels
+# and their plain versions take the same rounded fp32 steps and round once
+# to the output type; they differ only where the card's expf and
+# PyTorch's exp would. The backward is judged in ulps of the gradient's
+# scale, max(|dx|, |g|): mish' crosses zero at x ~ -1.1924.
 ULP_TOL = {'float32': 2, 'bfloat16': 1, 'float16': 1}
 # card fp32 (TF32 off) against the CPU, per pred map: max |delta| <=
 # 1e-3 * max |ref| (the two sum the convs in other orders)
@@ -102,31 +111,116 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
+# 16-byte vector of each element type, in elements
+PER_VECTOR = {'BF16': 8, 'F16': 8, 'F32': 4}
+
+
+def _kernel_name(mangled):
+    """``mish_fwd_kernel<BF16>`` and the like, from a mangled name."""
+    kind = re.search(r'(mish_(?:fwd|bwd)_kernel)', mangled)
+    if not kind:
+        return mangled
+    dtype = next((t for t in ('BF16', 'F16', 'F32') if t in mangled), '?')
+    pitched = ', pitched' if 'Lb1E' in mangled else ''
+    return f'{kind.group(1)}<{dtype}{pitched}>'
+
+
+def res_usage(tool, library):
+    """Registers, stack and local memory of every kernel function in
+    ``library``, as ``cuobjdump -res-usage`` reports them."""
+    proc = subprocess.run([tool, '-res-usage', str(library)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True)
+    out, func = {}, None
+    for line in proc.stdout.splitlines():
+        line = line.strip()
+        if line.startswith('Function '):
+            func = _kernel_name(line[len('Function '):].rstrip(':'))
+        elif func and line.startswith('REG:'):
+            f = dict(t.split(':', 1) for t in line.split() if ':' in t)
+            out[func] = {'registers': int(f['REG']), 'stack': f.get('STACK'),
+                         'local': f.get('LOCAL')}
+            func = None
+    return out
+
+
+def sass(tool, library):
+    """``cuobjdump -sass`` of ``library``."""
+    return subprocess.run([tool, '-sass', str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
+def sass_main_loops(tool, library):
+    """The main loop of every kernel function in ``library``: of the
+    loops in its SASS (a label and a later branch back to it), the one
+    with the most 16-byte stores, then the longest. Its static
+    instructions, per element (instructions over stores times elements a
+    vector), and its MUFU operations, 16-byte loads and stores. Static
+    counts: a slow path placed inside the loop's range counts, one
+    called out of it does not."""
+    funcs, name = {}, None
+    for line in sass(tool, library).splitlines():
+        m = re.match(r'\s*Function : (\S+)', line)
+        if m:
+            name = m.group(1)
+            funcs[name] = ([], {})
+            continue
+        if name is None:
+            continue
+        ins, at = funcs[name]
+        m = re.match(r'\s*(\.L_x_\d+):', line)
+        if m:
+            at[m.group(1)] = len(ins)
+            continue
+        m = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;', line)
+        if m:
+            at[int(m.group(1), 16)] = len(ins)
+            ins.append(m.group(2))
+    out = {}
+    for mangled, (ins, at) in funcs.items():
+        loops = []
+        for i, op in enumerate(ins):
+            # a branch back to a label (.L_x_N) or an address (0x...)
+            m = re.search(
+                r'BRA(?:\.\w+)*\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))', op)
+            if not m:
+                continue
+            start = at.get(m.group(1)) if m.group(1) else at.get(
+                int(m.group(2), 16))
+            if start is not None and start <= i:
+                body = ins[start:i + 1]
+                stores = sum('STG.E.128' in o for o in body)
+                loops.append((stores, len(body), body))
+        if not loops:
+            continue
+        stores, length, body = max(loops, key=lambda t: t[:2])
+        key = _kernel_name(mangled)
+        per = PER_VECTOR.get(key.split('<')[-1].split(',')[0].rstrip('>'))
+        row = {'instructions': length, 'stores_128': stores,
+               'loads_128': sum('LDG' in o and '.128' in o for o in body)}
+        for op in ('EX2', 'RCP', 'LG2', 'TANH'):
+            row[f'mufu_{op.lower()}'] = sum(f'MUFU.{op}' in o for o in body)
+        if stores and per:
+            row['per_element'] = length / (stores * per)
+        out[key] = row
+    return out
+
+
 def kernel_resources(build, names):
     """Log the registers, stack and local memory of every kernel function
-    in the built libraries, as ``cuobjdump -res-usage`` reports them."""
+    in the built libraries (``cuobjdump -res-usage``) and the static SASS
+    of each one's main loop (``cuobjdump -sass``)."""
     tool = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
     if not os.path.exists(tool):
         log('kernel resources: not measured (no cuobjdump beside nvcc)')
         return
     for name in names:
-        proc = subprocess.run([tool, '-res-usage',
-                               str(build.library_path(name))],
-                              capture_output=True, text=True, timeout=60)
-        if proc.returncode != 0:
-            log(f'resources of {name}: not measured (cuobjdump exited '
-                f'{proc.returncode})')
-            continue
-        func = None
-        for line in proc.stdout.splitlines():
-            line = line.strip()
-            if line.startswith('Function '):
-                func = line[len('Function '):].rstrip(':')
-            elif func and line.startswith('REG:'):
-                f = dict(t.split(':', 1) for t in line.split() if ':' in t)
-                log(f'resources {func}: registers {f.get("REG")}, stack '
-                    f'{f.get("STACK")}, local {f.get("LOCAL")}')
-                func = None
+        lib = build.library_path(name)
+        for func, res in res_usage(tool, lib).items():
+            log(f'resources {func}: registers {res["registers"]}, stack '
+                f'{res["stack"]}, local {res["local"]}')
+        for func, loop in sass_main_loops(tool, lib).items():
+            log(f'sass main loop {func}: ' + json.dumps(loop))
 
 
 def cuda_ms(fn, warmup=3, runs=20):
@@ -169,16 +263,20 @@ MANTISSA = {'float32': 23, 'float16': 10, 'bfloat16': 7}
 MIN_EXP = {'float32': -126, 'float16': -14, 'bfloat16': -126}
 
 
-def ulp_error(got, ref, dtype):
-    """max |got - ref| in ulps of ``dtype`` at ``ref`` over finite values;
-    non-finite values must agree exactly. Returns (ulps, max abs err)."""
+def ulp_error(got, ref, dtype, scale=None):
+    """max |got - ref| in ulps of ``dtype`` at ``max(|ref|, |scale|)`` over
+    finite values; non-finite values must agree exactly. Returns (ulps,
+    max abs err)."""
     import torch
     fin = torch.isfinite(ref)
     same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
     if not bool(same[~fin].all()):
         raise AssertionError(f'{dtype}: non-finite outputs disagree')
     g, r = got[fin].double(), ref[fin].double()
-    mag = torch.clamp_min(r.abs(), 2.0 ** MIN_EXP[dtype])
+    mag = r.abs()
+    if scale is not None:
+        mag = torch.maximum(mag, scale[fin].double().abs())
+    mag = torch.clamp_min(mag, 2.0 ** MIN_EXP[dtype])
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - MANTISSA[dtype])
     diff = (g - r).abs()
     return float((diff / ulp).max()), float(diff.max())
@@ -188,8 +286,11 @@ def special_values(n, dtype, device):
     import torch
     gen = torch.Generator(device=device).manual_seed(SEED)
     x = torch.randn(n, generator=gen, device=device) * 4
+    # then either side of the threshold 20, mish's zero of slope, and the
+    # range where u = e^x is subnormal
     sp = torch.tensor([0., -0., 8., -8., 20., -20., 88., -88., 1e4, -1e4,
-                       float('inf'), float('-inf'), float('nan')],
+                       float('inf'), float('-inf'), float('nan'), 19.99,
+                       20.01, -1.1924, -87., -90., -100., -104.],
                       device=device)
     x[:len(sp)] = sp
     return x.to(dtype)
@@ -246,7 +347,7 @@ def check_mish_bwd_kernel(torch, mish):
             x = special_values(n, dtype, 'cuda').reshape(shape)
             gen = torch.Generator(device='cuda').manual_seed(SEED + 1)
             g = torch.randn(n, generator=gen, device='cuda') + 1
-            g[13:15] = torch.tensor([float('nan'), float('inf')])
+            g[20:22] = torch.tensor([float('nan'), float('inf')])
             g = g.to(dtype).reshape(shape)
             if len(shape) == 4:
                 x = x.contiguous(memory_format=torch.channels_last)
@@ -254,10 +355,11 @@ def check_mish_bwd_kernel(torch, mish):
             got = mish.mish_backward_cuda(x, g)
             ref = mish.mish_backward_reference(x, g)
             torch.cuda.synchronize()
-            ulps, err = ulp_error(got, ref, name)
+            ulps, err = ulp_error(got, ref, name, scale=g)
             worst_abs = max(worst_abs, err)
-            log(f'mish_bwd {name} {tuple(shape)}: {ulps:.3f} ulp '
-                f'(tolerance {ULP_TOL[name]}), max abs err {err:.3e}')
+            log(f'mish_bwd {name} {tuple(shape)}: {ulps:.3f} ulp of the '
+                f'gradient\'s scale (tolerance {ULP_TOL[name]}), max abs err '
+                f'{err:.3e}')
             if ulps > ULP_TOL[name]:
                 raise AssertionError(f'mish backward kernel {name} {shape}: '
                                      f'{ulps} ulp > {ULP_TOL[name]}')
@@ -593,12 +695,31 @@ def tree_gap(a, b):
                         np.asarray(b, np.float64)).max())
 
 
+def record_gradient_layouts(torch, model, sites):
+    """Hooks that append ``(shape, x strides, g strides)`` to ``sites`` for
+    every mish output's incoming gradient ``g`` (the ``g`` its backward
+    kernel reads; ``x`` shares the output's strides). Returns the module
+    hooks, for removal."""
+    from tpudet_torch.models.layers import BatchNormAct, ConvModule
+
+    def hook(mod, args, out):
+        if out.requires_grad:
+            shape, stride = tuple(out.shape), out.stride()
+            out.register_hook(
+                lambda g: sites.append((shape, stride, g.stride())))
+    return [m.register_forward_hook(hook) for m in model.modules()
+            if isinstance(m, (ConvModule, BatchNormAct))
+            and m.act is not None]
+
+
 def run_training(torch, tree):
     """YOLOv4-l 640 at full width and depth, bf16 compute with fp32 master
     weights, through ``init_trainer(...).step``: TRAIN_STEPS optimizer
     steps of 72 images, each with its launch counts (every count set to 0
-    just before the step and read just after), then one profiled step.
-    Returns the launch counts of a step."""
+    just before the step and read just after) and the copies of ``g`` the
+    backward wrapper made, then one profiled step. The first step records
+    the layouts of the gradients the backward kernel reads. Returns the
+    launch counts of a step and the layouts of one micro-batch."""
     from tpudet_torch.apis import init_trainer
     from tpudet_torch.config import Config
     from tpudet_torch.ops import mish
@@ -622,29 +743,41 @@ def run_training(torch, tree):
     p0 = {k: v.detach().clone() for k, v in trainer.state.params.items()}
     e0 = {k: v.clone() for k, v in trainer.state.ema_params.items()}
     per_step = []
+    sites = []
     for step in range(TRAIN_STEPS):
         batch = train_batch(images, SEED + 100 + step)
+        hooks = record_gradient_layouts(torch, model, sites) if step == 0 \
+            else []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mish.mish_cuda.launches = 0
         mish.mish_backward_cuda.launches = 0
+        mish.mish_backward_cuda.g_copies = 0
+        mish.mish_backward_cuda.g_pitched = 0
         t0 = time.perf_counter()
         metrics = trainer.step(batch)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         launches = {'mish_fwd': mish.mish_cuda.launches,
                     'mish_bwd': mish.mish_backward_cuda.launches}
+        g_reads = {'g_copies': mish.mish_backward_cuda.g_copies,
+                   'g_pitched': mish.mish_backward_cuda.g_pitched}
+        for h in hooks:
+            h.remove()
         m = {k: float(v) for k, v in metrics.items()}
         row = dict(step=step, **m, step_ms=step_s * 1e3,
                    img_per_s=images / step_s,
                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   launches=launches)
+                   launches=launches, **g_reads)
         log('train step: ' + json.dumps(row))
         per_step.append(row)
         want = ACCUMULATION * MISH_PER_FORWARD
         if launches != {'mish_fwd': want, 'mish_bwd': want}:
             raise AssertionError(f'step {step}: launches {launches}, not '
                                  f'{want} each')
+        if g_reads['g_copies']:
+            raise AssertionError(f'step {step}: the backward copied g '
+                                 f'{g_reads["g_copies"]} times')
         bad = [k for k, v in m.items() if not math.isfinite(v)]
         if bad:
             raise AssertionError(f'step {step}: non-finite {bad}')
@@ -661,7 +794,10 @@ def run_training(torch, tree):
                    calls=1, top=25)
     del trainer, p0, e0
     torch.cuda.empty_cache()
-    return per_step[-1]['launches']
+    if len(sites) != want:
+        raise AssertionError(f'{len(sites)} gradient layouts recorded in a '
+                             f'step, not {want}')
+    return per_step[-1]['launches'], sites[:MISH_PER_FORWARD]
 
 
 def check_train_step_cpu(torch, tree):
@@ -715,18 +851,20 @@ def check_train_step_cpu(torch, tree):
             raise AssertionError(f'fp32 card {name} differ from the CPU')
 
 
-def time_mish_bwd_main_path(torch, mish, shapes):
-    """The backward kernel over the 108 shapes of one bf16 micro-batch of
-    12 (channels_last, as the training step lays them out): kernel, plain
-    version and ``aten.mish_backward``, each as one CUDA graph of 108
-    launches; bound from bytes and operations."""
+def time_mish_bwd_main_path(torch, mish, sites):
+    """The backward kernel over the 108 sites of one bf16 micro-batch of
+    12, x and g in the layouts the training step gave them (``sites``:
+    shape, x strides, g strides): kernel, plain version and
+    ``aten.mish_backward``, each as one CUDA graph of 108 launches; bound
+    from bytes and operations."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 3)
 
-    def draw(s):
-        return torch.randn(s, generator=gen, device='cuda').to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    xs = [draw(s) for s in shapes]
-    gs = [draw(s) for s in shapes]
+    def draw(shape, stride):
+        span = 1 + sum((n - 1) * s for n, s in zip(shape, stride))
+        return torch.randn(span, generator=gen, device='cuda').to(
+            torch.bfloat16).as_strided(shape, stride)
+    xs = [draw(shape, xst) for shape, xst, _ in sites]
+    gs = [draw(shape, gst) for shape, _, gst in sites]
     n = sum(x.numel() for x in xs)
     bytes_ms = 3 * n * 2 / HBM_BYTES_PER_S * 1e3
     ops_ms = n * MISH_BWD_OPS_PER_ELEMENT / FP32_FLOPS * 1e3
@@ -817,10 +955,9 @@ def main():
 
     # 5. training; every step with counts at 0 just before
     t0 = time.perf_counter()
-    train_launches = run_training(torch, tree)
+    train_launches, grad_sites = run_training(torch, tree)
     check_train_step_cpu(torch, tree)
-    timed_bwd = time_mish_bwd_main_path(
-        torch, mish, [(MICRO_BATCH,) + s[1:] for s in mish_shapes])
+    timed_bwd = time_mish_bwd_main_path(torch, mish, grad_sites)
     log(f'training phases: {time.perf_counter() - t0:.1f} s')
 
     # 6. output
@@ -834,6 +971,7 @@ def main():
             max_abs_err=max(worst, timed['max_abs_err']),
             ms=timed['ms'], plain_ms=timed['plain_ms'],
             bound_ms=timed['bound_ms'], bound_by=timed['bound_by'],
+            bound_share=timed['bound_ms'] / timed['ms'],
             library_ms=timed['library_ms'])
     kernels = [row('mish_fwd', 'tpudet/ops/mish.py:68', worst_fwd, timed_fwd),
                row('mish_bwd', 'tpudet/ops/mish.py:73', worst_bwd, timed_bwd)]

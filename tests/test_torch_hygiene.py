@@ -1,6 +1,7 @@
-"""The port stands alone: ``tpudet_torch`` and ``chip_smoke.py`` import no
-JAX, no flax and no module of the JAX package ``tpudet``, and importing
-the port needs neither ``nvcc`` nor ``triton``."""
+"""The port stands alone: ``tpudet_torch``, ``chip_smoke.py`` and
+``mish_variants.py`` import no JAX, no flax and no module of the JAX
+package ``tpudet``, and importing the port needs neither ``nvcc`` nor
+``triton``."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'tpudet')
 
 
 def _port_files():
-    files = [os.path.join(ROOT, 'chip_smoke.py')]
+    files = [os.path.join(ROOT, n) for n in ('chip_smoke.py',
+                                             'mish_variants.py')]
     for d, _, names in os.walk(os.path.join(ROOT, 'tpudet_torch')):
         files += [os.path.join(d, n) for n in names if n.endswith('.py')]
     return sorted(files)

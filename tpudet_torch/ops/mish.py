@@ -3,7 +3,8 @@
 Port of ``tpudet/ops/mish.py``. On the card every mish of the network goes
 through :func:`mish_cuda`, the hand-written kernels in ``csrc/mish.cu``
 (the counterparts of tpudet's Pallas ``mish_pallas`` and its custom VJP):
-fp32 arithmetic, rounded once to the input type. A tensor that requires
+fp32 arithmetic by tpudet's one-exp rational identity, rounded once to the
+input type. A tensor that requires
 grad goes through :class:`MishFunction`, which saves only ``x`` and whose
 backward is :func:`mish_backward_cuda`. On a CPU tensor the same wrappers
 compute their plain PyTorch versions, :func:`mish_reference` and
@@ -23,41 +24,56 @@ import torch
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """Stable softplus, ``max(x, 0) + log1p(exp(-|x|))``."""
-    return torch.clamp_min(x, 0.) + torch.log1p(torch.exp(-x.abs()))
+# the reference's softplus THRESHOLD (tpudet/ops/mish.py:4-5): from here on
+# mish(x) = x and mish'(x) = 1 to within 1e-15
+THRESHOLD = 20.0
+
+
+def _tanh_softplus(xf: torch.Tensor):
+    """``tanh(softplus(x))`` of fp32 ``xf`` by tpudet's one-exp identity, as
+    the kernels take it, each op rounded: ``u = e^min(x, 20)``, ``r = 1 /
+    (u (u + 2) + 2)``, ``t = u (u + 2) r``. Returns ``(u, r, t)``."""
+    u = torch.exp(torch.clamp_max(xf, THRESHOLD))
+    b = u * (u + 2)
+    r = torch.reciprocal(b + 2)
+    return u, r, b * r
 
 
 def mish_reference(x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch mish: widen to fp32, ``x * tanh(softplus(x))``, round
-    once to ``x.dtype``. The kernel's function, op for op. ``-inf`` maps to
-    0, the limit (the literal product would be ``-inf * 0 = NaN``)."""
+    """Plain PyTorch mish, the forward kernel's function op for op: widen
+    to fp32, ``y = x t`` with ``t`` from :func:`_tanh_softplus`, round once
+    to ``x.dtype``. ``y = x`` from ``x = 20`` on; ``-inf`` maps to 0, the
+    limit (the product would be ``-inf * 0 = NaN``)."""
     xf = x.float()
-    y = torch.where(xf == float('-inf'), torch.zeros_like(xf),
-                    xf * torch.tanh(_softplus(xf)))
+    y = xf * _tanh_softplus(xf)[2]
+    y = torch.where(xf >= THRESHOLD, xf, y)
+    y = torch.where(xf == float('-inf'), 0.0, y)
     return y.to(x.dtype)
 
 
 def mish_backward_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch gradient of mish (tpudet's ``_mish_bwd_kernel``): widen
-    ``x`` and the incoming gradient ``g`` to fp32, ``t = tanh(softplus(x))``,
-    ``g * (t + x * (1 - t^2) * sigmoid(x))``, round once to ``x.dtype``.
-    The backward kernel's function, op for op. At ``x = +-inf`` the
-    derivative is its limit, 1 and 0 (the literal formula gives
-    ``inf * 0 = NaN``)."""
+    """Plain PyTorch gradient of mish, the backward kernel's function op
+    for op: widen ``x`` and the incoming gradient ``g`` to fp32, ``d = t +
+    4 x u (u + 1) r r`` (``u, r, t`` from :func:`_tanh_softplus`; it is
+    ``t + x (1 - t^2) sigmoid(x)``, tpudet's ``_mish_bwd_kernel``), round
+    ``g d`` once to ``x.dtype``. ``r`` enters twice since ``(u (u + 2) +
+    2)^2`` overflows past ``x = 22``; ``x u`` comes first since ``4 x`` may
+    overflow where ``u`` is 0. ``d`` is 1 from ``x = 20`` on and at
+    ``+inf``, and 0 at ``-inf``, the limits."""
     xf = x.float()
-    t = torch.tanh(_softplus(xf))
-    d = t + xf * (1 - t * t) * torch.sigmoid(xf)
-    d = torch.where(xf == float('inf'), torch.ones_like(d),
-                    torch.where(xf == float('-inf'), torch.zeros_like(d), d))
+    u, r, t = _tanh_softplus(xf)
+    d = t + xf * u * (u + 1) * 4 * r * r
+    d = torch.where(xf >= THRESHOLD, 1.0, d)
+    d = torch.where(xf == float('-inf'), 0.0, d)
     return (g.float() * d).to(x.dtype)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
     """tpudet's dtype-preserving ``mish`` (``tpudet/ops/mish.py:29-65``):
-    fp32 and fp16 compute the literal chain in fp32; bf16 computes in bf16
-    with the one-exp rational form ``u(u+2)/(u^2+2u+2)``, ``u = e^x``,
-    clamped at 8."""
+    fp32 and fp16 compute in fp32 (:func:`mish_reference`, within a few
+    fp32 ulp of tpudet's literal chain); bf16 computes in bf16 with the
+    one-exp rational form ``u(u+2)/(u^2+2u+2)``, ``u = e^x``, clamped at
+    8, as tpudet does."""
     if x.dtype != torch.bfloat16:
         return mish_reference(x)
     u = torch.exp(torch.clamp_max(x, 8.0))
@@ -69,11 +85,10 @@ def _kernels():
     """The kernels' C entry points, built and loaded on first use."""
     from .build import load
     lib = load('mish')
+    ptr, size = ctypes.c_void_p, ctypes.c_longlong
     fwd, bwd = lib.tpudet_mish_fwd, lib.tpudet_mish_bwd
-    fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fwd.argtypes = [ptr, ptr, size, ctypes.c_int, ptr]
+    bwd.argtypes = [ptr, ptr, ptr, size, size, size, ctypes.c_int, ptr]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -93,10 +108,10 @@ def _check(x: torch.Tensor, name: str):
         raise ValueError(f'{name}: input must be contiguous or channels_last')
 
 
-def _launch(fn, x: torch.Tensor, *ptrs) -> None:
-    """Call kernel entry ``fn`` with ``ptrs``, ``x``'s size and dtype, on
-    the current stream of ``x``'s device; raise on a launch error."""
-    args = (*ptrs, x.numel(), _DTYPE_CODES[x.dtype],
+def _launch(fn, x: torch.Tensor, *args) -> None:
+    """Call kernel entry ``fn`` with ``args``, ``x``'s dtype code and the
+    current stream of ``x``'s device; raise on a launch error."""
+    args = (*args, _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if x.device.index == torch.cuda.current_device():
         err = fn(*args)
@@ -115,9 +130,40 @@ def _forward(x: torch.Tensor) -> torch.Tensor:
     _check(x, 'mish_cuda')
     y = torch.empty_like(x)
     if x.numel():
-        _launch(_kernels()[0], x, x.data_ptr(), y.data_ptr())
+        _launch(_kernels()[0], x, x.data_ptr(), y.data_ptr(), x.numel())
         mish_cuda.launches += 1
     return y
+
+
+def _memory_order(x: torch.Tensor):
+    """``x``'s dims from the outermost in memory to the innermost."""
+    if x.is_contiguous() or x.dim() != 4:
+        return tuple(range(x.dim()))
+    return 0, 2, 3, 1  # channels_last
+
+
+def _g_rows(x: torch.Tensor, g: torch.Tensor):
+    """How the backward kernel can read ``g`` beside a dense ``x`` of the
+    same shape: ``(row, pitch)`` when ``g``'s elements, taken in ``x``'s
+    memory order, are rows of ``row`` contiguous elements whose starts lie
+    ``pitch`` elements apart, else None. ``row == x.numel()`` means ``g``
+    is laid out as ``x``. A channel slice of a channels_last concat's
+    gradient, which autograd hands a mish before a ``torch.cat``, is rows
+    of C at a pitch of the concat's channels."""
+    dims = [(x.shape[d], g.stride(d)) for d in _memory_order(x)
+            if x.shape[d] != 1]
+    row, k = 1, len(dims)
+    while k and dims[k - 1][1] == row:
+        k -= 1
+        row *= dims[k][0]
+    if k == 0:
+        return row, row
+    pitch = span = dims[k - 1][1]
+    for size, stride in reversed(dims[:k]):
+        if stride != span:
+            return None
+        span *= size
+    return row, pitch
 
 
 def mish_backward_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -126,9 +172,11 @@ def mish_backward_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     launch in ``mish_backward_cuda.launches``); CPU tensors take
     :func:`mish_backward_reference`. The output has ``x``'s layout.
 
-    The kernel reads ``x`` and ``g`` in memory order, so ``g`` is first
-    brought to ``x``'s strides if it has others (autograd may hand over a
-    gradient in another memory format)."""
+    The kernel reads ``x`` in memory order and ``g`` in its own layout
+    where that is ``x``'s or rows of whole 16-byte vectors at a pitch
+    (:func:`_g_rows`; each such launch counts in ``.g_pitched``). A ``g``
+    in any other layout is first copied into ``x``'s strides, one more
+    pass over it, counted in ``.g_copies``."""
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f'mish_backward_cuda: g {tuple(g.shape)} {g.dtype} '
                          f'{g.device} does not match x {tuple(x.shape)} '
@@ -136,16 +184,32 @@ def mish_backward_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.device.type == 'cpu':
         return mish_backward_reference(x, g)
     _check(x, 'mish_backward_cuda')
-    if g.stride() != x.stride():
-        g = torch.empty_like(x).copy_(g)
     dx = torch.empty_like(x)
-    if x.numel():
-        _launch(_kernels()[1], x, x.data_ptr(), g.data_ptr(), dx.data_ptr())
-        mish_backward_cuda.launches += 1
+    n = x.numel()
+    if not n:
+        return dx
+    rows = _g_rows(x, g)
+    if rows is not None and rows[0] != n:
+        vec = 16 // x.element_size()
+        if (rows[0] % vec or rows[1] % vec or any(
+                t.data_ptr() % 16 for t in (x, g, dx))):
+            rows = None
+    if rows is None:
+        g = torch.empty_like(x).copy_(g)
+        mish_backward_cuda.g_copies += 1
+        rows = n, n
+    row, pitch = (0, 0) if rows[0] == n else rows  # 0, 0: g laid out as x
+    _launch(_kernels()[1], x, x.data_ptr(), g.data_ptr(), dx.data_ptr(), n,
+            row, pitch)
+    if row:
+        mish_backward_cuda.g_pitched += 1
+    mish_backward_cuda.launches += 1
     return dx
 
 
 mish_backward_cuda.launches = 0
+mish_backward_cuda.g_copies = 0
+mish_backward_cuda.g_pitched = 0
 
 
 class MishFunction(torch.autograd.Function):
