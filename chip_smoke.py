@@ -21,7 +21,14 @@ Phases, in order; any failure exits non-zero:
    batch of 8 in bf16 through ``init_detector`` / ``Detector``; the launch
    counts of that one run; the card in fp32 against the same model on the
    CPU; bf16 against fp32; forward / decode / NMS / end-to-end times;
-5. training: the same config with ``compute_dtype='bfloat16'`` through
+5. evaluation: 32 images in mixed sizes, made from the seed, through the
+   port's ``CocoDataset`` (the config's test pipeline on the card),
+   ``DetDataLoader`` and ``single_device_test`` at batch 8 in bf16, then
+   ``coco_fast_bbox_eval``: the launch counts of that one run; the
+   pipeline on the card against the CPU; the first batch in fp32 on the
+   card against the CPU; the ground truth fed back as detections (map
+   1.0); images/s over the whole flow and the per-stage ms of a batch;
+6. training: the same config with ``compute_dtype='bfloat16'`` through
    ``init_trainer(...).step``: 3 optimizer steps of 72 images (6
    micro-batches of 12, fp32 master weights), the launch counts of every
    step, losses, step times, peak memory, the copies of an incoming
@@ -29,7 +36,7 @@ Phases, in order; any failure exits non-zero:
    step;
    one fp32 step (micro-batch 2, accumulation 2, TF32 off) on the card
    against the same code on the CPU;
-6. output: a ``kernels`` JSON line (with each kernel's share of its
+7. output: a ``kernels`` JSON line (with each kernel's share of its
    bound), the nvidia-smi line, and last ``{"ok": true, "device":
    {...}}``.
 
@@ -91,12 +98,29 @@ BF16_PRED_TOL = 1e-1
 # maps differ by as much as they are large. At 0.25 the same rounding
 # stays at a few percent, as in a trained network.
 BN_SCALE = 0.25
+# the evaluation set's letterbox puts flat canvas beside the image; at
+# 0.25 the random network's response at those edges runs away (pred
+# logits to 80, scores of exactly 1.0, boxes under 0.05 px wide, where
+# IoU cannot tell a 0.005 px rounding from a miss); at 0.1 the logits
+# stay within 8 spreads
+EVAL_BN_SCALE = 0.1
 MATCH_IOU = 0.99
+# a box narrower or lower than 1 px matches one whose corners lie within
+# this many px instead (IoU is ill-conditioned there)
+MATCH_CORNER_PX = 0.02
 # card fp32 (TF32 off) train step against the CPU: the loss to rtol 1e-4;
 # params, BN statistics, EMA and momentum buffers within 5e-3 of the
 # largest change the step made to them (sums run in other orders)
 STEP_LOSS_RTOL = 1e-4
 STEP_TREE_TOL = 5e-3
+# evaluation: 32 images cycling through these (h, w), 2-6 gts each, one
+# crowd gt and one gt of a category outside the 80 classes
+EVAL_IMAGES = 32
+EVAL_SIZES = [(480, 640), (640, 480), (720, 1280), (333, 500), (1280, 1280)]
+EVAL_TIMED_RUNS = 3
+# the test pipeline on the card against the CPU: the same integer ops, so
+# 0 expected; at most 1 uint8 level after Normalize
+PIPELINE_TOL = 1 / 255
 
 
 def log(*args):
@@ -378,10 +402,10 @@ def check_mish_bwd_kernel(torch, mish):
     return worst_abs, stem
 
 
-def make_variables(torch, cfg, img):
+def make_variables(torch, cfg, img, bn_scale=BN_SCALE):
     """tpudet variables for YOLOv4-l from a numpy seed, in three steps:
 
-    - tpudet's init, with every BatchNorm scale at ``BN_SCALE``;
+    - tpudet's init, with every BatchNorm scale at ``bn_scale``;
     - BatchNorm statistics measured on ``img``, the smoke's own batch:
       tpudet's init leaves BN an identity and activations grow layer by
       layer, while statistics of other images let near-constant channels
@@ -404,7 +428,7 @@ def make_variables(torch, cfg, img):
             node = tree['params']
             for p in path[1:-1]:
                 node = node[p]
-            node['scale'] = np.full_like(node['scale'], BN_SCALE)
+            node['scale'] = np.full_like(node['scale'], bn_scale)
     load_flax_variables(model, tree)
     model.to('cuda', memory_format=torch.channels_last)
     for m in model.modules():
@@ -623,7 +647,8 @@ def run_slice(torch):
 
 def profile_device(torch, fn, label, calls=3, top=15):
     """torch.profiler over ``calls`` calls of ``fn``: the device's busy
-    share of the wall time and the kernels that take it, by name."""
+    share of the wall time and the kernels that take it, by name. Returns
+    (wall ms, device busy ms) per call, or None without device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -638,7 +663,7 @@ def profile_device(torch, fn, label, calls=3, top=15):
     if not kernels:
         log(f'profile {label}: the profiler recorded no device activity; '
             f'device busy share not measured')
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float('-inf')
     for a, b in spans:  # union of kernel intervals, us
@@ -657,6 +682,334 @@ def profile_device(torch, fn, label, calls=3, top=15):
     for name, (ms, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:top]:
         log(f'  {ms:8.3f} ms  {n // calls:5d}x  {name[:100]}')
+    return wall_ms, busy_ms
+
+
+def eval_set(seed):
+    """The evaluation set from a numpy seed: (h, w, 3) BGR uint8 images of
+    textured filled rectangles on a noise floor, and a COCO dict whose gts
+    are the rectangles (categories 1-80 named as the config's classes,
+    category 91 outside them). Image 0 holds a crowd gt, image 1 a gt of
+    category 91."""
+    import numpy as np
+    from tpudet_torch.data import COCO_CLASSES
+    rng = np.random.RandomState(seed)
+    arrays, images, anns = {}, [], []
+    for i in range(EVAL_IMAGES):
+        h, w = EVAL_SIZES[i % len(EVAL_SIZES)]
+        img = rng.randint(60, 196, (h, w, 3)).astype(np.uint8)
+        for j in range(rng.randint(2, 7)):
+            bw = rng.randint(w // 16, w // 2)
+            bh = rng.randint(h // 16, h // 2)
+            x, y = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            img[y:y + bh, x:x + bw] = np.clip(
+                rng.randint(0, 256, 3) + rng.randint(-24, 25, (bh, bw, 3)),
+                0, 255)
+            cat = 91 if (i, j) == (1, 0) else int(rng.randint(1, 81))
+            anns.append(dict(id=len(anns) + 1, image_id=i + 1,
+                             category_id=cat, bbox=[x, y, bw, bh],
+                             area=float(bw * bh),
+                             iscrowd=int((i, j) == (0, 0))))
+        arrays[i + 1] = img
+        images.append(dict(id=i + 1, file_name=f'{i:04d}.jpg', width=w,
+                           height=h))
+    cats = [dict(id=k + 1, name=n) for k, n in enumerate(COCO_CLASSES)]
+    cats.append(dict(id=91, name='unicorn'))
+    return arrays, dict(images=images, annotations=anns, categories=cats)
+
+
+def array_dataset(cfg, arrays, coco, device, tmp):
+    """The port's ``CocoDataset`` over images held in memory: each array
+    goes into ``results['img']`` and the config's test pipeline runs from
+    its second transform on, as ``inference_detector`` does for an
+    array."""
+    import numpy as np
+    from tpudet_torch.data import CocoDataset
+
+    class ArrayCocoDataset(CocoDataset):
+
+        def __getitem__(self, idx):
+            results = self.prepare_input(idx)
+            img = arrays[self.data_infos[idx]['id']]
+            results.update(
+                img=img, img_shape=img.shape, ori_shape=img.shape,
+                pad_shape=img.shape, scale_factor=np.ones(4, np.float32),
+                img_fields=['img'], bbox_fields=[],
+                filename=self.data_infos[idx]['filename'])
+            for t in self.pipeline.transforms[1:]:
+                results = t(results)
+            return results
+
+    path = os.path.join(tmp, f'ann_{len(coco["images"])}.json')
+    with open(path, 'w') as f:
+        json.dump(coco, f)
+    test = cfg['data']['test']
+    return ArrayCocoDataset(ann_file=path, pipeline=test['pipeline'],
+                            test_mode=True, device=device)
+
+
+def match_per_class(ref, got, iou_min):
+    """Greedy one-to-one matching of two images' per-class (n, 5) arrays
+    within each class: IoU >= iou_min or, for a reference box under 1 px
+    wide or high, corners within MATCH_CORNER_PX. Returns (matched, n_ref,
+    n_got, matched by corners)."""
+    import numpy as np
+    matched = n_ref = n_got = by_corner = 0
+    for r, g in zip(ref, got):
+        n_ref, n_got = n_ref + len(r), n_got + len(g)
+        if not (len(r) and len(g)):
+            continue
+        by_iou = _iou(r[:, :4], g[:, :4]) >= iou_min
+        thin = (r[:, 2:4] - r[:, :2]).min(1) < 1
+        near = np.abs(r[:, None, :4] - g[None, :, :4]).max(-1) <= \
+            MATCH_CORNER_PX
+        ok = by_iou | (thin[:, None] & near)
+        used = np.zeros(len(g), bool)
+        for i in range(len(r)):
+            cand = np.nonzero(ok[i] & ~used)[0]
+            if len(cand):
+                used[cand[0]] = True
+                matched += 1
+                by_corner += int(not by_iou[i, cand[0]])
+    return matched, n_ref, n_got, by_corner
+
+
+def check_eval_pipeline(torch, cfg, arrays, coco, tmp):
+    """The test pipeline on the card against the same pipeline on the
+    CPU, over the first batch's images."""
+    import numpy as np
+    card = array_dataset(cfg, arrays, coco, 'cuda', tmp)
+    cpu = array_dataset(cfg, arrays, coco, 'cpu', tmp)
+    worst = 0.0
+    for i in range(BATCH):
+        a, b = card[i], cpu[i]
+        for k in ('img_shape', 'pad_shape'):
+            if a[k] != b[k]:
+                raise AssertionError(f'image {i}: {k} {a[k]} != {b[k]}')
+        if not np.array_equal(a['scale_factor'], b['scale_factor']):
+            raise AssertionError(f'image {i}: scale_factor differs')
+        if a['img'].device.type != 'cuda':
+            raise AssertionError('the pipeline did not run on the card')
+        worst = max(worst, float((a['img'].cpu() - b['img']).abs().max()))
+    log(f'test pipeline, card vs CPU over {BATCH} images: max |delta| '
+        f'{worst:.3e} (tolerance {PIPELINE_TOL:.3e}, one uint8 level)')
+    if worst > PIPELINE_TOL:
+        raise AssertionError('the test pipeline on the card differs from '
+                             'the CPU')
+    return worst
+
+
+def check_eval_fp32(torch, cfg, tree, arrays, coco, tmp):
+    """The first batch through ``single_device_test`` in fp32 on the card
+    (TF32 off) and on the CPU: detections one-to-one per image and class
+    at IoU >= MATCH_IOU."""
+    from tpudet_torch.apis import init_detector, single_device_test
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    first = dict(coco, images=coco['images'][:BATCH])
+    out = {}
+    for device in ('cuda', 'cpu'):
+        det = init_detector(cfg, variables=tree, device=device,
+                            dtype=torch.float32)
+        ds = array_dataset(cfg, arrays, first, device, tmp)
+        t0 = time.perf_counter()
+        out[device] = single_device_test(det.model, ds, batch_size=BATCH,
+                                         img_size=IMG, progress=False)
+        log(f'fp32 eval batch on {device}: '
+            f'{time.perf_counter() - t0:.1f} s')
+        del det
+        torch.cuda.empty_cache()
+    total = [0, 0, 0, 0]
+    for i, (r, g) in enumerate(zip(out['cpu'], out['cuda'])):
+        m = match_per_class(r, g, MATCH_IOU)
+        total = [a + b for a, b in zip(total, m)]
+        if not m[0] == m[1] == m[2]:
+            raise AssertionError(f'fp32 eval image {i}: {m[0]} matched of '
+                                 f'{m[1]} / {m[2]}')
+    log(f'fp32 eval batch, card vs CPU: {total[0]} detections matched of '
+        f'{total[1]} / {total[2]} (per class, IoU >= {MATCH_IOU}; '
+        f'{total[3]} boxes under 1 px by corners within '
+        f'{MATCH_CORNER_PX} px)')
+    if total[1] == 0:
+        raise AssertionError('no detection in the fp32 eval batch')
+
+
+def eval_stage_times(torch, det, ds, arrays):
+    """ms of each stage for the first batch of 8, each alone: the
+    pipeline and collate (host clock to a synchronize, the copies
+    included), the copy of the batch's uint8 images to the card (CUDA
+    events), forward, decode and NMS (CUDA events), the per-class split
+    (host clock; it waits for the NMS output)."""
+    from tpudet_torch.apis import nms_result_to_per_class
+    from tpudet_torch.core.nms import batched_class_lane_nms
+    from tpudet_torch.data import DetDataLoader
+    loader = DetDataLoader(ds, batch_size=BATCH, max_gts=1, img_size=IMG,
+                           shuffle=False, drop_last=False)
+    idx = list(range(BATCH))
+    host = [arrays[ds.data_infos[i]['id']] for i in idx]
+
+    def pipeline():
+        loader._collate([ds[i] for i in idx])
+
+    def host_ms(fn, runs=5):
+        fn()
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    batch = loader._collate([ds[i] for i in idx])
+    model, cfg_t = det.model, dict(det.model.test_cfg)
+    img = batch['img']
+    sf = torch.as_tensor(batch['scale_factor'], device='cuda')
+    with torch.inference_mode():
+        pm = model(img)
+        bbox, scores = model.get_bboxes(pm, scale_factors=sf,
+                                        with_nms=False)
+        res = model.get_bboxes(pm, scale_factors=sf)
+        times = {
+            'pipeline_ms': host_ms(pipeline),
+            'copy_ms': cuda_ms(lambda: [torch.from_numpy(a).to('cuda')
+                                        for a in host], runs=10),
+            'copy_bytes': sum(a.nbytes for a in host),
+            'forward_ms': cuda_ms(lambda: model(img), runs=10),
+            'decode_ms': cuda_ms(lambda: model.get_bboxes(
+                pm, scale_factors=sf, with_nms=False), runs=10),
+            'nms_ms': cuda_ms(lambda: batched_class_lane_nms(
+                bbox, scores, cfg_t['score_thr'],
+                cfg_t['nms']['iou_threshold'], cfg_t['max_per_img'],
+                lane_pre=cfg_t['lane_pre'], class_pre=cfg_t['class_pre']),
+                runs=10),
+            'per_class_ms': host_ms(lambda: nms_result_to_per_class(
+                res, model.bbox_head.num_classes)),
+        }
+    return times
+
+
+def run_eval(torch):
+    """YOLOv4-l 640 bf16 over the evaluation set: ``CocoDataset`` ->
+    ``DetDataLoader`` -> ``single_device_test`` at batch 8 ->
+    ``coco_fast_bbox_eval``, once with every kernel count at 0 just
+    before; then the card-vs-CPU checks, the ground-truth check, timed
+    runs of the whole flow, per-stage times and a profiled run. Returns
+    the launches per batch.
+
+    The weights are drawn as for the other phases, with the BatchNorm
+    statistics measured on the set's first batch and the BatchNorm scale
+    at ``EVAL_BN_SCALE``: statistics of random pixels leave these images'
+    flat regions far outside the network's range (pred logits with a
+    spread in the thousands, boxes of zero size, scores of 1.0)."""
+    import tempfile
+
+    import numpy as np
+    from tpudet_torch.apis import init_detector, single_device_test
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import DetDataLoader
+    from tpudet_torch.evaluation import coco_fast_bbox_eval
+    from tpudet_torch.ops import mish
+
+    cfg = Config.fromfile(CONFIG)
+    arrays, coco = eval_set(SEED + 300)
+    n_gts = len(coco['annotations'])
+    batches = -(-EVAL_IMAGES // BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = array_dataset(cfg, arrays, coco, 'cuda', tmp)
+        first = DetDataLoader(ds, batch_size=BATCH, img_size=IMG)._collate(
+            [ds[i] for i in range(BATCH)])['img'].cpu().numpy()
+        tree = make_variables(torch, cfg, first, bn_scale=EVAL_BN_SCALE)
+        det = init_detector(cfg, variables=tree, device='cuda',
+                            dtype=torch.bfloat16)
+        log(f'evaluation set: {len(ds)} images, {n_gts} gts, sizes '
+            f'{EVAL_SIZES} (h, w); {batches} batches of {BATCH}, bf16')
+
+        # the flow once, every count at 0 just before
+        mish.mish_cuda.launches = 0
+        mish.mish_backward_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = single_device_test(det.model, ds, batch_size=BATCH,
+                                     img_size=IMG, progress=False)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {'mish_fwd': mish.mish_cuda.launches,
+                    'mish_bwd': mish.mish_backward_cuda.launches}
+        log(f'eval flow launches over {batches} batches: '
+            f'{json.dumps(launches)}')
+        if launches != {'mish_fwd': batches * MISH_PER_FORWARD,
+                        'mish_bwd': 0}:
+            raise AssertionError(f'eval flow launches {launches}, not '
+                                 f'{MISH_PER_FORWARD} forward per batch')
+        if len(results) != EVAL_IMAGES:
+            raise AssertionError(f'{len(results)} results, not '
+                                 f'{EVAL_IMAGES}')
+        n_det = n_flat = 0
+        for per_cls in results:
+            if len(per_cls) != 80:
+                raise AssertionError('a result without 80 classes')
+            for a in per_cls:
+                if a.ndim != 2 or a.shape[1] != 5 or \
+                        not np.isfinite(a).all():
+                    raise AssertionError('a malformed or non-finite result')
+                n_det += len(a)
+                n_flat += int((np.prod(a[:, 2:4] - a[:, :2], 1) <= 0).sum())
+        annos = [ds.get_ann_info_test(i) for i in range(len(ds))]
+        t0 = time.perf_counter()
+        report = coco_fast_bbox_eval(results, annos, classes=ds.CLASSES)
+        eval_s = time.perf_counter() - t0
+        log(f'fast-bbox on {n_det} detections, {n_flat} of them boxes of '
+            f'no area ({eval_s:.3f} s, random weights): '
+            + json.dumps(report))
+        if not math.isfinite(report['map']):
+            raise AssertionError('a non-finite map')
+
+        # the ground truth fed back as detections
+        gt_dets = []
+        for a in annos:
+            keep = ~a['gt_attrs']['ignore']
+            gt_dets.append([np.concatenate(
+                [a['gt_bboxes'][keep & (a['gt_labels'] == c)],
+                 np.ones((int((keep & (a['gt_labels'] == c)).sum()), 1),
+                         np.float32)], 1) for c in range(80)])
+        gt_report = coco_fast_bbox_eval(gt_dets, annos, classes=ds.CLASSES)
+        log('fast-bbox of the ground truth as detections: '
+            + json.dumps(gt_report))
+        if gt_report['map'] != 1.0:
+            raise AssertionError('the ground truth does not give map 1.0')
+
+        # timed runs of the whole flow, host included
+        walls = []
+        for _ in range(EVAL_TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single_device_test(det.model, ds, batch_size=BATCH, img_size=IMG,
+                               progress=False)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        log('eval flow, bf16 batch 8: ' + json.dumps(dict(
+            first_run_s=first_s, timed_runs_s=walls,
+            img_per_s=[EVAL_IMAGES / w for w in walls],
+            eval_s=eval_s)))
+        stages = eval_stage_times(torch, det, ds, arrays)
+        log('eval batch stages (first batch, each alone): '
+            + json.dumps(stages))
+        prof = profile_device(
+            torch, lambda: single_device_test(det.model, ds,
+                                              batch_size=BATCH,
+                                              img_size=IMG, progress=False),
+            'eval run', calls=1, top=20)
+        if prof:
+            log(f'eval run: device busy {prof[1] / batches:.3f} ms per batch '
+                f'of {BATCH}, wall {prof[0] / batches:.3f} ms per batch')
+        del det, ds
+        torch.cuda.empty_cache()
+
+        check_eval_pipeline(torch, cfg, arrays, coco, tmp)
+        check_eval_fp32(torch, cfg, tree, arrays, coco, tmp)
+    return {k: v // batches for k, v in launches.items()}
 
 
 def train_batch(n, seed):
@@ -953,14 +1306,19 @@ def main():
     timed_fwd = time_mish_main_path(torch, mish, mish_shapes)
     log(f'inference phases: {time.perf_counter() - t0:.1f} s')
 
-    # 5. training; every step with counts at 0 just before
+    # 5. evaluation; its flow once with counts at 0 just before
+    t0 = time.perf_counter()
+    eval_launches = run_eval(torch)
+    log(f'evaluation phases: {time.perf_counter() - t0:.1f} s')
+
+    # 6. training; every step with counts at 0 just before
     t0 = time.perf_counter()
     train_launches, grad_sites = run_training(torch, tree)
     check_train_step_cpu(torch, tree)
     timed_bwd = time_mish_bwd_main_path(torch, mish, grad_sites)
     log(f'training phases: {time.perf_counter() - t0:.1f} s')
 
-    # 6. output
+    # 7. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -975,6 +1333,8 @@ def main():
             library_ms=timed['library_ms'])
     kernels = [row('mish_fwd', 'tpudet/ops/mish.py:68', worst_fwd, timed_fwd),
                row('mish_bwd', 'tpudet/ops/mish.py:73', worst_bwd, timed_bwd)]
+    for k in kernels:
+        k['launches_by_path']['eval_batch'] = eval_launches[k['name']]
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

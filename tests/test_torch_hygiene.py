@@ -70,3 +70,21 @@ def test_import_needs_no_jax_nvcc_or_triton():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == 'ok'
+
+
+def test_eval_path_imports_neither_cv2_nor_triton():
+    """The card's machine has no cv2: the data, evaluation and test
+    modules import it only when a file is read."""
+    code = (
+        'import sys\n'
+        'import tpudet_torch.data, tpudet_torch.evaluation\n'
+        'import tpudet_torch.apis.test, tpudet_torch.apis\n'
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
+        '             ("cv2", "triton", "jax", "flax", "tpudet"))\n'
+        'assert not bad, bad\n'
+        'print("ok")\n')
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == 'ok'

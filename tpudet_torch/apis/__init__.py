@@ -1,5 +1,8 @@
-from .inference import Detector, init_detector
+from .inference import (Detector, inference_detector, init_detector,
+                        nms_result_to_per_class)
+from .test import single_device_test
 from .train import Trainer, init_trainer, opt_config_from_cfg
 
-__all__ = ['Detector', 'init_detector', 'Trainer', 'init_trainer',
-           'opt_config_from_cfg']
+__all__ = ['Detector', 'init_detector', 'inference_detector',
+           'nms_result_to_per_class', 'single_device_test', 'Trainer',
+           'init_trainer', 'opt_config_from_cfg']

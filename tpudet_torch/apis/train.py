@@ -23,8 +23,8 @@ from ..models.builder import build_detector
 from ..train.optim import YoloSGDConfig
 from ..train.train_state import (TrainState, create_train_state,
                                   make_train_step)
+from ..utils.device import resolve_device
 from ..utils.flax_import import load_flax_variables, random_flax_variables
-from .inference import _device
 
 BATCH_KEYS = ('img', 'gt_bboxes', 'gt_labels', 'gt_valid')
 
@@ -128,7 +128,7 @@ def init_trainer(config: Union[str, Config],
     so until then it is required. ``compute_dtype='bfloat16'`` computes
     the forward in bf16 with fp32 master weights and an fp32 loss.
     """
-    device = _device(device)
+    device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     if max_steps is None:
         raise ValueError('init_trainer needs max_steps: the epoch length '

@@ -1,0 +1,7 @@
+from . import pipelines  # noqa: F401  (registers the transforms)
+from .coco_api import COCO
+from .dataset import COCO_CLASSES, CocoDataset, build_dataset
+from .loader import DetDataLoader
+
+__all__ = ['COCO', 'COCO_CLASSES', 'CocoDataset', 'build_dataset',
+           'DetDataLoader']

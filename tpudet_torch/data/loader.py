@@ -1,0 +1,151 @@
+"""Batch loader: pipeline outputs -> fixed-shape padded batches.
+Counterpart of ``DetDataLoader`` in ``tpudet/data/loader.py:22-153``.
+
+Every batch is a dict of static shapes: the images on a zero canvas of one
+size, gts padded to ``max_gts`` with a validity mask. Shards are
+rank-strided over a per-epoch-seeded order (``process_index`` /
+``process_count``).
+
+A batch's ``img`` is a float32 tensor on the device the pipeline put the
+images on; boxes, labels, the validity mask, ``scale_factor`` and the
+metas are host arrays, as in tpudet. tpudet's ``num_workers``, which its
+loader stores and never reads, is left out.
+
+Batches are made in one prefetch thread. Its image ops go to the same CUDA
+stream as the consumer's, the thread's default stream, so stream order is
+program order: a batch is complete on the device before any kernel the
+consumer queues after receiving it, and tensors made in one thread and
+freed in the other need no cross-stream bookkeeping. The host half of the
+pipeline (annotations, reading files, launching the image ops) overlaps
+the consumer; a copy of a host image waits for the kernels queued before
+it. ``MosaicTileLoader`` comes with the training pipeline.
+"""
+from __future__ import annotations
+
+import threading
+from queue import Queue
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+
+class DetDataLoader:
+
+    def __init__(self,
+                 dataset,
+                 batch_size: int,
+                 max_gts: int = 120,
+                 img_size: Optional[int] = None,
+                 shuffle: bool = True,
+                 seed: int = 0,
+                 drop_last: bool = True,
+                 process_index: int = 0,
+                 process_count: int = 1,
+                 prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.max_gts = max_gts
+        self.img_size = img_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.process_index = process_index
+        self.process_count = process_count
+        self.prefetch = prefetch
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        """Per-epoch reshuffle seed."""
+        self.epoch = epoch
+
+    def _indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            order = rng.permutation(n)
+        else:
+            order = np.arange(n)
+        # rank-strided shard, padded to equal length across processes
+        shard = order[self.process_index::self.process_count]
+        if not self.drop_last and len(order) % self.process_count:
+            target = -(-n // self.process_count)
+            if len(shard) < target:
+                shard = np.concatenate([shard, shard[:target - len(shard)]])
+        return shard
+
+    def __len__(self):
+        n = len(self._indices())
+        return n // self.batch_size if self.drop_last else -(
+            -n // self.batch_size)
+
+    def _collate(self, samples) -> Dict:
+        b = len(samples)
+        imgs = [torch.as_tensor(s['img']) for s in samples]
+        if self.img_size is not None:
+            h = w = self.img_size
+        else:
+            h = max(t.shape[0] for t in imgs)
+            w = max(t.shape[1] for t in imgs)
+        img = torch.zeros((b, h, w, 3), dtype=torch.float32,
+                          device=imgs[0].device)
+        gt_bboxes = np.zeros((b, self.max_gts, 4), np.float32)
+        gt_labels = np.zeros((b, self.max_gts), np.int32)
+        gt_valid = np.zeros((b, self.max_gts), bool)
+        scale_factor = np.ones((b, 4), np.float32)
+        meta = []
+        for i, (s, t) in enumerate(zip(samples, imgs)):
+            img[i, :t.shape[0], :t.shape[1]] = t
+            boxes = s.get('gt_bboxes')
+            if boxes is not None and len(boxes):
+                n = min(len(boxes), self.max_gts)
+                gt_bboxes[i, :n] = boxes[:n]
+                gt_labels[i, :n] = s['gt_labels'][:n]
+                gt_valid[i, :n] = True
+            scale_factor[i] = s.get('scale_factor', np.ones(4, np.float32))
+            meta.append({
+                'ori_shape': s.get('ori_shape'),
+                'img_shape': s.get('img_shape'),
+                'pad_shape': s.get('pad_shape'),
+                'scale_factor': scale_factor[i],
+                'filename': s.get('filename'),
+                '_idx': s.get('_idx'),
+            })
+        return dict(img=img, gt_bboxes=gt_bboxes, gt_labels=gt_labels,
+                    gt_valid=gt_valid, scale_factor=scale_factor,
+                    img_metas=meta)
+
+    def _prefetch_iter(self, load_batch) -> Iterator[Dict]:
+        """Threaded prefetch. A worker exception is forwarded through the
+        queue and re-raised in the consumer, which would otherwise wait on
+        ``q.get`` forever."""
+        indices = self._indices()
+        nb = len(self)
+        q: Queue = Queue(maxsize=self.prefetch)
+        batches = [
+            indices[i * self.batch_size:(i + 1) * self.batch_size]
+            for i in range(nb)
+        ]
+
+        def worker():
+            try:
+                for batch_idx in batches:
+                    q.put(load_batch(batch_idx))
+            except BaseException as e:
+                q.put(e)
+                return
+            q.put(None)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    def __iter__(self) -> Iterator[Dict]:
+        return self._prefetch_iter(lambda batch_idx: self._collate(
+            [self.dataset[int(i)] for i in batch_idx]))

@@ -163,13 +163,15 @@ class YOLOCSPHead(nn.Module):
                    class_pre: int = 0,
                    lane_pre: int = 0,
                    with_nms: bool = True,
-                   nms_type: str = 'nms'):
+                   nms_type: str = 'nms',
+                   **kwargs):
         """Batched decode + class-aware NMS with lane budgets.
 
         ``anchor_pre`` keeps the top-k anchors by objectness before the
         class axis is flattened (``anchor_pre=0`` decodes every anchor).
-        Decode does not clip to the image. ``nms_pre`` belongs to NMS
-        branches not ported yet.
+        Decode does not clip to the image: ``**kwargs`` absorbs the
+        ``img_shape`` that the shared eval path passes, as tpudet's head
+        does. ``nms_pre`` belongs to NMS branches not ported yet.
 
         Args:
             pred_maps: per-level (B, H, W, A*attrib) raw outputs.

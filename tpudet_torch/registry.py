@@ -114,3 +114,6 @@ BACKBONES = MODELS
 NECKS = MODELS
 HEADS = MODELS
 DETECTORS = MODELS
+
+DATASETS = Registry('datasets')
+PIPELINES = Registry('pipelines')
