@@ -36,7 +36,24 @@ Phases, in order; any failure exits non-zero:
    step;
    one fp32 step (micro-batch 2, accumulation 2, TF32 off) on the card
    against the same code on the CPU;
-7. output: a ``kernels`` JSON line (with each kernel's share of its
+7. the training loop: ``train_detector`` on both train configs, bf16,
+   72 images per step, data served from seeded arrays (a dataset subclass
+   and an image-loading transform registered by this script; the card's
+   machine has no image decoder): the host chain
+   (``yolov4l_coco_mosaic.py``: Mosaic, affine chain, HSV, filter on the
+   card through ``DetDataLoader``) for 3 steps across an epoch boundary,
+   with a checkpoint and the EMA evaluation every epoch; a second call
+   that resumes from the checkpoint (its state must equal the saved one)
+   for a profiled 4th step; the device-aug config
+   (``MosaicTileLoader``, ``device_mosaic_affine`` inside the step) for 2
+   steps. Every step: 648 launches of each mish kernel, finite losses,
+   params and EMA moved, its ms, the loader wait before it, peak memory.
+   Then the host chain on the card against the CPU (geometry equal, HSV
+   within 1 level on 99.9 % equal pixels) and its ms per image,
+   ``device_mosaic_affine`` on the card against the CPU with the same
+   draws (4 images, 640) and its ms per micro-batch, the checkpoint's
+   save and load ms;
+8. output: a ``kernels`` JSON line (with each kernel's share of its
    bound), the nvidia-smi line, and last ``{"ok": true, "device":
    {...}}``.
 
@@ -121,6 +138,26 @@ EVAL_TIMED_RUNS = 3
 # the test pipeline on the card against the CPU: the same integer ops, so
 # 0 expected; at most 1 uint8 level after Normalize
 PIPELINE_TOL = 1 / 255
+# the training loop (train_detector): 144 training images and 16 val images
+# in EVAL_SIZES, 2 steps of 72 per epoch; the host chain runs 3 steps (so
+# it crosses an epoch boundary), then resumes for a 4th; the device-aug
+# config runs 2
+LOOP_TRAIN_IMAGES = 144
+LOOP_VAL_IMAGES = 16
+LOOP_STEPS = 3
+DEVICE_AUG_STEPS = 2
+# the host chain on the card against the CPU over this many images; its
+# ms per image over HOST_TIMED_IMAGES; the HSV step rounds the same in
+# both (cv2's arithmetic in torch ops), so equal is expected; the
+# tolerance: 99.9 % of pixels equal, all within 1 uint8 level
+HOST_CHECK_IMAGES = 4
+HOST_TIMED_IMAGES = 8
+HSV_EQUAL_SHARE = 0.999
+# device_mosaic_affine card vs CPU: 4 images, image within 1e-4
+# (normalized), boxes within 1e-3 px
+DEVICE_AUG_CHECK = 4
+AUG_IMG_TOL = 1e-4
+AUG_BOX_TOL = 1e-3
 
 
 def log(*args):
@@ -685,17 +722,17 @@ def profile_device(torch, fn, label, calls=3, top=15):
     return wall_ms, busy_ms
 
 
-def eval_set(seed):
-    """The evaluation set from a numpy seed: (h, w, 3) BGR uint8 images of
-    textured filled rectangles on a noise floor, and a COCO dict whose gts
-    are the rectangles (categories 1-80 named as the config's classes,
+def eval_set(seed, n=EVAL_IMAGES):
+    """A set of ``n`` images from a numpy seed: (h, w, 3) BGR uint8 images
+    of textured filled rectangles on a noise floor, and a COCO dict whose
+    gts are the rectangles (categories 1-80 named as the config's classes,
     category 91 outside them). Image 0 holds a crowd gt, image 1 a gt of
     category 91."""
     import numpy as np
     from tpudet_torch.data import COCO_CLASSES
     rng = np.random.RandomState(seed)
     arrays, images, anns = {}, [], []
-    for i in range(EVAL_IMAGES):
+    for i in range(n):
         h, w = EVAL_SIZES[i % len(EVAL_SIZES)]
         img = rng.randint(60, 196, (h, w, 3)).astype(np.uint8)
         for j in range(rng.randint(2, 7)):
@@ -1270,6 +1307,498 @@ def time_mish_main_path(torch, mish, shapes):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 8. the training loop: train_detector on both train configs
+
+
+def register_array_data():
+    """Register, in the port's registries, a ``CocoDataset`` whose images
+    are arrays in ``ARRAYS[ann_file]`` (by image id) and a transform that
+    takes the place of ``LoadImageFromFile`` for them: the card's machine
+    has no image decoder. The package itself gains no such feature."""
+    import numpy as np
+    from tpudet_torch.data import CocoDataset
+    from tpudet_torch.registry import DATASETS, PIPELINES
+
+    class ArrayCocoDataset(CocoDataset):
+
+        def prepare_input(self, idx):
+            results = super().prepare_input(idx)
+            results['img_array'] = ARRAYS[self.ann_file][
+                self.data_infos[idx]['id']]
+            return results
+
+    class LoadImageFromArray:
+
+        def __init__(self, **kwargs):
+            pass
+
+        def __call__(self, results):
+            img = results.pop('img_array')
+            results.update(
+                filename=results['img_info']['filename'],
+                ori_filename=results['img_info']['filename'], img=img,
+                img_shape=img.shape, ori_shape=img.shape, pad_shape=img.shape,
+                scale_factor=np.ones(4, np.float32), img_fields=['img'],
+                bbox_fields=[])
+            return results
+
+    DATASETS.register_module(module=ArrayCocoDataset, force=True)
+    PIPELINES.register_module(module=LoadImageFromArray, force=True)
+
+
+ARRAYS = {}  # ann_file -> {image id: BGR uint8 array}
+
+
+def _from_arrays(pipeline):
+    """``pipeline`` with every ``LoadImageFromFile`` replaced by
+    ``LoadImageFromArray``, nested pipelines included."""
+    out = []
+    for t in pipeline:
+        t = dict(t)
+        if t['type'] == 'LoadImageFromFile':
+            t = dict(type='LoadImageFromArray')
+        for k in ('individual_pipeline', 'transforms'):
+            if k in t:
+                t[k] = _from_arrays(t[k])
+        out.append(t)
+    return out
+
+
+def loop_config(config, tmp):
+    """The config with its train and val sets made from the seed
+    (``eval_set``: LOOP_TRAIN_IMAGES and LOOP_VAL_IMAGES images in mixed
+    sizes) and served from arrays; bf16 compute, a checkpoint, an
+    evaluation and a log line every epoch."""
+    from tpudet_torch.config import Config
+    cfg = Config.fromfile(config)
+    sets = {}
+    for name, seed, n in (('train', SEED + 400, LOOP_TRAIN_IMAGES),
+                          ('val', SEED + 500, LOOP_VAL_IMAGES)):
+        arrays, coco = eval_set(seed, n)
+        path = os.path.join(tmp, f'{name}.json')
+        with open(path, 'w') as f:
+            json.dump(coco, f)
+        ARRAYS[path] = arrays
+        sets[name] = path
+    data = cfg['data']
+    cfg['data'] = dict(
+        data,
+        train=dict(type='ArrayCocoDataset', ann_file=sets['train'],
+                   pipeline=_from_arrays(data['train']['pipeline'])),
+        val=dict(type='ArrayCocoDataset', ann_file=sets['val'],
+                 pipeline=_from_arrays(data['val']['pipeline']),
+                 test_mode=True))
+    cfg['compute_dtype'] = 'bfloat16'
+    cfg['checkpoint_config'] = dict(interval=1)
+    cfg['evaluation'] = dict(interval=1, metric='fast-bbox')
+    cfg['log_config'] = dict(interval=1)
+    return cfg
+
+
+class LoopProbe:
+    """Instruments ``train_detector`` while it runs: ``Trainer.step`` is
+    wrapped to set every kernel count to 0 just before the step and read
+    it just after (a synchronize at both ends), with the step's wall time,
+    peak memory, metrics and how far params and EMA moved; the loaders'
+    iterators are wrapped to time each wait for a batch. Steps whose
+    number is in ``profile_at`` run under ``profile_device``. With
+    ``record_start``, the first step of each trainer records its state as
+    it starts (``train_state_to_flax``)."""
+
+    def __init__(self, torch, profile_at=(), record_start=False):
+        from tpudet_torch.apis import train as train_mod
+        from tpudet_torch.data import loader as loader_mod
+        self.torch, self.profile_at = torch, set(profile_at)
+        self.record_start = record_start
+        self.train_mod, self.loader_mod = train_mod, loader_mod
+        self.rows, self.waits, self.trainers = [], [], []
+        self.start_states = []
+
+    def __enter__(self):
+        probe, torch = self, self.torch
+        from tpudet_torch.ops import mish
+        from tpudet_torch.utils.flax_import import train_state_to_flax
+        trainer_cls = self.train_mod.Trainer
+        self.saved = [(trainer_cls, 'step', trainer_cls.step)]
+        orig_step = trainer_cls.step
+
+        def step(trainer, batch):
+            if trainer not in probe.trainers:
+                probe.trainers.append(trainer)
+                if probe.record_start:
+                    probe.start_states.append(train_state_to_flax(
+                        trainer.state, trainer.model))
+            number = int(trainer.state.step) + 1
+            p0 = [v.detach().clone() for v in trainer.state.params.values()]
+            e0 = [v.clone() for v in trainer.state.ema_params.values()]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mish.mish_cuda.launches = 0
+            mish.mish_backward_cuda.launches = 0
+            out = []
+            t0 = time.perf_counter()
+            prof = None
+            if number in probe.profile_at:
+                prof = profile_device(
+                    torch, lambda: out.append(orig_step(trainer, batch)),
+                    f'train_detector step {number}', calls=1, top=25)
+            else:
+                out.append(orig_step(trainer, batch))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            launches = {'mish_fwd': mish.mish_cuda.launches,
+                        'mish_bwd': mish.mish_backward_cuda.launches}
+            moved = max(float((v.detach() - a).abs().max()) for v, a in zip(
+                trainer.state.params.values(), p0))
+            ema_moved = max(float((v - a).abs().max()) for v, a in zip(
+                trainer.state.ema_params.values(), e0))
+            row = dict(step=number, **{k: float(v) for k, v in
+                                       out[0].items()},
+                       step_ms=step_ms,
+                       profiled=number in probe.profile_at,
+                       loader_wait_ms=probe.waits[-1] if probe.waits
+                       else None,
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       launches=launches, params_moved=moved,
+                       ema_moved=ema_moved)
+            if prof:
+                row['device_busy_ms'], row['profiled_wall_ms'] = prof[1], \
+                    prof[0]
+            log('train_detector step: ' + json.dumps(row))
+            probe.rows.append(row)
+            return out[0]
+
+        trainer_cls.step = step
+        for cls in (self.loader_mod.DetDataLoader,
+                    self.loader_mod.MosaicTileLoader):
+            orig = cls.__dict__['__iter__']
+            self.saved.append((cls, '__iter__', orig))
+            cls.__iter__ = self._timed(orig)
+        return self
+
+    def _timed(self, orig):
+        waits = self.waits
+
+        def iterate(loader):
+            inner = orig(loader)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(inner)
+                    except StopIteration:
+                        return
+                    waits.append((time.perf_counter() - t0) * 1e3)
+                    yield batch
+            finally:
+                inner.close()
+        return iterate
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self.saved:
+            setattr(cls, name, orig)
+        return False
+
+
+def check_loop_rows(rows, want_steps):
+    """Every step launched each mish kernel 648 times, kept its losses
+    finite and moved the params and the EMA."""
+    want = ACCUMULATION * MISH_PER_FORWARD
+    if [r['step'] for r in rows] != want_steps:
+        raise AssertionError(f'steps {[r["step"] for r in rows]}, not '
+                             f'{want_steps}')
+    for r in rows:
+        if r['launches'] != {'mish_fwd': want, 'mish_bwd': want}:
+            raise AssertionError(f'step {r["step"]}: launches '
+                                 f'{r["launches"]}, not {want} each')
+        bad = [k for k in ('loss', 'loss_cls', 'loss_conf', 'loss_bbox',
+                           'grad_norm') if not math.isfinite(r[k])]
+        if bad:
+            raise AssertionError(f'step {r["step"]}: non-finite {bad}')
+        if not (r['params_moved'] > 0 and r['ema_moved'] > 0):
+            raise AssertionError(f'step {r["step"]}: params or EMA did not '
+                                 f'move')
+
+
+def loop_summary(rows, images_per_step):
+    """Step ms, loader wait and images/s over the steps that ran without
+    the profiler."""
+    timed = [r for r in rows if not r['profiled']]
+    wall_s = sum(r['step_ms'] + (r['loader_wait_ms'] or 0)
+                 for r in timed) / 1e3
+    return dict(
+        steps=len(timed), step_ms=[r['step_ms'] for r in timed],
+        loader_wait_ms=[r['loader_wait_ms'] for r in timed],
+        img_per_s=len(timed) * images_per_step / wall_s,
+        img_per_s_in_steps=len(timed) * images_per_step / sum(
+            r['step_ms'] for r in timed) * 1e3,
+        peak_mem_gib=max(r['peak_mem_gib'] for r in rows),
+        device_busy_ms=[r['device_busy_ms'] for r in rows
+                        if 'device_busy_ms' in r],
+        profiled_wall_ms=[r['profiled_wall_ms'] for r in rows
+                          if 'profiled_wall_ms' in r])
+
+
+def check_host_chain(torch, cfg):
+    """The host train chain (the config's train pipeline) on the card
+    against the same code on the CPU, both datasets' generators seeded
+    alike: geometry exact (the chain without its HSV step: image bytes and
+    boxes equal), the whole chain within the HSV tolerance. Then its ms
+    per image on the card."""
+    import numpy as np
+    from tpudet_torch.data import build_dataset
+    train = cfg['data']['train']
+    no_hsv = dict(train, pipeline=[
+        t for t in train['pipeline']
+        if t['type'] != 'HueSaturationValueJitter'])
+    worst = {}
+    for name, ds_cfg in (('geometry', no_hsv), ('with_hsv', train)):
+        card, cpu = (build_dataset(ds_cfg, dict(device=d))
+                     for d in ('cuda', 'cpu'))
+        card.set_rng_seed(SEED)
+        cpu.set_rng_seed(SEED)
+        diff_max, equal, n_px = 0.0, 0, 0
+        for i in range(HOST_CHECK_IMAGES):
+            a, b = card[i], cpu[i]
+            if a['img'].device.type != 'cuda':
+                raise AssertionError('the train chain did not run on the '
+                                     'card')
+            if not (np.array_equal(a['gt_bboxes'], b['gt_bboxes']) and
+                    np.array_equal(a['gt_labels'], b['gt_labels'])):
+                raise AssertionError(f'{name} image {i}: boxes differ')
+            d = (a['img'].cpu() - b['img']).abs()
+            diff_max = max(diff_max, float(d.max()))
+            equal += int((d == 0).all(-1).sum())
+            n_px += d.shape[0] * d.shape[1]
+        worst[name] = dict(max_abs=diff_max, equal_share=equal / n_px)
+    log(f'host train chain, card vs CPU over {HOST_CHECK_IMAGES} images: '
+        + json.dumps(worst) + ' (geometry: equal; with HSV: max 1/255, '
+        f'{HSV_EQUAL_SHARE} equal)')
+    if worst['geometry']['max_abs'] != 0.0:
+        raise AssertionError('the train chain\'s geometry differs on the '
+                             'card')
+    if worst['with_hsv']['max_abs'] > (1 + 1e-6) / 255 or \
+            worst['with_hsv']['equal_share'] < HSV_EQUAL_SHARE:
+        raise AssertionError('the train chain\'s HSV step differs on the '
+                             'card')
+    card = build_dataset(train, dict(device='cuda'))
+    card.set_rng_seed(SEED)
+    card[0]
+    times = []
+    for i in range(HOST_TIMED_IMAGES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card[i]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f'host train chain on the card: {statistics.median(times):.2f} ms '
+        f'per image (median of {HOST_TIMED_IMAGES}, host clock, '
+        f'synchronized)')
+    return statistics.median(times), worst
+
+
+def _near_threshold(boxes, area0, out, aug):
+    """Boxes whose filter quantities lie within 1e-4 (relative) of a
+    threshold of the device aug's filter."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    area = w * h
+    vis = area / (out * out) / area0.clamp_min(1e-12)
+    ar = (w / (h + 1e-16)).maximum(h / (w + 1e-16))
+    near = lambda x, t: (x - t).abs() <= 1e-4 * max(t, 1)  # noqa: E731
+    return (near(area, aug['min_area']) | near(vis, aug['min_visibility'])
+            | near(w, aug['min_size']) | near(h, aug['min_size'])
+            | near(ar, aug['max_aspect_ratio']))
+
+
+def check_device_aug(torch, cfg):
+    """``device_mosaic_affine`` in fp32 on the card against the CPU with
+    the same draws, on a tile batch of DEVICE_AUG_CHECK images made by
+    ``MosaicTileLoader`` (tiles of 640, out 640); then the ms of one
+    micro-batch of MICRO_BATCH images on the card, draws included."""
+    from tpudet_torch.data import MosaicTileLoader, build_dataset
+    from tpudet_torch.data.device_aug import (DeviceAug,
+                                              device_mosaic_affine,
+                                              params_to)
+    data = cfg['data']
+    ds = build_dataset(data['train'], dict(device='cuda'))
+    aug_cfg = dict(data['device_aug'])
+    augment = DeviceAug(out_size=data['train_img_size'], **aug_cfg)
+
+    def tile_batch(n):
+        loader = MosaicTileLoader(ds, n, tile_size=data['train_img_size'],
+                                  max_gts_per_tile=data['max_gts'] // 4)
+        it = iter(loader)
+        try:
+            return next(it)
+        finally:
+            it.close()
+
+    b = tile_batch(DEVICE_AUG_CHECK)
+    aff, gains = augment.draw(b['aug_seed'], b['tiles'].shape[2])
+    out = {}
+    for device in ('cuda', 'cpu'):
+        t = {k: torch.as_tensor(b[k]).to(device) for k in (
+            'tiles', 'tile_hw', 'gt_bboxes', 'gt_valid', 'gt_labels')}
+        out[device] = device_mosaic_affine(
+            t['tiles'], t['tile_hw'], t['gt_bboxes'], t['gt_valid'],
+            t['gt_labels'], params_to(aff, device), gains.to(device),
+            **augment.apply_kwargs)
+    card = {k: v.cpu() for k, v in out['cuda'].items()}
+    ref = out['cpu']
+    img_err = float((card['img'] - ref['img']).abs().max())
+    box_err = float((card['gt_bboxes'] - ref['gt_bboxes']).abs().max())
+    s = b['tiles'].shape[2]
+    hw = torch.as_tensor(b['tile_hw']).float()
+    q = torch.arange(4)
+    x1 = torch.where(q % 2 == 0, s - hw[..., 1], float(s))
+    y1 = torch.where(q < 2, s - hw[..., 0], float(s))
+    cb = torch.as_tensor(b['gt_bboxes']) + torch.stack(
+        [x1, y1, x1, y1], -1)[:, :, None]
+    area0 = ((cb[..., 2] - cb[..., 0]) * (cb[..., 3] - cb[..., 1])
+             / (4 * s * s)).reshape(len(cb), -1)
+    off = card['gt_valid'] != ref['gt_valid']
+    unexplained = int((off & ~_near_threshold(
+        ref['gt_bboxes'], area0, aff.out, aug_cfg)).sum())
+    log(f'device_mosaic_affine fp32, card vs CPU, {DEVICE_AUG_CHECK} images '
+        f'of {s} -> {aff.out}: image max |delta| {img_err:.3e} (tolerance '
+        f'{AUG_IMG_TOL}), boxes {box_err:.3e} px (tolerance '
+        f'{AUG_BOX_TOL}), validity differs on {int(off.sum())} of '
+        f'{off.numel()} gts ({unexplained} not at a threshold); '
+        f'{int(ref["gt_valid"].sum())} valid')
+    if img_err > AUG_IMG_TOL or box_err > AUG_BOX_TOL or unexplained:
+        raise AssertionError('device aug on the card differs from the CPU')
+
+    micro = tile_batch(MICRO_BATCH)
+    micro = {k: v if k in ('tiles', 'aug_seed') else
+             torch.as_tensor(v).cuda() for k, v in micro.items()}
+    augment(micro)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        augment(micro)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    aug_ms = statistics.median(times)
+    prof = profile_device(torch, lambda: augment(micro),
+                          f'device aug of a micro-batch of {MICRO_BATCH}',
+                          calls=3, top=10)
+    log(f'device aug, micro-batch of {MICRO_BATCH}: {aug_ms:.2f} ms (median '
+        f'of 5, host clock, synchronized, draws included)')
+    return aug_ms, prof, dict(img=img_err, boxes=box_err)
+
+
+def run_train_loop(torch, tree):
+    """``train_detector`` at full width and depth, bf16, 72 images per
+    step: the host chain on ``yolov4l_coco_mosaic.py`` for LOOP_STEPS
+    steps across an epoch boundary (checkpoint and EMA evaluation at each
+    epoch's end), then a second call that resumes from the checkpoint
+    (its restored state must equal the saved one) and takes one profiled
+    step; then the device-aug config for DEVICE_AUG_STEPS steps. Every
+    step's launch counts are read (``LoopProbe``). Then the host chain and
+    the device aug on the card against the CPU, and the checkpoint's save
+    and load times. Returns the launches of a step and the numbers."""
+    import tempfile
+
+    from tpudet_torch.apis import train_detector
+    from tpudet_torch.utils.checkpoint import (load_train_state,
+                                               save_train_state)
+    from tpudet_torch.utils.flax_import import train_state_to_flax
+    register_array_data()
+    images = ACCUMULATION * MICRO_BATCH
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = loop_config(CONFIG, tmp)
+        work = os.path.join(tmp, 'host_chain')
+        with LoopProbe(torch) as first:
+            t0 = time.perf_counter()
+            train_detector(cfg, work, max_steps=LOOP_STEPS, device='cuda',
+                           variables=tree)
+            first_s = time.perf_counter() - t0
+        check_loop_rows(first.rows, list(range(1, LOOP_STEPS + 1)))
+        trainer = first.trainers[0]
+        if trainer.accumulation != ACCUMULATION or \
+                trainer.model.dtype != torch.bfloat16:
+            raise AssertionError('not 6 bf16 micro-batches per step')
+        saved = train_state_to_flax(trainer.state, trainer.model)
+        with LoopProbe(torch, profile_at=[LOOP_STEPS + 1],
+                       record_start=True) as resumed:
+            train_detector(cfg, work, max_steps=LOOP_STEPS + 1,
+                           device='cuda', variables=tree)
+        check_loop_rows(resumed.rows, [LOOP_STEPS + 1])
+        gaps = {k: tree_gap(getattr(saved, k), getattr(
+            resumed.start_states[0], k)) for k in (
+                'params', 'batch_stats', 'ema_params', 'ema_batch_stats')}
+        gaps['momentum_buf'] = tree_gap(
+            saved.opt_state.momentum_buf,
+            resumed.start_states[0].opt_state.momentum_buf)
+        gaps['step'] = abs(int(saved.step) - int(
+            resumed.start_states[0].step))
+        log(f'resumed state against the saved one, max |delta|: '
+            + json.dumps(gaps))
+        if any(gaps.values()):
+            raise AssertionError('the resumed state differs from the saved '
+                                 'one')
+        with open(os.path.join(work, 'train.log')) as f:
+            lines = f.read().splitlines()
+        evals = [line for line in lines if ' - eval: ' in line]
+        log(f'train.log: {len(lines)} lines, {len(evals)} evaluations; '
+            f'ckpts {sorted(os.listdir(os.path.join(work, "ckpts")))}; '
+            f'last eval: {evals[-1].split(" - ")[-1] if evals else None}')
+        if len(evals) != 3 or not os.path.isfile(
+                os.path.join(work, 'latest_ema.msgpack')):
+            raise AssertionError('an evaluation or the EMA export is missing')
+
+        # checkpoint I/O of the flagship's state
+        ck = os.path.join(tmp, 'ck')
+        t0 = time.perf_counter()
+        save_train_state(ck, trainer.state, trainer.model, 99)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        load_train_state(ck, trainer.model, trainer.opt_cfg, 99)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(os.path.join(ck, '99', 'train_state.msgpack'))
+        log(f'checkpoint of the train state: {size / 2**20:.1f} MiB, save '
+            f'{save_ms:.0f} ms, load {load_ms:.0f} ms')
+        numbers['checkpoint'] = dict(mib=size / 2**20, save_ms=save_ms,
+                                     load_ms=load_ms)
+        del trainer, saved, first.trainers[:], resumed.trainers[:]
+        torch.cuda.empty_cache()
+        numbers['host_chain'] = dict(
+            loop_summary(first.rows + resumed.rows, images),
+            train_detector_s=first_s)
+        log('train_detector, host chain: ' + json.dumps(
+            numbers['host_chain']))
+        pipe_ms, _ = check_host_chain(torch, cfg)
+        numbers['host_chain']['pipeline_ms_per_image'] = pipe_ms
+
+        aug_cfg = loop_config(CONFIG.replace('.py', '_deviceaug.py'), tmp)
+        with LoopProbe(torch, profile_at=[DEVICE_AUG_STEPS]) as aug:
+            t0 = time.perf_counter()
+            train_detector(aug_cfg, os.path.join(tmp, 'device_aug'),
+                           max_steps=DEVICE_AUG_STEPS, device='cuda',
+                           variables=tree)
+            aug_s = time.perf_counter() - t0
+        check_loop_rows(aug.rows, list(range(1, DEVICE_AUG_STEPS + 1)))
+        del aug.trainers[:]
+        torch.cuda.empty_cache()
+        numbers['device_aug'] = dict(loop_summary(aug.rows, images),
+                                     train_detector_s=aug_s)
+        log('train_detector, device aug: ' + json.dumps(
+            numbers['device_aug']))
+        aug_ms, prof, errs = check_device_aug(torch, aug_cfg)
+        numbers['device_aug'].update(ms_per_micro_batch=aug_ms,
+                                     card_vs_cpu=errs)
+        if prof:
+            numbers['device_aug']['busy_ms_per_micro_batch'] = prof[1]
+        ARRAYS.clear()
+    log('training loop numbers: ' + json.dumps(numbers))
+    return first.rows[-1]['launches'], numbers
+
+
 def main():
     try:
         import torch
@@ -1318,14 +1847,20 @@ def main():
     timed_bwd = time_mish_bwd_main_path(torch, mish, grad_sites)
     log(f'training phases: {time.perf_counter() - t0:.1f} s')
 
-    # 7. output
+    # 7. the training loop; every step with counts at 0 just before
+    t0 = time.perf_counter()
+    loop_launches, _ = run_train_loop(torch, tree)
+    log(f'training loop phases: {time.perf_counter() - t0:.1f} s')
+
+    # 8. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
             replaces=replaces, launches=train_launches[name],
             launches_by_path={
                 'inference_forward': infer_launches.get(name, 0),
-                'train_step': train_launches[name]},
+                'train_step': train_launches[name],
+                'train_detector_step': loop_launches[name]},
             max_abs_err=max(worst, timed['max_abs_err']),
             ms=timed['ms'], plain_ms=timed['plain_ms'],
             bound_ms=timed['bound_ms'], bound_by=timed['bound_by'],

@@ -221,8 +221,13 @@ def test_load_image_without_cv2_says_decoding_comes_later(monkeypatch,
 
 
 def test_load_image_takes_only_the_cv2_backend():
-    with pytest.raises(NotImplementedError, match='cv2'):
-        P.LoadImageFromFile(im_decode_backend='turbojpeg')
+    """Every backend decodes with cv2: ``'turbojpeg'`` and ``'native'``
+    read the bytes and ``cv2.imdecode`` them (tpudet's fallback); an
+    unknown backend raises."""
+    for backend in ('cv2', 'turbojpeg', 'native'):
+        P.LoadImageFromFile(im_decode_backend=backend)
+    with pytest.raises(ValueError, match='pillow'):
+        P.LoadImageFromFile(im_decode_backend='pillow')
 
 
 def test_missing_file_raises(tmp_path):

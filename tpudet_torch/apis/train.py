@@ -1,32 +1,57 @@
-"""Training API: counterpart of ``tpudet/apis/train.py`` up to the train
-step (``opt_config_from_cfg``, ``init_trainer``, ``Trainer``).
+"""Training API: counterpart of ``tpudet/apis/train.py``
+(``opt_config_from_cfg``, ``train_detector``, ``evaluate_ema``) on one
+device, and ``init_trainer``/``Trainer``, one optimizer step on a batch
+that the caller provides.
 
-``init_trainer`` does what ``train_detector`` does between the data loader
-and the checkpoints: it builds the model (honouring ``compute_dtype``),
-derives the gradient accumulation from ``nominal_batch_size``, reads the
-warm-up and EMA hooks of the config, builds the train state from tpudet
-variables and runs the NaN guard. ``Trainer.step`` takes one optimizer
-step on a batch that the caller provides. The data loader, checkpoints,
-evaluation and ``train_detector`` itself come with later slices
-(ROADMAP.md). Entry points run on ``cuda`` unless the caller passes
-``device='cpu'``; with no GPU they raise rather than run on the CPU.
+``train_detector`` runs the config's loop: the train set and its loader
+(``DetDataLoader`` with the host pipeline, or ``MosaicTileLoader`` and the
+on-device augmentation when the config has ``data.device_aug``), the
+epoch length that sets the cosine horizon, ``compute_dtype``, the NaN
+guard with its dump, tpudet's log line, a train-state checkpoint every
+``checkpoint_config.interval`` epochs, resume from the latest one, the
+EMA evaluation with ``best_ema.msgpack``, and ``latest_ema.msgpack`` with
+the param checksum line at the end. One device: the global batch is
+``samples_per_gpu``, accumulation ``ceil(nominal_batch_size / global)``.
+
+Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
+with no GPU they raise rather than run on the CPU. Multi-process training
+and the ``forward_train`` loss path of the other families come with later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import os
+import os.path as osp
+import time
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from ..config import Config
+from ..data.dataset import build_dataset
+from ..data.device_aug import DeviceAug
+from ..data.loader import DetDataLoader, MosaicTileLoader
+from ..evaluation.mean_ap import coco_fast_bbox_eval
 from ..models.builder import build_detector
 from ..train.optim import YoloSGDConfig
 from ..train.train_state import (TrainState, create_train_state,
-                                  make_train_step)
-from ..utils.device import resolve_device
-from ..utils.flax_import import load_flax_variables, random_flax_variables
+                                  make_train_step, model_losses)
+from ..utils.checkpoint import (latest_step, load_train_state,
+                                save_train_state, save_variables)
+from ..utils.device import resolve_device, to_device
+from ..utils.flax_import import (load_flax_variables, random_flax_variables,
+                                 train_state_to_flax)
+from ..utils.logging import get_root_logger
+from .test import single_device_test
 
 BATCH_KEYS = ('img', 'gt_bboxes', 'gt_labels', 'gt_valid')
+# a MosaicTileLoader batch; aug_seed stays on the host, where the draws
+# are made
+TILE_KEYS = ('tiles', 'tile_hw', 'gt_bboxes', 'gt_labels', 'gt_valid',
+             'aug_seed')
 
 
 def opt_config_from_cfg(cfg: Config, total_steps: int,
@@ -87,20 +112,22 @@ class Trainer:
     def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``batch``: ``img`` (B, H, W, 3) normalized,
         ``gt_bboxes`` (B, G, 4) xyxy, ``gt_labels`` (B, G), ``gt_valid``
-        (B, G); numpy arrays or tensors, B = samples_per_gpu *
-        accumulation. Returns the step's metrics (0-d tensors on the
-        device). Every ``nan_guard.interval`` steps a non-finite loss or
-        gradient norm raises ``FloatingPointError``."""
+        (B, G); or, for a config with ``data.device_aug``, a
+        ``MosaicTileLoader`` batch (``TILE_KEYS``). Numpy arrays or
+        tensors, B = samples_per_gpu * accumulation. Returns the step's
+        metrics (0-d tensors on the device). Every ``nan_guard.interval``
+        steps a non-finite loss or gradient norm raises
+        ``FloatingPointError``."""
         if self.steps >= self.max_steps:
             raise RuntimeError(f'the schedule ends at max_steps='
                                f'{self.max_steps}')
-        batch = {k: torch.as_tensor(batch[k]).to(self.device,
-                                                 non_blocking=True)
-                 for k in BATCH_KEYS}
-        if batch['img'].shape[0] % self.accumulation:
-            raise ValueError(f'batch of {batch["img"].shape[0]} images does '
-                             f'not split into {self.accumulation} '
-                             f'micro-batches')
+        keys = TILE_KEYS if 'tiles' in batch else BATCH_KEYS
+        batch = {k: torch.as_tensor(batch[k]) if k == 'aug_seed'
+                 else to_device(batch[k], self.device) for k in keys}
+        n = batch[keys[0]].shape[0]
+        if n % self.accumulation:
+            raise ValueError(f'batch of {n} images does not split into '
+                             f'{self.accumulation} micro-batches')
         self.state, metrics = self.train_step(self.state, batch)
         self.steps += 1
         if self.nan_interval and self.steps % self.nan_interval == 0:
@@ -113,31 +140,22 @@ class Trainer:
         return metrics
 
 
-def init_trainer(config: Union[str, Config],
-                 variables: Optional[Dict] = None,
-                 device: Union[str, torch.device] = 'cuda',
-                 max_steps: Optional[int] = None) -> Trainer:
-    """A ``Trainer`` for a config file or ``Config``, from tpudet
-    ``variables`` (``{'params', 'batch_stats'}`` numpy tree) or, without
-    them, tpudet's init drawn from numpy seed ``cfg.seed``, on ``device``.
-
-    One device: the global batch is ``samples_per_gpu`` and the step
-    accumulates ``ceil(nominal_batch_size / samples_per_gpu)``
-    micro-batches. ``max_steps`` is the schedule's horizon (the cosine
-    runs per step over it): the epoch length comes with the data loader,
-    so until then it is required. ``compute_dtype='bfloat16'`` computes
-    the forward in bf16 with fp32 master weights and an fp32 loss.
-    """
-    device = resolve_device(device)
-    cfg = Config.fromfile(config) if isinstance(config, str) else config
-    if max_steps is None:
-        raise ValueError('init_trainer needs max_steps: the epoch length '
-                         'that sets the schedule comes with the data loader')
+def _accumulation(cfg: Config) -> int:
     global_batch = cfg['data'].get('samples_per_gpu', 8)
     nominal = cfg.get('nominal_batch_size', global_batch)
-    accumulation = max(1, -(-nominal // global_batch))
-    opt_cfg = opt_config_from_cfg(cfg, max_steps, 0, accumulation)
+    return max(1, -(-nominal // global_batch))
 
+
+def _build_trainer(cfg: Config, variables: Optional[Dict],
+                   device: torch.device, total_steps: int,
+                   steps_per_epoch: int) -> Trainer:
+    """The model (``compute_dtype`` honoured, weights from ``variables`` or
+    tpudet's init from numpy seed ``cfg.seed``), its train state and step
+    (the warm-up and EMA hooks, the on-device augmentation of a
+    ``data.device_aug`` config) and the NaN guard's interval."""
+    accumulation = _accumulation(cfg)
+    opt_cfg = opt_config_from_cfg(cfg, total_steps, steps_per_epoch,
+                                  accumulation)
     model = build_detector(cfg['model'])
     if variables is None:
         variables = random_flax_variables(model, seed=cfg.get('seed', 0))
@@ -151,6 +169,16 @@ def init_trainer(config: Union[str, Config],
     for hook in cfg.get('custom_hooks', []):
         if hook.get('type') == 'StateEMAHook':
             ema_cfg = hook
+    loss_fn = None
+    if cfg['data'].get('device_aug') is not None:
+        augment = DeviceAug(**{
+            'out_size': cfg['data'].get('train_img_size', 640),
+            **cfg['data']['device_aug']})
+
+        def loss_fn(micro):
+            with torch.no_grad():
+                aug = augment(micro)
+            return model_losses(model, aug)
     # EMA fires once per optimizer step; with `step` counting optimizer
     # steps the reference's warm-up curve reduces to interval 1
     train_step = make_train_step(
@@ -158,10 +186,224 @@ def init_trainer(config: Union[str, Config],
         ema_momentum_base=ema_cfg.get('momentum', 0.9999),
         ema_warm_up=ema_cfg.get('warm_up', 2000),
         ema_interval=1,
-        accumulation=accumulation)
+        accumulation=accumulation,
+        loss_fn=loss_fn)
     state = create_train_state(model, opt_cfg)
     nan_guard = cfg.get('nan_guard', dict(enabled=True, interval=50))
     nan_interval = max(int(nan_guard.get('interval', 50)), 1) \
         if nan_guard.get('enabled', True) else 0
     return Trainer(model, state, train_step, opt_cfg, accumulation,
-                   max_steps, nan_interval)
+                   total_steps, nan_interval)
+
+
+def init_trainer(config: Union[str, Config],
+                 variables: Optional[Dict] = None,
+                 device: Union[str, torch.device] = 'cuda',
+                 max_steps: Optional[int] = None) -> Trainer:
+    """A ``Trainer`` for a config file or ``Config``, from tpudet
+    ``variables`` (``{'params', 'batch_stats'}`` numpy tree) or, without
+    them, tpudet's init drawn from numpy seed ``cfg.seed``, on ``device``.
+
+    One device: the global batch is ``samples_per_gpu`` and the step
+    accumulates ``ceil(nominal_batch_size / samples_per_gpu)``
+    micro-batches. ``max_steps`` is the schedule's horizon (the cosine
+    runs per step over it); ``train_detector`` takes it from its loader
+    instead. ``compute_dtype='bfloat16'`` computes the forward in bf16 with
+    fp32 master weights and an fp32 loss.
+    """
+    device = resolve_device(device)
+    cfg = Config.fromfile(config) if isinstance(config, str) else config
+    if max_steps is None:
+        raise ValueError('init_trainer needs max_steps, the schedule\'s '
+                         'horizon; train_detector takes it from the loader')
+    return _build_trainer(cfg, variables, device, max_steps, 0)
+
+
+@contextlib.contextmanager
+def ema_swapped_in(state: TrainState):
+    """The EMA weights and BN statistics in the model's own tensors for
+    the duration (the reference's EMA swap); the live ones are put back
+    after."""
+    live = {k: v.detach().clone() for k, v in state.params.items()}
+    live_bs = {k: v.clone() for k, v in state.batch_stats.items()}
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(state.ema_params[k])
+        for k, b in state.batch_stats.items():
+            b.copy_(state.ema_batch_stats[k])
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(live[k])
+            for k, b in state.batch_stats.items():
+                b.copy_(live_bs[k])
+
+
+def evaluate_ema(cfg: Config, trainer: Trainer, logger) -> Dict:
+    """Evaluate the EMA weights on ``data.val``
+    (``tpudet/apis/train.py:334-348``): ``single_device_test`` at batch
+    ``samples_per_gpu`` on the trainer's device, then
+    ``coco_fast_bbox_eval``."""
+    val_dataset = build_dataset({**cfg['data']['val'], 'test_mode': True},
+                                dict(device=trainer.device))
+    with ema_swapped_in(trainer.state):
+        results = single_device_test(
+            trainer.model, val_dataset,
+            batch_size=cfg['data'].get('samples_per_gpu', 8),
+            progress=False)
+    annotations = [
+        val_dataset.get_ann_info_test(i) for i in range(len(val_dataset))
+    ]
+    report = coco_fast_bbox_eval(results, annotations,
+                                 classes=val_dataset.CLASSES)
+    logger.info('eval: ' + ' '.join(f'{k}={v:.4f}' for k, v in report.items()))
+    return report
+
+
+def ema_variables(trainer: Trainer) -> Dict:
+    """The EMA weights as a tpudet ``{'params', 'batch_stats'}`` tree."""
+    flax = train_state_to_flax(trainer.state, trainer.model)
+    return {'params': flax.ema_params, 'batch_stats': flax.ema_batch_stats}
+
+
+def train_detector(cfg: Config,
+                   work_dir: str,
+                   max_steps: Optional[int] = None,
+                   resume: bool = True,
+                   eval_interval: Optional[int] = None,
+                   device: Union[str, torch.device] = 'cuda',
+                   variables: Optional[Dict] = None) -> Dict[str, float]:
+    """Config-driven training on ``device`` (``tpudet/apis/train.py:
+    72-327``); ``variables`` (a tpudet ``{'params', 'batch_stats'}`` tree)
+    replace tpudet's init from ``cfg.seed``. Writes ``train.log``,
+    ``ckpts/<step>/``, ``best_ema.msgpack`` and ``latest_ema.msgpack`` into
+    ``work_dir``. Returns the last step's metrics."""
+    device = resolve_device(device)
+    os.makedirs(work_dir, exist_ok=True)
+    logger = get_root_logger(osp.join(work_dir, 'train.log'))
+
+    dataset = build_dataset(cfg['data']['train'], dict(device=device))
+    if len(dataset) == 0:
+        raise ValueError(
+            'training dataset is empty after filtering — check ann_file '
+            'paths and that the dataset `classes` match the annotation '
+            'category names (unknown categories are silently dropped)')
+    global_batch = cfg['data'].get('samples_per_gpu', 8)
+    max_epochs = cfg.get('runner', {}).get('max_epochs', 300)
+    accumulation = _accumulation(cfg)
+    loader_batch = global_batch * accumulation
+
+    if cfg['data'].get('device_aug') is not None:
+        loader = MosaicTileLoader(
+            dataset, batch_size=loader_batch,
+            tile_size=cfg['data'].get('train_img_size', 640),
+            max_gts_per_tile=cfg['data'].get('max_gts', 120) // 4)
+    else:
+        loader = DetDataLoader(
+            dataset, batch_size=loader_batch,
+            max_gts=cfg['data'].get('max_gts', 120),
+            img_size=cfg['data'].get('train_img_size', 640))
+    steps_per_epoch = len(loader)
+    if steps_per_epoch == 0:
+        # a silently-empty loader would spin the epoch loop doing
+        # eval-only passes forever
+        raise ValueError(
+            f'training loader yields 0 steps/epoch: dataset has '
+            f'{len(dataset)} samples but the global batch is '
+            f'{loader_batch} (samples_per_gpu x accumulation). Shrink the '
+            f'batch/accumulation or check that `classes` matches the '
+            f'annotation categories.')
+    total_steps = steps_per_epoch * max_epochs
+    if max_steps is not None:
+        total_steps = min(total_steps, max_steps)
+    logger.info(
+        f'device {device}'
+        + (f' ({torch.cuda.get_device_name(device)})'
+           if device.type == 'cuda' else '')
+        + f', global batch {global_batch} x accumulation {accumulation}')
+
+    trainer = _build_trainer(cfg, variables, device, total_steps,
+                             steps_per_epoch)
+    ckpt_dir = osp.join(work_dir, 'ckpts')
+    start_step = 0
+    if resume:
+        last = latest_step(ckpt_dir)
+        if last is not None:
+            trainer.state = load_train_state(ckpt_dir, trainer.model,
+                                             trainer.opt_cfg, last)
+            trainer.steps = start_step = last
+            logger.info(f'resumed from step {last}')
+
+    ckpt_interval_epochs = cfg.get('checkpoint_config', {}).get('interval', 5)
+    eval_interval = eval_interval if eval_interval is not None else cfg.get(
+        'evaluation', {}).get('interval', 1)
+    log_interval = cfg.get('log_config', {}).get('interval', 50)
+
+    metrics = {}
+    step = start_step
+    best_map = -1.0
+    t0 = time.time()
+    # a run resumed at its horizon takes no step (tpudet would take one)
+    first_epoch = start_step // steps_per_epoch \
+        if start_step < total_steps else max_epochs
+    for epoch in range(first_epoch, max_epochs):
+        loader.set_epoch(epoch)
+        with contextlib.closing(iter(loader)) as batches:
+            for batch in batches:
+                try:
+                    metrics = trainer.step(batch)
+                except FloatingPointError as e:
+                    # NaN guard: dump the state and stop, rather than train
+                    # on poisoned gradients
+                    logger.error(f'NaN guard tripped: {e}')
+                    save_train_state(osp.join(work_dir, 'nan_dump'),
+                                     trainer.state, trainer.model,
+                                     trainer.steps)
+                    raise FloatingPointError(
+                        f'{e}; state dumped to {work_dir}/nan_dump') from e
+                step += 1
+                if step % log_interval == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    rate = (log_interval * global_batch * accumulation /
+                            (time.time() - t0))
+                    t0 = time.time()
+                    parts = ' '.join(
+                        f'{k[5:] if k.startswith("loss_") else k} {v:.4f}'
+                        for k, v in sorted(m.items())
+                        if 'loss' in k and k != 'loss')
+                    logger.info(
+                        f'epoch {epoch} step {step}/{total_steps} '
+                        f'loss {m["loss"]:.4f} ({parts}) '
+                        f'lr {m["lr"]:.5f} gnorm {m["grad_norm"]:.2f} '
+                        f'img/s {rate:.1f}')
+                if max_steps is not None and step >= max_steps:
+                    break
+        if (epoch + 1) % ckpt_interval_epochs == 0:
+            save_train_state(ckpt_dir, trainer.state, trainer.model, step)
+        if eval_interval and (epoch + 1) % eval_interval == 0 and \
+                'val' in cfg.get('data', {}):
+            report = evaluate_ema(cfg, trainer, logger)
+            # best-checkpoint tracking (reference eval_hooks.py:160)
+            cur = report.get('map', float('nan'))
+            if np.isfinite(cur) and cur > best_map:
+                best_map = cur
+                save_variables(osp.join(work_dir, 'best_ema.msgpack'),
+                               ema_variables(trainer),
+                               meta=dict(step=step, map=cur,
+                                         CLASSES=list(dataset.CLASSES)))
+                logger.info(f'new best map {cur:.4f} at step {step}')
+        if max_steps is not None and step >= max_steps:
+            break
+
+    # a checksum over the final params, as tpudet logs it (equal
+    # checksums across runs show equal states)
+    checksum = sum(float(p.detach().double().abs().sum())
+                   for p in trainer.state.params.values())
+    logger.info(f'final param checksum {checksum:.9e} at step {step}')
+    # publish EMA weights for inference
+    save_variables(osp.join(work_dir, 'latest_ema.msgpack'),
+                   ema_variables(trainer),
+                   meta=dict(step=step, CLASSES=list(dataset.CLASSES)))
+    return {k: float(v) for k, v in metrics.items()}

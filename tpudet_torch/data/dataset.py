@@ -8,6 +8,12 @@ evaluator reads, and ``results2json``.
 The pipeline's image ops run on ``device`` (``cuda`` unless the caller
 asks for the CPU); annotations stay on the host. The subclasses
 (Cityscapes, LVIS and the rest) come with later slices.
+
+The dataset's random draws (Mosaic partners, the retry index, and the
+random transforms, which reach it through ``results['dataset']``) come
+from ``self.rng``: a ``random.Random`` that a loader seeds from its seed
+and epoch (``set_rng_seed``) before it draws a batch. Until then it is
+Python's global generator, as in tpudet.
 """
 from __future__ import annotations
 
@@ -80,6 +86,11 @@ class CocoDataset:
         self._set_group_flag()
 
         self.pipeline = Compose(pipeline, device=device)
+        self.rng = random  # the module's functions: the global generator
+
+    def set_rng_seed(self, seed: int):
+        """Draw from a ``random.Random(seed)`` from now on."""
+        self.rng = random.Random(seed)
 
     def __len__(self):
         return len(self.data_infos)
@@ -119,7 +130,7 @@ class CocoDataset:
         group = self._group_indices[self.flag[idx]]
         if len(group) <= 1:
             return [idx] * batch
-        return [int(random.choice(group)) for _ in range(batch)]
+        return [int(self.rng.choice(group)) for _ in range(batch)]
 
     # ------------------------------------------------------------------
     def get_ann_info(self, idx: int) -> Dict:
@@ -230,5 +241,5 @@ class CocoDataset:
             data = self.pipeline(self.prepare_input(idx))
             if data is not None and len(data.get('gt_bboxes', ())) > 0:
                 return data
-            idx = random.randint(0, len(self) - 1)
+            idx = self.rng.randint(0, len(self) - 1)
         return data

@@ -1,35 +1,44 @@
-"""Test-time image pipeline: counterpart of ``tpudet/data/pipelines.py``
+"""Image pipeline: counterpart of ``tpudet/data/pipelines.py``
 (``Compose``, ``LoadImageFromFile``, ``LoadAnnotations``, ``rescale_size``,
-``Resize``, ``RandomFlip``, ``Pad``, ``Normalize``, ``MultiScaleFlipAug``).
+``Resize``, ``RandomFlip``, ``Pad``, ``Normalize``, ``MultiScaleFlipAug``,
+and the train-only ``MosaicPipeline``, ``RandomAffineChain``,
+``HueSaturationValueJitter`` and ``GtBBoxesFilter``).
 
 A transform maps a ``results`` dict to a dict, with tpudet's keys: ``img``,
 ``gt_bboxes`` (N, 4 xyxy float32 numpy), ``gt_labels``, ``img_shape``,
 ``ori_shape``, ``pad_shape``, ``scale_factor`` (float32 numpy).
 
-The image ops (``Resize``, ``Pad``, ``Normalize``) are torch ops on the
-transform's ``device``, ``cuda`` unless the caller asks for the CPU; the
-first of them moves the host image there. The image is an (H, W, 3) BGR
-uint8 tensor until ``Normalize``, float32 RGB after it. Boxes, labels and
-shapes stay on the host. Files are read by cv2 on the host, imported only
-when a file is read.
+The image ops (``Resize``, ``Pad``, ``Normalize``, the mosaic paste, the
+affine chain, the HSV jitter) are torch ops on the transform's ``device``,
+``cuda`` unless the caller asks for the CPU; the first of them moves the
+host image there. The image is an (H, W, 3) BGR uint8 tensor until
+``Normalize``, float32 RGB after it. Boxes, labels and shapes stay on the
+host. Files are read by cv2 on the host, imported only when a file is
+read.
 
-``Resize`` reproduces ``cv2.resize(..., INTER_LINEAR)`` on uint8 images
-bit for bit, in integer tensor ops (``imresize_linear``).
+``Resize`` and the affine chain's scale step reproduce
+``cv2.resize(..., INTER_LINEAR)`` on uint8 images bit for bit, in integer
+tensor ops (``imresize_linear``); the HSV jitter reproduces cv2's 8-bit
+``COLOR_BGR2HSV`` and ``COLOR_HSV2BGR`` (``bgr_to_hsv``, ``hsv_to_bgr``).
 
-The train-only transforms (Mosaic, HSV jitter, the affine chain, the box
-filter, Corrupt, InstaBoost) come with the training pipeline.
+Random transforms draw from the generator of the dataset that made the
+``results`` (``results['dataset'].rng``, a ``random.Random`` that the
+loader seeds from its seed and epoch), in the order and of the kinds of
+tpudet's module-level ``random`` calls; without a dataset, from Python's
+global generator, as tpudet.
 """
 from __future__ import annotations
 
+import functools
 import os.path as osp
 import random
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..registry import PIPELINES, build_from_cfg
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device
 
 
 class Compose:
@@ -58,28 +67,34 @@ class Compose:
 
 def _on(img, device: torch.device) -> torch.Tensor:
     """The image as a tensor on ``device`` (a host array is copied)."""
-    if isinstance(img, np.ndarray):
-        img = torch.from_numpy(np.ascontiguousarray(img))
-    return img.to(device)
+    return to_device(img, device)
+
+
+def _rng(results):
+    """The generator a random transform draws from: the dataset's, else
+    Python's global one (the ``random`` module has the same methods)."""
+    return getattr(results.get('dataset'), 'rng', random)
 
 
 @PIPELINES.register_module()
 class LoadImageFromFile:
-    """File -> (H, W, 3) BGR uint8 numpy array, read by cv2 on the host
-    (tpudet's cv2 backend). tpudet's native JPEG backend
-    (``im_decode_backend='turbojpeg'``) is host code that the port does not
-    carry; decoding on the GPU comes with a later slice."""
+    """File -> (H, W, 3) BGR uint8 numpy array, read by cv2 on the host.
+
+    ``im_decode_backend='turbojpeg'`` (or ``'native'``) reads the file's
+    bytes and decodes them with ``cv2.imdecode``: tpudet does the same
+    wherever its native libjpeg loader cannot decode a file, and the two
+    give the same pixels for baseline JPEGs
+    (``tpudet/data/pipelines.py:54-80``). Decoding on the GPU comes with a
+    later slice."""
 
     def __init__(self, to_float32=False, im_decode_backend='cv2', **kwargs):
-        if im_decode_backend != 'cv2':
-            raise NotImplementedError(
-                f'im_decode_backend={im_decode_backend!r}: the port reads '
-                'files with cv2 only; decoding on the GPU comes with a later '
-                'slice')
+        if im_decode_backend not in ('cv2', 'turbojpeg', 'native'):
+            raise ValueError(f'unknown im_decode_backend '
+                             f'{im_decode_backend!r}')
         self.to_float32 = to_float32
+        self.from_bytes = im_decode_backend != 'cv2'
 
-    @staticmethod
-    def _read(filename):
+    def _read(self, filename):
         try:
             import cv2
         except ImportError as e:
@@ -88,6 +103,14 @@ class LoadImageFromFile:
                 'installed; decoding image files without cv2 comes with a '
                 'later slice. Pass decoded BGR uint8 arrays instead '
                 '(inference_detector takes one).') from e
+        if self.from_bytes:
+            try:
+                with open(filename, 'rb') as f:
+                    data = f.read()
+            except OSError:
+                raise FileNotFoundError(filename)
+            return cv2.imdecode(np.frombuffer(data, np.uint8),
+                                cv2.IMREAD_COLOR)
         return cv2.imread(filename, cv2.IMREAD_COLOR)
 
     def __call__(self, results):
@@ -146,34 +169,37 @@ def rescale_size(h: int, w: int, scale: Tuple[int, int]):
 _COEF_SCALE = 2048
 
 
-def _linear_taps(dst: int, src: int, clamp: bool):
+def _linear_taps(dst: int, src: int, clamp: bool, device: torch.device):
     """cv2's source index and fixed-point weights of each destination
     pixel along one axis (``resize.cpp``, ``resize``'s coefficient loop):
-    the source position ``(d + 0.5) * src / dst - 0.5`` in float32, its
-    floor, and the two weights ``rint((1 - f) * 2048)``, ``rint(f * 2048)``.
-    Along x, cv2 clamps a position outside the image to the edge with
-    weight 0 (``clamp``); along y it keeps the weights and clamps the row
-    indices."""
+    the source position ``(d + 0.5) * src / dst - 0.5`` in float64 rounded
+    to float32, its floor, and the two weights ``rint((1 - f) * 2048)``,
+    ``rint(f * 2048)``. Along x, cv2 clamps a position outside the image to
+    the edge with weight 0 (``clamp``); along y it keeps the weights and
+    clamps the row indices. Made on ``device``, so no host copy waits for
+    the stream."""
     scale = 1.0 / (dst / src)
-    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(
-        np.float32)
-    s = np.floor(f).astype(np.int64)
-    f = f - s.astype(np.float32)
+    f = ((torch.arange(dst, dtype=torch.float64, device=device) + 0.5)
+         * scale - 0.5).float()
+    s = torch.floor(f)
+    f = f - s
     if clamp:
-        f[s < 0] = 0
-        s[s < 0] = 0
-        f[s >= src - 1] = 0
-        s[s >= src - 1] = src - 1
-    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
-    w0 = np.rint((np.float32(1) - f) * np.float32(_COEF_SCALE)).astype(
-        np.int32)
-    return s, w0, w1
+        f = torch.where(s < 0, 0., f)
+        s = s.clamp_min(0)
+        f = torch.where(s >= src - 1, 0., f)
+        s = s.clamp_max(src - 1)
+    w1 = torch.round(f * _COEF_SCALE).to(torch.int32)
+    w0 = torch.round((1. - f) * _COEF_SCALE).to(torch.int32)
+    return s.long(), w0, w1
 
 
-def imresize_linear(img: torch.Tensor, new_w: int, new_h: int
+def imresize_linear(img: torch.Tensor, new_w: int, new_h: int,
+                    window: Optional[Tuple[int, int, int, int]] = None
                     ) -> torch.Tensor:
     """``cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)``
-    of an (H, W, C) uint8 tensor, bit for bit, on the tensor's device.
+    of an (H, W, C) uint8 tensor, bit for bit, on the tensor's device;
+    with ``window=(x, y, w, h)`` only that window of the resized image
+    (the same pixels, without computing the rest).
 
     cv2 interpolates uint8 images in fixed point: 11-bit weights, a
     horizontal pass into int32, then a vertical pass that drops 4 bits of
@@ -186,22 +212,21 @@ def imresize_linear(img: torch.Tensor, new_w: int, new_h: int
         raise TypeError(f'imresize_linear takes uint8 images, not '
                         f'{img.dtype}')
     h, w = img.shape[:2]
+    wx, wy, ww, wh = window or (0, 0, new_w, new_h)
     if (new_h, new_w) == (h, w):
-        return img.clone()
+        return img[wy:wy + wh, wx:wx + ww].clone()
     dev = img.device
-    sx, a0, a1 = _linear_taps(new_w, w, clamp=True)
-    sy, b0, b1 = _linear_taps(new_h, h, clamp=False)
-    x0 = torch.from_numpy(sx).to(dev)
-    x1 = torch.from_numpy(np.minimum(sx + 1, w - 1)).to(dev)
-    a0 = torch.from_numpy(a0).to(dev)[None, :, None]
-    a1 = torch.from_numpy(a1).to(dev)[None, :, None]
-    y0 = torch.from_numpy(np.clip(sy, 0, h - 1)).to(dev)
-    y1 = torch.from_numpy(np.clip(sy + 1, 0, h - 1)).to(dev)
-    b0 = torch.from_numpy(b0).to(dev)[:, None, None]
-    b1 = torch.from_numpy(b1).to(dev)[:, None, None]
-    px = img.to(torch.int32)
-    rows = px[:, x0] * a0 + px[:, x1] * a1  # (H, new_w, C), exact
-    out = ((((rows[y0] >> 4) * b0) >> 16) + (((rows[y1] >> 4) * b1) >> 16)
+    x0, a0, a1 = (t[wx:wx + ww] for t in _linear_taps(new_w, w, True, dev))
+    y, b0, b1 = (t[wy:wy + wh] for t in _linear_taps(new_h, h, False, dev))
+    x1 = (x0 + 1).clamp_max(w - 1)
+    a0, a1 = a0[None, :, None], a1[None, :, None]
+    b0, b1 = b0[:, None, None], b1[:, None, None]
+
+    def rows(yi):  # the horizontal pass over source rows yi, exact in int32
+        px = img[yi.clamp(0, h - 1)].to(torch.int32)
+        return px[:, x0] * a0 + px[:, x1] * a1
+
+    out = ((((rows(y) >> 4) * b0) >> 16) + (((rows(y + 1) >> 4) * b1) >> 16)
            + 2) >> 2
     return out.clamp_(0, 255).to(torch.uint8)
 
@@ -231,19 +256,19 @@ class Resize:
         self.keep_ratio = keep_ratio
         self.device = resolve_device(device)
 
-    def _pick_scale(self):
+    def _pick_scale(self, rng):
         if not isinstance(self.img_scale, list):
             return self.img_scale
         if self.multiscale_mode == 'value' or len(self.img_scale) != 2:
-            return random.choice(self.img_scale)
+            return rng.choice(self.img_scale)
         (l0, s0), (l1, s1) = self.img_scale
-        return (random.randint(min(l0, l1), max(l0, l1)),
-                random.randint(min(s0, s1), max(s0, s1)))
+        return (rng.randint(min(l0, l1), max(l0, l1)),
+                rng.randint(min(s0, s1), max(s0, s1)))
 
     def __call__(self, results):
         scale = results.get('scale', None)
         if scale is None:
-            scale = self._pick_scale()
+            scale = self._pick_scale(_rng(results))
         img = _on(results['img'], self.device)
         h, w = img.shape[:2]
         if self.keep_ratio:
@@ -277,7 +302,7 @@ class RandomFlip:
 
     def __call__(self, results):
         flip = (self.flip_ratio is not None
-                and random.random() < self.flip_ratio)
+                and _rng(results).random() < self.flip_ratio)
         results['flip'] = flip
         results['flip_direction'] = self.direction if flip else None
         if flip:
@@ -371,3 +396,293 @@ class MultiScaleFlipAug:
                 r['flip'] = f
                 aug_results.append(self.transforms(r))
         return aug_results[0] if len(aug_results) == 1 else aug_results
+
+
+@PIPELINES.register_module()
+class MosaicPipeline:
+    """4-tile mosaic (``tpudet/data/pipelines.py:292-341``): run
+    ``individual_pipeline`` on the sample and 3 same-aspect-group partners
+    (``dataset.batch_rand_others``), paste them around the canvas center
+    into a uint8 canvas on ``device``, offset and concat the boxes."""
+
+    on_device = True
+
+    def __init__(self, individual_pipeline, pad_val=0, device='cuda'):
+        self.individual_pipeline = Compose(individual_pipeline,
+                                           device=device)
+        self.pad_val = pad_val
+        self.device = resolve_device(device)
+
+    def __call__(self, results):
+        dataset = results['dataset']
+        mosaic_results = [results]
+        for idx in dataset.batch_rand_others(results['_idx'], 3):
+            mosaic_results.append(dataset.prepare_input(idx))
+        mosaic_results = [self.individual_pipeline(r) for r in mosaic_results]
+
+        shapes = [r['pad_shape'] for r in mosaic_results]
+        # canvas half-size: tpudet/data/pipelines.py:311
+        cxy = max(shapes[0][0], shapes[1][0], shapes[0][1], shapes[2][1])
+        canvas = torch.full((cxy * 2, cxy * 2, shapes[0][2]), self.pad_val,
+                            dtype=torch.uint8, device=self.device)
+        all_bboxes, all_labels = [], []
+        for i, r in enumerate(mosaic_results):
+            h, w = r['pad_shape'][:2]
+            x1 = cxy - w if i in (0, 2) else cxy  # left column: anchored
+            y1 = cxy - h if i in (0, 1) else cxy  # top row: anchored
+            canvas[y1:y1 + h, x1:x1 + w] = _on(r['img'], self.device)
+            b = r['gt_bboxes'].copy()
+            b[:, 0::2] += x1
+            b[:, 1::2] += y1
+            all_bboxes.append(b)
+            all_labels.append(r['gt_labels'])
+
+        out = mosaic_results[0]
+        out['img'] = canvas
+        out['gt_bboxes'] = np.concatenate(all_bboxes, axis=0)
+        out['gt_labels'] = np.concatenate(all_labels, axis=0)
+        out['img_shape'] = tuple(canvas.shape)
+        out['ori_shape'] = tuple(canvas.shape)
+        out['pad_shape'] = tuple(canvas.shape)
+        out['flip'] = False
+        out['bbox_fields'] = ['gt_bboxes']
+        return out
+
+
+# cv2's 8-bit RGB2HSV_b (color_hsv.simd.hpp): hsv_shift = 12, and the
+# tables saturate_cast<int>((255 << 12) / i), saturate_cast<int>((180 << 12)
+# / (6 i)), rounded to nearest even
+_HSV_SHIFT = 12
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) /
+                                     np.arange(1., 256.))]).astype(np.int32)
+_HDIV = np.concatenate([[0], np.rint((180 << _HSV_SHIFT) /
+                                     (6. * np.arange(1., 256.)))]).astype(
+                                         np.int32)
+# pixels per step of cv2's vector loop over a row (uint8 lanes of AVX2)
+_CV2_HSV_LANES = 32
+# HSV2RGB's (b, g, r) picks from (v, p, q, t) per hue sector
+_SECTOR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3],
+                    [2, 1, 0]], np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _hsv_tables(device: torch.device):
+    """cv2's division tables, the sector picks and the float32 constants of
+    its HSV conversions, on ``device`` (made once per device)."""
+    f32 = dict(inv255=np.float32(1 / 255.), hscale=np.float32(6 / 180.),
+               six=np.float32(6), one=np.float32(1), u255=np.float32(255))
+    out = {k: torch.tensor(v, dtype=torch.float32) for k, v in f32.items()}
+    out.update(sdiv=torch.from_numpy(_SDIV), hdiv=torch.from_numpy(_HDIV),
+               sector=torch.from_numpy(_SECTOR),
+               x=torch.arange(256, dtype=torch.float64))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def bgr_to_hsv(img: torch.Tensor) -> torch.Tensor:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2HSV)`` of an (..., 3) uint8
+    tensor, bit for bit: integer ops with cv2's fixed-point division
+    tables, ties of the max resolved r first, then g, hue wrapped into
+    [0, 180). Held against cv2 on all 2^24 inputs."""
+    c = _hsv_tables(img.device)
+    p = img.to(torch.int32)
+    b, g, r = p[..., 0], p[..., 1], p[..., 2]
+    v = torch.maximum(torch.maximum(b, g), r)
+    diff = v - torch.minimum(torch.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * c['sdiv'][v.long()] + half) >> _HSV_SHIFT
+    h = torch.where(v == r, g - b,
+                    torch.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * c['hdiv'][diff.long()] + half) >> _HSV_SHIFT
+    h = torch.where(h < 0, h + 180, h)
+    return torch.stack([h, s, v], -1).to(torch.uint8)
+
+
+def hsv_to_bgr(hsv: torch.Tensor) -> torch.Tensor:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)`` of an (H, W, 3) uint8
+    tensor with hue in [0, 180), bit for bit against OpenCV 5.0 built for
+    AVX2: its ``HSV2RGB_b`` runs in float32 on ``s = S/255``, ``v = V/255``,
+    forms ``1 - s h`` and ``1 - s (1 - h)`` with one rounding each (a fused
+    multiply-add, taken here in float64, which is exact for these float32
+    operands, then rounded once) and scales by 255. Its vector loop, 32
+    pixels at a time, truncates to uint8; the scalar loop over the last
+    ``W mod 32`` pixels of each row rounds to nearest. Held against cv2 on
+    all 180 x 256 x 256 inputs, in rows of 640 (vector loop only) and of
+    16 (scalar loop only)."""
+    c = _hsv_tables(hsv.device)
+    x = hsv.to(torch.float32)
+    s = x[..., 1] * c['inv255']
+    v = x[..., 2] * c['inv255']
+    h = torch.fmod(x[..., 0] * c['hscale'], c['six'])
+    sector = torch.floor(h)
+    h = h - sector
+    s64 = s.double()
+    tab = torch.stack([
+        v,
+        v * (c['one'] - s),
+        (1. - s64 * h.double()).float() * v,
+        (1. - s64 * (c['one'] - h).double()).float() * v], -1)
+    bgr = torch.gather(tab, -1, c['sector'][sector.long()])
+    bgr = torch.where((s == 0)[..., None], v[..., None], bgr) * c['u255']
+    w = hsv.shape[-2]
+    tail = torch.arange(w, device=hsv.device) >= w - w % _CV2_HSV_LANES
+    bgr = torch.where(tail[:, None], torch.round(bgr), torch.trunc(bgr))
+    return bgr.clamp_(0, 255).to(torch.uint8)
+
+
+@PIPELINES.register_module()
+class HueSaturationValueJitter:
+    """YOLOv5-style HSV gain jitter through 256-entry LUTs on BGR uint8
+    (``tpudet/data/pipelines.py:344-366``): three gains drawn as tpudet
+    draws them; the LUTs in float64 as tpudet builds them in numpy
+    (``fmod`` equals numpy's ``%`` on these non-negative values, the
+    casts truncate), and cv2's 8-bit conversions, all in torch ops on
+    ``device``."""
+
+    on_device = True
+
+    def __init__(self, hue_ratio=0.5, saturation_ratio=0.5, value_ratio=0.5,
+                 device='cuda'):
+        self.h_ratio = hue_ratio
+        self.s_ratio = saturation_ratio
+        self.v_ratio = value_ratio
+        self.device = resolve_device(device)
+
+    def __call__(self, results):
+        rng = _rng(results)
+        r = np.array([rng.uniform(-1., 1.) for _ in range(3)]) * \
+            [self.h_ratio, self.s_ratio, self.v_ratio] + 1
+        x = _hsv_tables(self.device)['x']
+        luts = [torch.fmod(x * float(r[0]), 180.),
+                (x * float(r[1])).clamp(0, 255),
+                (x * float(r[2])).clamp(0, 255)]
+        hsv = bgr_to_hsv(_on(results['img'], self.device)).long()
+        hsv = torch.stack([lut.to(torch.uint8)[hsv[..., c]]
+                           for c, lut in enumerate(luts)], -1)
+        results['img'] = hsv_to_bgr(hsv)
+        return results
+
+
+@PIPELINES.register_module()
+class GtBBoxesFilter:
+    """Drop degenerate boxes after augmentation
+    (``tpudet/data/pipelines.py:369-390``); boxes stay host numpy."""
+
+    def __init__(self, min_size=2, max_aspect_ratio=20):
+        assert max_aspect_ratio > 1
+        self.min_size = min_size
+        self.max_aspect_ratio = max_aspect_ratio
+
+    def __call__(self, results):
+        bboxes = results['gt_bboxes']
+        w = bboxes[:, 2] - bboxes[:, 0]
+        h = bboxes[:, 3] - bboxes[:, 1]
+        ar = np.maximum(w / (h + 1e-16), h / (w + 1e-16))
+        valid = (w > self.min_size) & (h > self.min_size) & \
+                (ar < self.max_aspect_ratio)
+        results['gt_bboxes'] = bboxes[valid]
+        results['gt_labels'] = results['gt_labels'][valid]
+        return results
+
+
+@PIPELINES.register_module()
+class RandomAffineChain:
+    """The YOLO configs' random affine (``tpudet/data/pipelines.py:
+    393-491``): center-pad to ``pad_to``, random-crop ``crop``, random
+    scale by 1 +/- ``scale_limit``, center-crop ``out``, horizontal flip;
+    boxes (host float64) filtered by ``min_area`` and ``min_visibility``
+    as albumentations' BboxParams.
+
+    The image ops are integer torch ops on ``device`` with tpudet's draws,
+    so the result equals tpudet's byte for byte. The scale step resizes
+    with ``imresize_linear`` and computes only the window the center crop
+    keeps."""
+
+    on_device = True
+
+    def __init__(self, pad_to=1920, crop=1280, scale_limit=0.5, out=640,
+                 hflip_p=0.5, pad_val=114, min_area=4, min_visibility=0.2,
+                 device='cuda'):
+        self.pad_to = pad_to
+        self.crop = crop
+        self.scale_limit = scale_limit
+        self.out = out
+        self.hflip_p = hflip_p
+        self.pad_val = pad_val
+        self.min_area = min_area
+        self.min_visibility = min_visibility
+        self.device = resolve_device(device)
+
+    def __call__(self, results):
+        rng = _rng(results)
+        img = _on(results['img'], self.device)
+        bboxes = results['gt_bboxes'].astype(np.float64)
+        labels = results['gt_labels']
+        h, w = img.shape[:2]
+        # normalized area before the chain (albu visibility is computed in
+        # normalized coords, so pure scaling does not reduce it)
+        area0 = ((bboxes[:, 2] - bboxes[:, 0]) *
+                 (bboxes[:, 3] - bboxes[:, 1]) / max(h * w, 1))
+
+        # 1) center pad to at least pad_to
+        ph, pw = max(self.pad_to, h), max(self.pad_to, w)
+        top, left = (ph - h) // 2, (pw - w) // 2
+        canvas = img.new_full((ph, pw, img.shape[2]), self.pad_val)
+        canvas[top:top + h, left:left + w] = img
+        bboxes[:, 0::2] += left
+        bboxes[:, 1::2] += top
+        img, h, w = canvas, ph, pw
+
+        # 2) random crop
+        c = self.crop
+        y0 = rng.randint(0, max(h - c, 0))
+        x0 = rng.randint(0, max(w - c, 0))
+        img = img[y0:y0 + c, x0:x0 + c]
+        bboxes[:, 0::2] -= x0
+        bboxes[:, 1::2] -= y0
+        h = w = c
+
+        # 3) random scale, 4) center crop to out (pad first if smaller)
+        f = 1.0 + rng.uniform(-self.scale_limit, self.scale_limit)
+        nh, nw = int(h * f), int(w * f)
+        bboxes *= [nw / w, nh / h, nw / w, nh / h]
+        o = self.out
+        if nh < o or nw < o:
+            img = imresize_linear(img, nw, nh)
+            canvas = img.new_full((max(nh, o), max(nw, o), img.shape[2]),
+                                  self.pad_val)
+            t = (canvas.shape[0] - nh) // 2
+            l = (canvas.shape[1] - nw) // 2  # noqa: E741
+            canvas[t:t + nh, l:l + nw] = img
+            bboxes[:, 0::2] += l
+            bboxes[:, 1::2] += t
+            nh, nw = canvas.shape[:2]
+            y0, x0 = (nh - o) // 2, (nw - o) // 2
+            img = canvas[y0:y0 + o, x0:x0 + o]
+        else:
+            y0, x0 = (nh - o) // 2, (nw - o) // 2
+            img = imresize_linear(img, nw, nh, window=(x0, y0, o, o))
+        bboxes[:, 0::2] -= x0
+        bboxes[:, 1::2] -= y0
+
+        # 5) horizontal flip
+        if rng.random() < self.hflip_p:
+            img = img.flip(1)
+            x1 = o - bboxes[:, 2].copy()
+            x2 = o - bboxes[:, 0].copy()
+            bboxes[:, 0], bboxes[:, 2] = x1, x2
+
+        # clip + filter (albu BboxParams: min_area, min_visibility)
+        clipped = bboxes.copy()
+        clipped[:, 0::2] = np.clip(clipped[:, 0::2], 0, o)
+        clipped[:, 1::2] = np.clip(clipped[:, 1::2], 0, o)
+        area = ((clipped[:, 2] - clipped[:, 0]) *
+                (clipped[:, 3] - clipped[:, 1]))
+        visibility = (area / (o * o)) / np.maximum(area0, 1e-12)
+        keep = (area >= self.min_area) & (visibility >= self.min_visibility)
+
+        results['img'] = img
+        results['gt_bboxes'] = clipped[keep].astype(np.float32)
+        results['gt_labels'] = labels[keep]
+        results['img_shape'] = tuple(img.shape)
+        results['pad_shape'] = tuple(img.shape)
+        return results

@@ -13,7 +13,7 @@ the model always computes with the state it is given.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -57,12 +57,21 @@ def create_train_state(model: nn.Module, opt_cfg: YoloSGDConfig
         opt_state=init_fn(params))
 
 
+def model_losses(model: nn.Module, batch: Dict) -> Dict[str, torch.Tensor]:
+    """The loss dict of ``model`` on a batch of ``img`` and padded gts
+    (tpudet's ``default_loss``)."""
+    pred_maps = model(batch['img'])
+    return model.loss(pred_maps, batch['gt_bboxes'], batch['gt_labels'],
+                      batch['gt_valid'])
+
+
 def make_train_step(model: nn.Module,
                     opt_cfg: YoloSGDConfig,
                     ema_momentum_base: float = 0.9999,
                     ema_warm_up: int = 2000,
                     ema_interval: int = 1,
-                    accumulation: int = 1
+                    accumulation: int = 1,
+                    loss_fn: Optional[Callable[[Dict], Dict]] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState,
                                                             Dict]]:
     """The train step: ``(state, batch) -> (state, metrics)``.
@@ -70,8 +79,14 @@ def make_train_step(model: nn.Module,
     ``batch`` holds tensors on the model's device: ``img`` (B, H, W, 3)
     and padded gts ``gt_bboxes`` (B, G, 4), ``gt_labels`` (B, G),
     ``gt_valid`` (B, G). Micro-batch ``i`` holds images ``[i*mb,
-    (i+1)*mb)`` (``reshape((accumulation, -1) + shape[1:])``). ``state``
-    must hold ``model``'s own tensors (``create_train_state``).
+    (i+1)*mb)`` (``reshape((accumulation, -1) + shape[1:])``) of every
+    entry. ``state`` must hold ``model``'s own tensors
+    (``create_train_state``).
+
+    ``loss_fn(micro_batch) -> losses`` replaces ``model_losses`` (tpudet's
+    ``loss_fn`` hook, ``tpudet/train/train_state.py:111-146``): with the
+    on-device augmentation it augments a tile micro-batch, without
+    gradient, and returns ``model_losses`` of the result.
 
     ``metrics``: ``loss`` (the summed losses, mean over micro-batches),
     ``loss_cls``, ``loss_conf``, ``loss_bbox``, ``num_gts`` (means over
@@ -79,6 +94,7 @@ def make_train_step(model: nn.Module,
     group's) and ``momentum``; 0-d tensors on the device.
     """
     _, opt_update = make_yolo_sgd(opt_cfg, param_labels(model))
+    compute_losses = loss_fn or (lambda mb: model_losses(model, mb))
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState,
                                                             Dict]:
@@ -89,9 +105,7 @@ def make_train_step(model: nn.Module,
                  for k, v in batch.items()}
         totals, seq = [], []
         for i in range(accumulation):
-            pred_maps = model(micro['img'][i])
-            losses = model.loss(pred_maps, micro['gt_bboxes'][i],
-                                micro['gt_labels'][i], micro['gt_valid'][i])
+            losses = compute_losses({k: v[i] for k, v in micro.items()})
             total = sum(v for k, v in losses.items() if 'loss' in k)
             total.backward()
             totals.append(total.detach())

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 
@@ -16,3 +17,15 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             'CPU')
     return device
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on ``device``. A host array
+    bound for a GPU goes through pinned memory without blocking: a copy
+    from pageable memory would wait for every kernel queued on the stream
+    before it."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == 'cuda' and x.device.type == 'cpu':
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
