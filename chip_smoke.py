@@ -53,7 +53,17 @@ Phases, in order; any failure exits non-zero:
    ``device_mosaic_affine`` on the card against the CPU with the same
    draws (4 images, 640) and its ms per micro-batch, the checkpoint's
    save and load ms;
-8. output: a ``kernels`` JSON line (with each kernel's share of its
+8. YOLOv5-l (``configs/yolov5/yolov5l_coco_mosaic.py``) at full width
+   and depth: its weights drawn as in phase 4, written with
+   ``save_variables`` (``CLASSES`` in the meta) and read back by path
+   through ``init_detector(cfg, path)``; inference as in phase 4 (99
+   launches per forward, one per BatchNorm site; fp32 against the CPU on
+   2 images; the Focus stem's time); the test CLI
+   (``tpudet_torch.tools.test.main``) over 16 seeded images served from
+   arrays, its report against ``single_device_test`` +
+   ``coco_fast_bbox_eval`` of the same weights; training as in phase 6
+   (594 launches of each kernel per step, no copy of ``g``);
+9. output: a ``kernels`` JSON line (with each kernel's share of its
    bound), the nvidia-smi line, and last ``{"ok": true, "device":
    {...}}``.
 
@@ -77,6 +87,21 @@ SEED = 0
 BATCH = 8
 IMG = 640
 MISH_PER_FORWARD = 108  # BN sites of YOLOv4-l, each followed by mish
+# phase 8: YOLOv5-l, its weights read back by path from a msgpack whose
+# meta names these classes; the fp32 card-vs-CPU check on 2 images; the
+# test CLI over 16 seeded images, its report equal to the API's within
+# REPORT_ATOL and its detection file's records within DET_ATOL (the same
+# fp32 computation on the same card, so 0 is expected). The set's seed
+# (SEED + 627) is one whose gts fall in all three scale buckets, so every
+# value of the report is defined.
+CONFIG_V5 = os.path.join(ROOT, 'configs/yolov5/yolov5l_coco_mosaic.py')
+MISH_PER_FORWARD_V5 = 99  # BN sites of YOLOv5-l, each followed by mish
+CHECKPOINT_CLASSES = ['rect', 'circle', 'triangle']
+V5_FP32_IMAGES = 2
+CLI_IMAGES = 16
+CLI_SET_SEED = SEED + 627
+REPORT_ATOL = 1e-6
+DET_ATOL = 1e-4
 # training: the config's samples_per_gpu 12, nominal batch 64 -> 6 micro-
 # batches, 72 images per optimizer step; gts padded to the config's max_gts
 TRAIN_STEPS = 3
@@ -102,6 +127,10 @@ MISH_BWD_OPS_PER_ELEMENT = 15
 # PyTorch's exp would. The backward is judged in ulps of the gradient's
 # scale, max(|dx|, |g|): mish' crosses zero at x ~ -1.1924.
 ULP_TOL = {'float32': 2, 'bfloat16': 1, 'float16': 1}
+# at a main path's own bf16 inputs (normal draws, no special values) the
+# kernels and their plain versions agree exactly: 0 ulp on YOLOv4-l's 108
+# shapes and layouts on the H100
+MAIN_PATH_ULP_TOL = 0
 # card fp32 (TF32 off) against the CPU, per pred map: max |delta| <=
 # 1e-3 * max |ref| (the two sum the convs in other orders)
 FP32_PRED_TOL = 1e-3
@@ -440,7 +469,8 @@ def check_mish_bwd_kernel(torch, mish):
 
 
 def make_variables(torch, cfg, img, bn_scale=BN_SCALE):
-    """tpudet variables for YOLOv4-l from a numpy seed, in three steps:
+    """tpudet variables for a YOLO config from a numpy seed, in three
+    steps:
 
     - tpudet's init, with every BatchNorm scale at ``bn_scale``;
     - BatchNorm statistics measured on ``img``, the smoke's own batch:
@@ -553,24 +583,54 @@ def pred_map_error(got, ref):
                   / r.float().abs().max()) for g, r in zip(got, ref)]
 
 
-def run_slice(torch):
+def run_slice(torch, config=CONFIG, name='YOLOv4-l',
+              sites=MISH_PER_FORWARD, fp32_images=1, weights_dir=None):
+    """Inference of ``config`` at batch 8, bf16, through ``init_detector``
+    / ``Detector``: its launch counts (every count at 0 just before the
+    one call), the card in fp32 against the CPU on ``fp32_images``
+    images, bf16 against fp32, times and a profile. The weights come from
+    ``make_variables``; with ``weights_dir`` they are written there with
+    ``save_variables`` (``CLASSES`` in the meta) and every detector reads
+    them back by path. Returns (weights tree, launches, mish output
+    shapes, weights path or None)."""
     from tpudet_torch.apis import init_detector
     from tpudet_torch.config import Config
     from tpudet_torch.core.nms import batched_class_lane_nms
     from tpudet_torch.models.layers import BatchNormAct, ConvModule
     from tpudet_torch.ops import mish
+    from tpudet_torch.utils.checkpoint import save_variables
 
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(config)
     img_np = images(BATCH, SEED + 1)
     t0 = time.perf_counter()
     tree = make_variables(torch, cfg, img_np)
     log(f'weights: numpy seed {SEED}, tpudet layout, '
         f'{time.perf_counter() - t0:.1f} s')
-    det = init_detector(cfg, variables=tree, device='cuda',
-                        dtype=torch.bfloat16)
+    path = None
+    if weights_dir is not None:
+        path = os.path.join(weights_dir, 'weights.msgpack')
+        t0 = time.perf_counter()
+        save_variables(path, tree, meta=dict(CLASSES=CHECKPOINT_CLASSES))
+        log(f'weights written to a msgpack of '
+            f'{os.path.getsize(path) / 2**20:.1f} MiB in '
+            f'{time.perf_counter() - t0:.2f} s')
+
+    def load(device, dtype):
+        if path is None:
+            return init_detector(cfg, variables=tree, device=device,
+                                 dtype=dtype)
+        return init_detector(cfg, path, device=device, dtype=dtype)
+
+    det = load('cuda', torch.bfloat16)
+    if path is not None:
+        log(f'CLASSES read back from the checkpoint: {list(det.CLASSES)}')
+        if list(det.CLASSES) != CHECKPOINT_CLASSES:
+            raise AssertionError('CLASSES did not come from the checkpoint')
     n_params = sum(p.numel() for p in det.model.parameters())
-    log(f'YOLOv4-l: {n_params / 1e6:.2f} M parameters, bf16 on '
-        f'{torch.cuda.get_device_name(0)}')
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d)
+               for m in det.model.modules())
+    log(f'{name}: {n_params / 1e6:.2f} M parameters, {n_bn} BatchNorm '
+        f'sites, bf16 on {torch.cuda.get_device_name(0)}')
     mish_shapes = []
     hooks = [m.register_forward_hook(
         lambda mod, args, out: mish_shapes.append(tuple(out.shape)))
@@ -590,9 +650,10 @@ def run_slice(torch):
     log(f'inference path launches: {json.dumps(launches)}')
     if launches['mish_bwd']:
         raise AssertionError('the inference path launched a backward')
-    if not launches['mish_fwd'] == len(mish_shapes) == MISH_PER_FORWARD:
+    if not launches['mish_fwd'] == len(mish_shapes) == n_bn == sites:
         raise AssertionError(f'mish kernel launched {launches["mish_fwd"]} '
-                             f'times in one forward, not {MISH_PER_FORWARD}')
+                             f'times in one forward, not {sites} (BN '
+                             f'sites {n_bn})')
     shapes = {'bboxes': (BATCH, 300, 4), 'scores': (BATCH, 300),
               'labels': (BATCH, 300), 'valid': (BATCH, 300)}
     for k, want in shapes.items():
@@ -613,43 +674,47 @@ def run_slice(torch):
     log(f'fp32 reference: cudnn.allow_tf32='
         f'{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32='
         f'{torch.backends.cuda.matmul.allow_tf32}')
-    det32 = init_detector(cfg, variables=tree, device='cuda',
-                          dtype=torch.float32)
-    cpu32 = init_detector(cfg, variables=tree, device='cpu',
-                          dtype=torch.float32)
-    one = img[:1]
+    det32 = load('cuda', torch.float32)
+    cpu32 = load('cpu', torch.float32)
+    few = img[:fp32_images]
     with torch.inference_mode():
-        pm_ref = cpu32.model(one.cpu())
+        pm_ref = cpu32.model(few.cpu())
         res_ref = cpu32.model.get_bboxes(pm_ref)
-        pm32 = det32.model(one)
+        pm32 = det32.model(few)
         res32 = det32.model.get_bboxes(pm32)
     err32 = pred_map_error(pm32, pm_ref)
-    log(f'fp32 card vs CPU pred maps, max|d|/max|ref| per level: {err32} '
-        f'(tolerance {FP32_PRED_TOL})')
+    log(f'fp32 card vs CPU pred maps over {fp32_images} images, '
+        f'max|d|/max|ref| per level: {err32} (tolerance {FP32_PRED_TOL})')
     if max(err32) > FP32_PRED_TOL:
         raise AssertionError('fp32 card pred maps differ from the CPU')
-    matched, n_ref, n_got = match_detections(res_ref, res32, 0, MATCH_IOU)
-    log(f'fp32 card vs CPU detections: {matched} matched of {n_ref} / '
-        f'{n_got} (label and IoU >= {MATCH_IOU})')
-    if not (matched == n_ref == n_got and n_ref > 0):
-        raise AssertionError('fp32 card detections differ from the CPU')
+    for i in range(fp32_images):
+        matched, n_ref, n_got = match_detections(res_ref, res32, i,
+                                                 MATCH_IOU)
+        log(f'fp32 card vs CPU detections, image {i}: {matched} matched of '
+            f'{n_ref} / {n_got} (label and IoU >= {MATCH_IOU})')
+        if not (matched == n_ref == n_got and n_ref > 0):
+            raise AssertionError('fp32 card detections differ from the CPU')
     del det32
     torch.cuda.empty_cache()
 
-    # bf16 card (image 0 of the batch run) against the fp32 reference
+    # bf16 card (the first images of the batch run) against fp32 on the CPU
     with torch.inference_mode():
-        pm16 = [p[:1] for p in det.forward(img)]
+        pm16 = [p[:fp32_images] for p in det.forward(img)]
     err16 = pred_map_error(pm16, pm_ref)
     m16, n_ref16, n_got16 = match_detections(res_ref, res, 0, 0.5)
     log(f'bf16 card vs fp32 CPU pred maps, max|d|/max|ref| per level: '
-        f'{err16} (tolerance {BF16_PRED_TOL}); detections matched at IoU '
-        f'0.5 and label: {m16} of {n_ref16} / {n_got16}')
+        f'{err16} (tolerance {BF16_PRED_TOL}); detections of image 0 '
+        f'matched at IoU 0.5 and label: {m16} of {n_ref16} / {n_got16}')
     if max(err16) > BF16_PRED_TOL:
         raise AssertionError('bf16 pred maps too far from fp32')
 
-    # times per batch of 8, bf16; everything warmed up first
+    # times per batch of 8, bf16; everything warmed up first; the stem
+    # (the first backbone module) alone, on the permuted bf16 batch the
+    # forward gives it
     model = det.model
     cfg_t = dict(model.test_cfg)
+    stem = getattr(model.backbone, model.backbone.stage_names[0][0])
+    stem_in = img.to(torch.bfloat16).permute(0, 3, 1, 2)
     with torch.inference_mode():
         for _ in range(5):
             det(img)
@@ -658,6 +723,7 @@ def run_slice(torch):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = {
+            'stem_ms': cuda_ms(lambda: stem(stem_in), runs=10),
             'e2e_ms': cuda_ms(lambda: det(img), runs=10),
             'forward_ms': cuda_ms(lambda: model(img), runs=10),
             'decode_ms': cuda_ms(
@@ -674,12 +740,15 @@ def run_slice(torch):
         torch.cuda.synchronize()
     times['img_per_s'] = BATCH / times['e2e_ms'] * 1e3
     times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
-    log(f'bf16 batch {BATCH} x {IMG}^2: ' + json.dumps(times))
+    log(f'{name} bf16 batch {BATCH} x {IMG}^2: ' + json.dumps(times))
     with torch.inference_mode():
-        profile_device(torch, lambda: det(img), 'e2e call')
-    del det, model, cpu32
+        prof = profile_device(torch, lambda: det(img), 'e2e call')
+    if prof:
+        log(f'{name} inference: device busy {prof[1]:.3f} ms per call of '
+            f'{BATCH}')
+    del det, model, cpu32, stem
     torch.cuda.empty_cache()
-    return tree, launches, mish_shapes
+    return tree, launches, mish_shapes, path
 
 
 def profile_device(torch, fn, label, calls=3, top=15):
@@ -1102,18 +1171,20 @@ def record_gradient_layouts(torch, model, sites):
             and m.act is not None]
 
 
-def run_training(torch, tree):
-    """YOLOv4-l 640 at full width and depth, bf16 compute with fp32 master
-    weights, through ``init_trainer(...).step``: TRAIN_STEPS optimizer
-    steps of 72 images, each with its launch counts (every count set to 0
-    just before the step and read just after) and the copies of ``g`` the
-    backward wrapper made, then one profiled step. The first step records
-    the layouts of the gradients the backward kernel reads. Returns the
-    launch counts of a step and the layouts of one micro-batch."""
+def run_training(torch, tree, config=CONFIG, name='YOLOv4-l',
+                 mish_sites=MISH_PER_FORWARD):
+    """``config`` at 640, full width and depth, bf16 compute with fp32
+    master weights, through ``init_trainer(...).step``: TRAIN_STEPS
+    optimizer steps of 72 images, each with its launch counts (every count
+    set to 0 just before the step and read just after) and the copies of
+    ``g`` the backward wrapper made, then one profiled step. The first
+    step records the layouts of the gradients the backward kernel reads.
+    Returns the launch counts of a step and the layouts of one
+    micro-batch."""
     from tpudet_torch.apis import init_trainer
     from tpudet_torch.config import Config
     from tpudet_torch.ops import mish
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(config)
     cfg['compute_dtype'] = 'bfloat16'
     trainer = init_trainer(cfg, variables=tree, device='cuda',
                            max_steps=TRAIN_STEPS + 1)
@@ -1127,7 +1198,7 @@ def run_training(torch, tree):
             p.dtype != torch.float32 for p in model.parameters()):
         raise AssertionError('not bf16 compute with fp32 master weights')
     images = ACCUMULATION * MICRO_BATCH
-    log(f'training: YOLOv4-l {IMG}^2, {images} images per optimizer step '
+    log(f'training: {name} {IMG}^2, {images} images per optimizer step '
         f'({ACCUMULATION} x {MICRO_BATCH}), bf16 compute, fp32 master '
         f'weights, warm-up {trainer.opt_cfg.warmup_iters} steps')
     p0 = {k: v.detach().clone() for k, v in trainer.state.params.items()}
@@ -1159,9 +1230,9 @@ def run_training(torch, tree):
                    img_per_s=images / step_s,
                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                    launches=launches, **g_reads)
-        log('train step: ' + json.dumps(row))
+        log(f'{name} train step: ' + json.dumps(row))
         per_step.append(row)
-        want = ACCUMULATION * MISH_PER_FORWARD
+        want = ACCUMULATION * mish_sites
         if launches != {'mish_fwd': want, 'mish_bwd': want}:
             raise AssertionError(f'step {step}: launches {launches}, not '
                                  f'{want} each')
@@ -1180,26 +1251,26 @@ def run_training(torch, tree):
     if not (moved > 0 and ema_moved > 0):
         raise AssertionError('params or EMA did not move')
     batch = train_batch(images, SEED + 100 + TRAIN_STEPS)
-    profile_device(torch, lambda: trainer.step(batch), 'train step',
+    profile_device(torch, lambda: trainer.step(batch), f'{name} train step',
                    calls=1, top=25)
     del trainer, p0, e0
     torch.cuda.empty_cache()
     if len(sites) != want:
         raise AssertionError(f'{len(sites)} gradient layouts recorded in a '
                              f'step, not {want}')
-    return per_step[-1]['launches'], sites[:MISH_PER_FORWARD]
+    return per_step[-1]['launches'], sites[:mish_sites]
 
 
-def check_train_step_cpu(torch, tree):
-    """One fp32 optimizer step (micro-batch 2, accumulation 2) of YOLOv4-l
-    640 through ``init_trainer`` on the card (TF32 off) and on the CPU,
-    from the same variables and batch."""
+def check_train_step_cpu(torch, tree, config=CONFIG):
+    """One fp32 optimizer step (micro-batch 2, accumulation 2) of
+    ``config`` at 640 through ``init_trainer`` on the card (TF32 off) and
+    on the CPU, from the same variables and batch."""
     from tpudet_torch.apis import init_trainer
     from tpudet_torch.config import Config
     from tpudet_torch.utils.flax_import import train_state_to_flax
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(config)
     cfg['data'] = dict(cfg['data'], samples_per_gpu=CHECK_MICRO)
     cfg['nominal_batch_size'] = CHECK_MICRO * CHECK_ACCUM
     batch = train_batch(CHECK_MICRO * CHECK_ACCUM, SEED + 200)
@@ -1241,6 +1312,67 @@ def check_train_step_cpu(torch, tree):
             raise AssertionError(f'fp32 card {name} differ from the CPU')
 
 
+def draw_strided(torch, gen, shape, stride):
+    """bf16 normal draws laid out at ``stride`` (a channel slice of a
+    concat's gradient keeps the concat's pitch)."""
+    span = 1 + sum((n - 1) * s for n, s in zip(shape, stride))
+    return torch.randn(span, generator=gen, device='cuda').to(
+        torch.bfloat16).as_strided(shape, stride)
+
+
+def main_path_fwd_err(mish, x, label):
+    """The forward kernel against its plain version on one main-path
+    input; fails past MAIN_PATH_ULP_TOL. Returns the max abs err."""
+    ulps, err = ulp_error(mish.mish_cuda(x).float(),
+                          mish.mish_reference(x).float(), 'bfloat16')
+    if ulps > MAIN_PATH_ULP_TOL:
+        raise AssertionError(f'mish kernel at {label} {tuple(x.shape)}: '
+                             f'{ulps} ulp > {MAIN_PATH_ULP_TOL}')
+    return err
+
+
+def main_path_bwd_err(mish, x, g, label):
+    """The backward kernel against its plain version on one main-path
+    layout, in ulps of the gradient's scale; fails past
+    MAIN_PATH_ULP_TOL. Returns the max abs err."""
+    ulps, err = ulp_error(mish.mish_backward_cuda(x, g).float(),
+                          mish.mish_backward_reference(x, g).float(),
+                          'bfloat16', scale=g.float())
+    if ulps > MAIN_PATH_ULP_TOL:
+        raise AssertionError(f'mish backward kernel at {label} '
+                             f'{tuple(x.shape)}, g strides {g.stride()}: '
+                             f'{ulps} ulp > {MAIN_PATH_ULP_TOL}')
+    return err
+
+
+def check_mish_main_path(torch, mish, shapes, sites, label):
+    """Both kernels against their plain versions at a main path's own
+    inputs, one site at a time: the forward on the bf16 channels_last
+    output shapes of one inference call (``shapes``), the backward on the
+    (shape, x strides, g strides) layouts of one training micro-batch
+    (``sites``), pitched g included. Returns the max abs err of each."""
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 4)
+    fwd = max(main_path_fwd_err(mish, torch.randn(
+        s, generator=gen, device='cuda').to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last), label) for s in shapes)
+    mish.mish_backward_cuda.g_copies = 0
+    mish.mish_backward_cuda.g_pitched = 0
+    bwd = max(main_path_bwd_err(mish, draw_strided(torch, gen, shape, xst),
+                                draw_strided(torch, gen, shape, gst), label)
+              for shape, xst, gst in sites)
+    pitched = mish.mish_backward_cuda.g_pitched
+    copies = mish.mish_backward_cuda.g_copies
+    log(f'{label} kernels against plain at the main path\'s inputs: '
+        f'mish_fwd over {len(shapes)} shapes, max abs err {fwd:.3e}; '
+        f'mish_bwd over {len(sites)} layouts ({pitched} with g at a pitch, '
+        f'{copies} copied), max abs err {bwd:.3e} (tolerance '
+        f'{MAIN_PATH_ULP_TOL} ulp)')
+    if copies:
+        raise AssertionError(f'{label}: the backward copied g {copies} times')
+    torch.cuda.empty_cache()
+    return {'mish_fwd': fwd, 'mish_bwd': bwd}
+
+
 def time_mish_bwd_main_path(torch, mish, sites):
     """The backward kernel over the 108 sites of one bf16 micro-batch of
     12, x and g in the layouts the training step gave them (``sites``:
@@ -1248,18 +1380,12 @@ def time_mish_bwd_main_path(torch, mish, sites):
     ``aten.mish_backward``, each as one CUDA graph of 108 launches; bound
     from bytes and operations."""
     gen = torch.Generator(device='cuda').manual_seed(SEED + 3)
-
-    def draw(shape, stride):
-        span = 1 + sum((n - 1) * s for n, s in zip(shape, stride))
-        return torch.randn(span, generator=gen, device='cuda').to(
-            torch.bfloat16).as_strided(shape, stride)
-    xs = [draw(shape, xst) for shape, xst, _ in sites]
-    gs = [draw(shape, gst) for shape, _, gst in sites]
+    xs = [draw_strided(torch, gen, shape, xst) for shape, xst, _ in sites]
+    gs = [draw_strided(torch, gen, shape, gst) for shape, _, gst in sites]
     n = sum(x.numel() for x in xs)
     bytes_ms = 3 * n * 2 / HBM_BYTES_PER_S * 1e3
     ops_ms = n * MISH_BWD_OPS_PER_ELEMENT / FP32_FLOPS * 1e3
-    errs = [float((mish.mish_backward_cuda(x, g).float() -
-                   mish.mish_backward_reference(x, g).float()).abs().max())
+    errs = [main_path_bwd_err(mish, x, g, 'YOLOv4-l')
             for x, g in zip(xs, gs)]
 
     def over_all(fn):
@@ -1290,8 +1416,7 @@ def time_mish_main_path(torch, mish, shapes):
     n = sum(x.numel() for x in xs)
     bytes_ms = 2 * n * 2 / HBM_BYTES_PER_S * 1e3
     ops_ms = n * MISH_OPS_PER_ELEMENT / FP32_FLOPS * 1e3
-    errs = [float((mish.mish_cuda(x).float() - mish.mish_reference(x)
-                   .float()).abs().max()) for x in xs]
+    errs = [main_path_fwd_err(mish, x, 'YOLOv4-l') for x in xs]
 
     def over_all(fn):
         return lambda: [fn(x) for x in xs]
@@ -1799,6 +1924,132 @@ def run_train_loop(torch, tree):
     return first.rows[-1]['launches'], numbers
 
 
+# ---------------------------------------------------------------------------
+# 8. YOLOv5-l: inference from a checkpoint path, the test CLI, training
+
+
+def run_cli_eval(torch, config, path):
+    """``tpudet_torch.tools.test.main`` on ``config`` with the weights at
+    ``path``, over CLI_IMAGES seeded images served from arrays (a config
+    file written here points the test set at them), every kernel count at
+    0 just before the call; then ``single_device_test`` and
+    ``coco_fast_bbox_eval`` on ``init_detector(config, path)`` in fp32 over
+    the same set: the reports agree within REPORT_ATOL, every value
+    finite, and the detections the CLI wrote (``--format-out``) match the
+    API's (``results2json``) record by record. Returns the launches per
+    batch."""
+    import tempfile
+
+    from tpudet_torch.apis import init_detector, single_device_test
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import build_dataset
+    from tpudet_torch.evaluation import coco_fast_bbox_eval
+    from tpudet_torch.ops import mish
+    from tpudet_torch.tools import test as cli
+    register_array_data()
+    batches = -(-CLI_IMAGES // BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays, coco = eval_set(CLI_SET_SEED, CLI_IMAGES)
+        ann = os.path.join(tmp, 'cli.json')
+        with open(ann, 'w') as f:
+            json.dump(coco, f)
+        ARRAYS[ann] = arrays
+        pipeline = _from_arrays(Config.fromfile(config)['data']['test'][
+            'pipeline'])
+        cfg_file = os.path.join(tmp, 'cli_config.py')
+        with open(cfg_file, 'w') as f:
+            f.write(f'_base_ = {config!r}\n'
+                    f"data = dict(test=dict(type='ArrayCocoDataset', "
+                    f'ann_file={ann!r}, pipeline={pipeline!r}))\n')
+        mish.mish_cuda.launches = 0
+        mish.mish_backward_cuda.launches = 0
+        t0 = time.perf_counter()
+        report = cli.main([cfg_file, path, '--batch-size', str(BATCH),
+                           '--img-size', str(IMG), '--format-out',
+                           os.path.join(tmp, 'cli')])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = {'mish_fwd': mish.mish_cuda.launches,
+                    'mish_bwd': mish.mish_backward_cuda.launches}
+        log(f'test CLI over {CLI_IMAGES} images in {batches} batches, fp32: '
+            f'{cli_s:.2f} s, launches {json.dumps(launches)}')
+        if launches != {'mish_fwd': batches * MISH_PER_FORWARD_V5,
+                        'mish_bwd': 0}:
+            raise AssertionError(f'test CLI launches {launches}, not '
+                                 f'{MISH_PER_FORWARD_V5} forward per batch')
+        cfg = Config.fromfile(cfg_file)
+        det = init_detector(cfg, path, device='cuda', dtype=torch.float32)
+        ds = build_dataset({**cfg['data']['test'], 'test_mode': True},
+                           dict(device=det.device))
+        results = single_device_test(det.model, ds, batch_size=BATCH,
+                                     img_size=IMG, progress=False)
+        ref = coco_fast_bbox_eval(
+            results, [ds.get_ann_info_test(i) for i in range(len(ds))],
+            classes=ds.CLASSES)
+        if not all(math.isfinite(v) for d in (report, ref)
+                   for v in d.values()):
+            raise AssertionError(f'a non-finite value in the reports: '
+                                 f'{report} {ref}')
+        gap = max(abs(report[k] - v) for k, v in ref.items())
+        log(f'test CLI report: {json.dumps(report)}; single_device_test + '
+            f'coco_fast_bbox_eval: {json.dumps(ref)}; max |delta| '
+            f'{gap:.3e} (tolerance {REPORT_ATOL})')
+        if list(report) != list(ref) or not gap <= REPORT_ATOL:
+            raise AssertionError('the test CLI report differs from the API')
+        with open(os.path.join(tmp, 'cli.bbox.json')) as f:
+            got = json.load(f)
+        with open(ds.results2json(results, os.path.join(tmp, 'api'))[
+                'bbox']) as f:
+            want = json.load(f)
+        keys = ('image_id', 'category_id')
+        if len(got) != len(want) or any(
+                [g[k] for k in keys] != [w[k] for k in keys]
+                for g, w in zip(got, want)):
+            raise AssertionError('the test CLI wrote other detections')
+        box_gap = max([abs(a - b) for g, w in zip(got, want)
+                       for a, b in zip(g['bbox'], w['bbox'])] or [0.0])
+        score_gap = max([abs(g['score'] - w['score'])
+                         for g, w in zip(got, want)] or [0.0])
+        log(f'test CLI detections against the API\'s: {len(got)} records, '
+            f'box max |delta| {box_gap:.3e} px, score {score_gap:.3e} '
+            f'(tolerance {DET_ATOL})')
+        if not (len(got) and box_gap <= DET_ATOL and score_gap <= DET_ATOL):
+            raise AssertionError('the test CLI detections differ from the '
+                                 'API\'s')
+        del det, ds
+        ARRAYS.pop(ann)
+        torch.cuda.empty_cache()
+    return {k: v // batches for k, v in launches.items()}
+
+
+def run_yolov5(torch):
+    """YOLOv5-l 640 at full width and depth: inference through
+    ``init_detector(cfg, checkpoint_path)`` (fp32 on the card against the
+    CPU on V5_FP32_IMAGES images), evaluation through the test CLI, then
+    TRAIN_STEPS bf16 steps of 72 images and one fp32 step on the card
+    against the CPU; then each kernel against its plain version at the
+    shapes and gradient layouts those paths gave it. Returns the launches
+    of an inference call and of a train step, and each kernel's max abs
+    err at those inputs."""
+    import tempfile
+    from tpudet_torch.ops import mish
+
+    name = 'YOLOv5-l'
+    with tempfile.TemporaryDirectory() as tmp:
+        tree, infer_launches, mish_shapes, path = run_slice(
+            torch, CONFIG_V5, name, MISH_PER_FORWARD_V5,
+            fp32_images=V5_FP32_IMAGES, weights_dir=tmp)
+        cli_launches = run_cli_eval(torch, CONFIG_V5, path)
+    if cli_launches != infer_launches:
+        raise AssertionError(f'test CLI launches {cli_launches} per batch, '
+                             f'inference {infer_launches}')
+    train_launches, grad_sites = run_training(torch, tree, CONFIG_V5, name,
+                                              MISH_PER_FORWARD_V5)
+    check_train_step_cpu(torch, tree, CONFIG_V5)
+    errs = check_mish_main_path(torch, mish, mish_shapes, grad_sites, name)
+    return infer_launches, train_launches, errs
+
+
 def main():
     try:
         import torch
@@ -1831,7 +2082,7 @@ def main():
 
     # 4. inference; its main path once, counts at 0 just before
     t0 = time.perf_counter()
-    tree, infer_launches, mish_shapes = run_slice(torch)
+    tree, infer_launches, mish_shapes, _ = run_slice(torch)
     timed_fwd = time_mish_main_path(torch, mish, mish_shapes)
     log(f'inference phases: {time.perf_counter() - t0:.1f} s')
 
@@ -1852,7 +2103,12 @@ def main():
     loop_launches, _ = run_train_loop(torch, tree)
     log(f'training loop phases: {time.perf_counter() - t0:.1f} s')
 
-    # 8. output
+    # 8. YOLOv5-l; each path once with counts at 0 just before
+    t0 = time.perf_counter()
+    v5_infer_launches, v5_train_launches, v5_errs = run_yolov5(torch)
+    log(f'YOLOv5-l phases: {time.perf_counter() - t0:.1f} s')
+
+    # 9. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -1860,8 +2116,10 @@ def main():
             launches_by_path={
                 'inference_forward': infer_launches.get(name, 0),
                 'train_step': train_launches[name],
-                'train_detector_step': loop_launches[name]},
-            max_abs_err=max(worst, timed['max_abs_err']),
+                'train_detector_step': loop_launches[name],
+                'yolov5_inference_forward': v5_infer_launches[name],
+                'yolov5_train_step': v5_train_launches[name]},
+            max_abs_err=max(worst, timed['max_abs_err'], v5_errs[name]),
             ms=timed['ms'], plain_ms=timed['plain_ms'],
             bound_ms=timed['bound_ms'], bound_by=timed['bound_by'],
             bound_share=timed['bound_ms'] / timed['ms'],

@@ -121,3 +121,22 @@ def test_random_variables_follow_tpudet_init(flagship):
         flat[('params', 'neck', 'out_conv0', 'conv', 'kernel')])
     assert torch.is_tensor(flax_to_state_dict(tree, model)['bbox_head.'
                                                            'conv_pred0.bias'])
+
+
+def test_random_variables_of_a_grouped_conv():
+    """A grouped conv's kernel is (kh, kw, cin / groups, cout) in both
+    packages, and tpudet's he_normal draws it with fan-in
+    kh * kw * cin / groups."""
+    from tpudet.models.layers import ConvModule as JaxConvModule
+    from tpudet_torch.models.layers import ConvModule
+    jmod = JaxConvModule(features=64, kernel_size=3, groups=4)
+    shapes = jax.eval_shape(jmod.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 8, 8, 128)))
+    tmod = ConvModule(128, 64, 3, groups=4)
+    flat = _flatten(random_flax_variables(tmod, seed=1))
+    assert {p: v.shape for p, v in flat.items()} == {
+        p: tuple(s.shape) for p, s in _flatten(dict(shapes)).items()}
+    k = flat[('params', 'conv', 'kernel')]
+    assert k.shape == (3, 3, 32, 64)
+    std = np.sqrt(2.0 / (3 * 3 * 32))
+    assert abs(k.std() / std - 1) < 0.05 and np.abs(k).max() <= 2.3 * std

@@ -8,6 +8,12 @@ shipped ``test_cfg`` (anchor_pre 2048, lane_pre 4, class_pre 256, IoU
 Tolerances: ``valid`` and ``labels`` equal; boxes atol 1e-4 (640-px
 coordinates, a few fp32 ulp of the decode arithmetic); scores atol 1e-6
 (sigmoid products in [0, 1]). The NMS units hold exactly.
+
+The head's fields at 128 px, 4 classes: ``class_agnostic`` (objectness is
+the score, no class term in the loss) and anchors and strides of its own
+(2 levels of 2 anchors): bias priors equal; decode, ``get_bboxes``
+(prefiltered and dense) at the tolerances above; the loss and its
+gradients rtol 1e-5, as in ``test_torch_train_loss.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -192,3 +198,104 @@ def test_class_lane_nms_single_image_matches_tpudet():
                              lane_pre=4, class_pre=64)
     assert int(np.asarray(rj.valid).sum()) > 20
     _assert_same_dets(rj, rt)
+
+
+# the head's fields: class_agnostic, and anchors and strides of its own
+
+OWN_ANCHORS = dict(base_sizes=(((20, 30), (50, 40)), ((90, 120), (200, 160))),
+                   featmap_strides=(16, 32))
+
+
+def _field_maps(seed, strides=(8, 16, 32), anchors=3, attrib=5, batch=2,
+                img=128):
+    rng = np.random.RandomState(seed)
+    maps = []
+    for stride in strides:
+        hw = img // stride
+        p = rng.randn(batch, hw, hw, anchors, attrib).astype(np.float32)
+        p[..., :4] *= 1.5
+        p[..., 4:] = p[..., 4:] * 3.0 - 1.0
+        maps.append(p.reshape(batch, hw, hw, anchors * attrib))
+    return maps
+
+
+FIELD_CASES = {
+    'class_agnostic': (dict(class_agnostic=True), dict(attrib=5)),
+    'own_anchors': (OWN_ANCHORS, dict(strides=(16, 32), anchors=2,
+                                      attrib=9)),
+}
+
+
+def _field_heads(kw):
+    in_channels = [8] * len(kw.get('featmap_strides', (8, 16, 32)))
+    return (JaxHead(num_classes=4, in_channels=in_channels, **kw),
+            YOLOCSPHead(4, in_channels, **kw))
+
+
+@pytest.mark.parametrize('case', list(FIELD_CASES))
+def test_head_fields_decode_and_get_bboxes_match_tpudet(case):
+    kw, shape = FIELD_CASES[case]
+    jhead, thead = _field_heads(kw)
+    assert thead.num_attrib == shape['attrib']
+    for lvl in range(thead.num_levels):
+        n = len(thead.base_sizes[lvl]) * thead.num_attrib
+        np.testing.assert_array_equal(
+            thead.bias_prior(lvl), np.asarray(jhead._bias_init(lvl)(None,
+                                                                    (n,))))
+    maps = _field_maps(20, **shape)
+    jb, jc, jk = jhead.decode_pred_maps([jnp.asarray(m) for m in maps])
+    tb, tc, tk = thead.decode_pred_maps([torch.from_numpy(m) for m in maps])
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-6, rtol=0)
+    assert (tk is None) == (jk is None) == (case == 'class_agnostic')
+    for anchor_pre in (64, 0):  # the prefiltered and the dense decode
+        cfg = dict(TEST_CFG, anchor_pre=anchor_pre, max_per_img=50)
+        rj = jhead.get_bboxes([jnp.asarray(m) for m in maps], **cfg)
+        rt = thead.get_bboxes([torch.from_numpy(m) for m in maps], **cfg)
+        assert int(np.asarray(rj.valid).sum()) > 10
+        _assert_same_dets(rj, rt)
+    if case == 'class_agnostic':
+        assert not rt.labels.any()
+
+
+def _gts(seed, batch=2, g_max=5, size=128):
+    rng = np.random.RandomState(seed)
+    wh = rng.uniform(6, size * 0.7, (batch, g_max, 2))
+    c = rng.uniform(0, size, (batch, g_max, 2))
+    gt = np.clip(np.concatenate([c - wh / 2, c + wh / 2], -1), 0,
+                 size).astype(np.float32)
+    valid = rng.rand(batch, g_max) < 0.8
+    valid[:, 0] = True
+    return gt, rng.randint(0, 4, (batch, g_max)).astype(np.int32), valid
+
+
+@pytest.mark.parametrize('case', list(FIELD_CASES))
+def test_head_fields_loss_matches_tpudet(case):
+    import jax
+    kw, shape = FIELD_CASES[case]
+    jhead, thead = _field_heads(kw)
+    maps = _field_maps(21, **shape)
+    gt, labels, valid = _gts(22)
+    keys = ('loss_cls', 'loss_conf', 'loss_bbox')
+
+    def jax_total(maps_):
+        out = jhead.loss(tuple(maps_), jnp.asarray(gt), jnp.asarray(labels),
+                         jnp.asarray(valid))
+        return sum(out[k] for k in keys), out
+
+    (_, ref), ref_grads = jax.value_and_grad(jax_total, has_aux=True)(
+        [jnp.asarray(m) for m in maps])
+    tmaps = [torch.from_numpy(m).requires_grad_() for m in maps]
+    got = thead.loss(tmaps, torch.from_numpy(gt), torch.from_numpy(labels),
+                     torch.from_numpy(valid))
+    sum(got[k] for k in keys).backward()
+    for k in keys + ('num_gts',):
+        assert torch.is_tensor(got[k])
+        np.testing.assert_allclose(float(got[k].detach()), float(ref[k]),
+                                   rtol=1e-5, err_msg=k)
+    assert (float(got['loss_cls'].detach()) == 0) == (
+        case == 'class_agnostic')
+    for t, r in zip(tmaps, ref_grads):
+        r = np.asarray(r)
+        np.testing.assert_allclose(t.grad.numpy(), r,
+                                   atol=1e-5 * np.abs(r).max(), rtol=1e-5)

@@ -1,7 +1,8 @@
 """The training slice as a whole: tpudet_torch's train step against
 tpudet's ``make_train_step`` on the CPU, in fp32.
 
-YOLOv4 at the v4s scale with a narrow neck, 64 px, 4 classes, batches of 4
+YOLOv4 at the v4s scale and YOLOv5 at the v5s scale (each fixture and test
+runs for both), with narrow necks, 64 px, 4 classes, batches of 4
 images split into 2 micro-batches, a warm-up of 3 steps (so both steps run
 inside it, with the bias LR above the weight LR), gradient clipping at
 norm 10 (so it clips), EMA warm-up 4 (so the second step blends). One
@@ -46,7 +47,16 @@ BN_SCALE = 0.25
 EMA = dict(ema_momentum_base=0.9999, ema_warm_up=4, ema_interval=1)
 
 
-def tiny_cfg():
+def tiny_cfg(model='v4s'):
+    if model == 'v5s':  # the v5 neck keeps the backbone's finest width
+        return dict(
+            type='SingleStageDetector',
+            backbone=dict(type='DarknetCSP', scale='v5s5p',
+                          out_indices=[2, 3, 4]),
+            neck=dict(type='YOLOV5Neck', in_channels=[128, 256, 512],
+                      out_channels=[128, 64, 64], csp_repetition=1),
+            bbox_head=dict(type='YOLOCSPHead', num_classes=NUM_CLASSES,
+                           in_channels=[128, 64, 64]))
     return dict(
         type='SingleStageDetector',
         backbone=dict(type='DarknetCSP', scale='v4s5p', out_indices=[3, 4, 5]),
@@ -91,9 +101,9 @@ def assert_tree_close(got, ref, init, what):
         f'{what}: port vs tpudet {diff:.3e}, update {upd:.3e}')
 
 
-@pytest.fixture(scope='module')
-def runs():
-    jmodel = jax_build_detector(tiny_cfg())
+@pytest.fixture(scope='module', params=['v4s', 'v5s'])
+def runs(request):
+    jmodel = jax_build_detector(tiny_cfg(request.param))
     jopt = JaxSGDConfig(**OPT)
     state0 = jax.device_get(jax_create_state(
         jmodel, jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 3)), jopt))
@@ -104,7 +114,7 @@ def runs():
                             ema_params=scale(state0.ema_params))
     jstep = jax.jit(jax_make_train_step(jmodel, jopt, accumulation=ACCUM,
                                         **EMA))
-    model = build_detector(tiny_cfg())
+    model = build_detector(tiny_cfg(request.param))
     opt = YoloSGDConfig(**OPT)
     state = train_state_from_flax(state0, model, opt)
     step = make_train_step(model, opt, accumulation=ACCUM, **EMA)

@@ -9,8 +9,8 @@ array) or a file path, and returns the reference's result format: a list
 of per-class (n, 5) numpy arrays.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
-with no GPU they raise rather than run on the CPU. Checkpoint files and
-the mask branch come with later slices (ROADMAP.md).
+with no GPU they raise rather than run on the CPU. The mask branch comes
+with a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from ..core.nms import NMSResult
 from ..data.dataset import COCO_CLASSES
 from ..data.pipelines import Compose
 from ..models.builder import build_detector
+from ..utils.checkpoint import load_variables
 from ..utils.device import resolve_device
 from ..utils.flax_import import load_flax_variables, random_flax_variables
 
@@ -74,20 +75,33 @@ class Detector:
 
 
 def init_detector(config: Union[str, Config, Dict],
-                  variables: Optional[Dict] = None,
+                  checkpoint: Optional[str] = None,
                   device: Union[str, torch.device] = 'cuda',
                   dtype: torch.dtype = torch.bfloat16,
-                  classes: Sequence[str] = COCO_CLASSES) -> Detector:
-    """Build a detector from a config file, ``Config`` or model dict, load
-    tpudet ``variables`` (``{'params', 'batch_stats'}`` numpy tree) into it
-    or, without them, tpudet's init drawn from numpy seed 0, and put it on
-    ``device`` in compute dtype ``dtype``."""
+                  classes: Sequence[str] = COCO_CLASSES, *,
+                  variables: Optional[Dict] = None) -> Detector:
+    """Build a detector from a config file, ``Config`` or model dict, put
+    it on ``device`` in compute dtype ``dtype`` with its weights from, in
+    this order:
+
+    - ``checkpoint``, a ``*.msgpack`` weights file of tpudet's or the
+      port's ``save_variables`` (``best_ema.msgpack``, ``latest_ema.msgpack``);
+      ``CLASSES`` in its meta replace ``classes``, as in tpudet;
+    - ``variables``, a tpudet ``{'params', 'batch_stats'}`` numpy tree;
+    - tpudet's init drawn from numpy seed 0.
+    """
+    if checkpoint is not None and variables is not None:
+        raise ValueError('init_detector takes a checkpoint or variables, '
+                         'not both')
     device = resolve_device(device)
     if isinstance(config, str):
         config = Config.fromfile(config)
     cfg = config if isinstance(config, Config) else Config(dict(model=config))
     model = build_detector(cfg['model'])
-    if variables is None:
+    if checkpoint is not None:
+        variables, meta = load_variables(checkpoint)
+        classes = meta.get('CLASSES', classes)
+    elif variables is None:
         variables = random_flax_variables(model, seed=0)
     load_flax_variables(model, variables)
     model.set_dtype(dtype)

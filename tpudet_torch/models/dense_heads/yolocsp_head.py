@@ -34,16 +34,16 @@ DEFAULT_BASE_SIZES = (
 
 @HEADS.register_module()
 class YOLOCSPHead(nn.Module):
-    """COCO anchors at strides 8/16/32, class-aware (the configuration of
-    every YOLOv4 config); 4 box + 1 objectness + ``num_classes`` logits per
-    anchor. The keyword arguments are tpudet's training fields
-    (``yolocsp_head.py:52,55-61``), with its defaults."""
-
-    base_sizes = DEFAULT_BASE_SIZES
-    featmap_strides = (8, 16, 32)
+    """4 box + 1 objectness + ``num_classes`` logits per anchor (objectness
+    only with ``class_agnostic``). The keyword arguments are tpudet's fields
+    (``yolocsp_head.py:48-62``), with its defaults: COCO anchors at strides
+    8/16/32, class-aware."""
 
     def __init__(self, num_classes: int, in_channels: Sequence[int],
+                 base_sizes: Sequence = DEFAULT_BASE_SIZES,
+                 featmap_strides: Sequence[int] = (8, 16, 32),
                  one_hot_smoother: float = 0.,
+                 class_agnostic: bool = False,
                  shape_match_thres: float = 4.,
                  conf_iou_loss_ratio: float = 1.,
                  conf_level_balance: Sequence[float] = (4.0, 1.0, 0.4, 0.1,
@@ -54,7 +54,11 @@ class YOLOCSPHead(nn.Module):
                  loss_bbox_weight: float = 3.2):
         super().__init__()
         self.num_classes = num_classes
+        self.base_sizes = tuple(tuple(tuple(b) for b in level)
+                                for level in base_sizes)
+        self.featmap_strides = tuple(featmap_strides)
         self.one_hot_smoother = one_hot_smoother
+        self.class_agnostic = class_agnostic
         self.shape_match_thres = shape_match_thres
         self.conf_iou_loss_ratio = conf_iou_loss_ratio
         self.conf_level_balance = tuple(conf_level_balance)
@@ -62,7 +66,7 @@ class YOLOCSPHead(nn.Module):
         self.loss_cls_weight = loss_cls_weight
         self.loss_conf_weight = loss_conf_weight
         self.loss_bbox_weight = loss_bbox_weight
-        self.num_attrib = 5 + num_classes
+        self.num_attrib = 5 if class_agnostic else 5 + num_classes
         self.num_levels = len(self.featmap_strides)
         assert len(in_channels) == self.num_levels
         self.anchor_generator = YOLOV4AnchorGenerator(
@@ -81,7 +85,8 @@ class YOLOCSPHead(nn.Module):
         stride = self.featmap_strides[level]
         b = np.zeros((num_anchors, self.num_attrib), dtype=np.float32)
         b[:, 4] = math.log(self.num_obj_avg / (640 / stride)**2)
-        b[:, 5:] = math.log(0.6 / (self.num_classes - 0.99))
+        if not self.class_agnostic:
+            b[:, 5:] = math.log(0.6 / (self.num_classes - 0.99))
         return b.reshape(-1)
 
     def forward(self, feats):
@@ -121,7 +126,7 @@ class YOLOCSPHead(nn.Module):
 
     def decode_pred_maps(self, pred_maps):
         """All-level decode to (B, N, 4) boxes, (B, N) conf, (B, N, C)
-        cls."""
+        cls (None with ``class_agnostic``)."""
         levels, _, _ = self._grid(pred_maps)
         boxes, confs, clss = [], [], []
         for lvl, pred in enumerate(pred_maps):
@@ -132,8 +137,8 @@ class YOLOCSPHead(nn.Module):
                 float(self.featmap_strides[lvl])))
             confs.append(p[..., 4])
             clss.append(p[..., 5:])
-        return (torch.cat(boxes, dim=1), torch.cat(confs, dim=1),
-                torch.cat(clss, dim=1))
+        cls = None if self.class_agnostic else torch.cat(clss, dim=1)
+        return torch.cat(boxes, dim=1), torch.cat(confs, dim=1), cls
 
     def _prefiltered_decode(self, pred_maps, anchor_pre: int):
         """Objectness top-k in logit space, then decode only the kept
@@ -150,7 +155,8 @@ class YOLOCSPHead(nn.Module):
         sel = torch.sigmoid(sel.float())
         boxes = YOLOV4BBoxCoder.decode(anchors[top_idx], self._transform(sel),
                                        strides[top_idx])
-        return boxes, sel[..., 4], sel[..., 5:]
+        return (boxes, sel[..., 4],
+                None if self.class_agnostic else sel[..., 5:])
 
     def get_bboxes(self,
                    pred_maps,
@@ -189,7 +195,8 @@ class YOLOCSPHead(nn.Module):
             bbox, conf, cls = self._prefiltered_decode(pred_maps, anchor_pre)
         else:
             bbox, conf, cls = self.decode_pred_maps(pred_maps)
-        scores = cls * conf[..., None]
+        # class-agnostic: the objectness is the one score
+        scores = conf[..., None] if cls is None else cls * conf[..., None]
         if scale_factors is not None:
             scale_factors = torch.as_tensor(scale_factors, dtype=bbox.dtype,
                                             device=bbox.device)
@@ -229,7 +236,9 @@ class YOLOCSPHead(nn.Module):
         anchor_whs = self.anchor_generator.base_anchor_wh()
         gt_bboxes = gt_bboxes.float()
         classes = torch.arange(self.num_classes, device=gt_labels.device)
-        total_cls = total_conf = total_bbox = 0.
+        # a 0-d tensor: with class_agnostic no class term adds to it
+        total_cls = gt_bboxes.new_zeros(())
+        total_conf = total_bbox = 0.
         for lvl, pred in enumerate(pred_maps):
             b = pred.shape[0]
             pred = pred.float().reshape(b, -1, self.num_attrib)
@@ -257,17 +266,18 @@ class YOLOCSPHead(nn.Module):
             total_bbox = total_bbox + ((giou_l * mask).sum() / num_pos *
                                        self.loss_bbox_weight)
 
-            # one-hot with zero rows for out-of-range (padding) labels, as
-            # jax.nn.one_hot gives
-            tcls = (tlabel[..., None] == classes).float()
-            if self.one_hot_smoother != 0:
-                tcls = (tcls * (1 - self.one_hot_smoother) +
-                        self.one_hot_smoother / self.num_classes)
-            cls_bce = L.binary_cross_entropy_with_logits(pred_pos[..., 5:],
-                                                         tcls)
-            total_cls = total_cls + ((cls_bce * mask[..., None]).sum() /
-                                     (num_pos * self.num_classes) *
-                                     self.loss_cls_weight)
+            if not self.class_agnostic:
+                # one-hot with zero rows for out-of-range (padding) labels,
+                # as jax.nn.one_hot gives
+                tcls = (tlabel[..., None] == classes).float()
+                if self.one_hot_smoother != 0:
+                    tcls = (tcls * (1 - self.one_hot_smoother) +
+                            self.one_hot_smoother / self.num_classes)
+                cls_bce = L.binary_cross_entropy_with_logits(
+                    pred_pos[..., 5:], tcls)
+                total_cls = total_cls + ((cls_bce * mask[..., None]).sum() /
+                                         (num_pos * self.num_classes) *
+                                         self.loss_cls_weight)
 
             # IoU-aware conf target, scatter-max over the slots that land
             # on one anchor; no gradient flows through it

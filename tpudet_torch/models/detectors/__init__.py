@@ -1,3 +1,3 @@
-from .single_stage import YOLOV4, SingleStageDetector
+from .single_stage import YOLOV4, YOLOV5, SingleStageDetector
 
-__all__ = ['YOLOV4', 'SingleStageDetector']
+__all__ = ['YOLOV4', 'YOLOV5', 'SingleStageDetector']

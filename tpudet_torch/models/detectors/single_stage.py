@@ -1,6 +1,6 @@
 """Single-stage detector: backbone -> neck -> dense head. Port of
 ``tpudet/models/detectors/single_stage.py`` (``SingleStageDetector``,
-``YOLOV4``)."""
+``YOLOV4``, ``YOLOV5``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -76,4 +76,9 @@ class SingleStageDetector(nn.Module):
 
 @DETECTORS.register_module()
 class YOLOV4(SingleStageDetector):
+    """Named alias, mirroring the reference detector registry."""
+
+
+@DETECTORS.register_module()
+class YOLOV5(SingleStageDetector):
     """Named alias, mirroring the reference detector registry."""

@@ -13,6 +13,7 @@ dtype.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Callable, Optional, Union
 
 import torch
@@ -30,15 +31,31 @@ ActCfg = Optional[Union[str, dict]]
 
 
 def get_activation(act: ActCfg) -> Optional[Callable]:
-    """Resolve an activation by the reference's config names. The ported
-    slices use Mish only; the other names of tpudet come with the models
-    that use them."""
+    """Resolve an activation by the reference's config names
+    (``tpudet/models/layers.py:36-60``). Mish runs the port's kernel on
+    the card; the others are plain torch ops."""
     if act is None:
         return None
-    name = act['type'] if isinstance(act, dict) else act
-    if name.lower() == 'mish':
+    if isinstance(act, Mapping):
+        name = act['type']
+        kwargs = {k: v for k, v in act.items() if k != 'type'}
+    else:
+        name, kwargs = act, {}
+    name = name.lower()
+    if name == 'mish':
         return mish_cuda
-    raise KeyError(f'activation {name} is not ported yet')
+    if name == 'relu':
+        return torch.relu
+    if name == 'leakyrelu':
+        slope = kwargs.get('negative_slope', 0.01)
+        return lambda x: F.leaky_relu(x, negative_slope=slope)
+    if name in ('swish', 'silu'):
+        return F.silu
+    if name == 'sigmoid':
+        return torch.sigmoid
+    if name == 'tanh':
+        return torch.tanh
+    raise KeyError(f'unknown activation {name}')
 
 
 class Conv(nn.Conv2d):
@@ -101,13 +118,17 @@ class Conv2d(nn.Module):
 
 
 class ConvModule(nn.Module):
-    """conv (no bias) + BN + act (``tpudet/models/layers.py:63-104``)."""
+    """conv (no bias) + BN + act (``tpudet/models/layers.py:63-104``).
+    Padding defaults to ``kernel_size // 2``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 1, stride: int = 1, act: ActCfg = 'Mish'):
+                 kernel_size: int = 1, stride: int = 1,
+                 padding: Optional[int] = None, groups: int = 1,
+                 act: ActCfg = 'Mish'):
         super().__init__()
-        self.conv = Conv(in_channels, out_channels, kernel_size, stride,
-                         kernel_size // 2, bias=False)
+        pad = kernel_size // 2 if padding is None else padding
+        self.conv = Conv(in_channels, out_channels, kernel_size, stride, pad,
+                         groups=groups, bias=False)
         self.bn = BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = get_activation(act)
 

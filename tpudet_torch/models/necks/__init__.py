@@ -1,3 +1,3 @@
-from .yolo_neck_csp import YOLOV4Neck
+from .yolo_neck_csp import YOLOV4Neck, YOLOV5Neck
 
-__all__ = ['YOLOV4Neck']
+__all__ = ['YOLOV4Neck', 'YOLOV5Neck']

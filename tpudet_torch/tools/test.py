@@ -1,0 +1,101 @@
+"""Evaluate a detector on a config's test set with the port: counterpart of
+``tools/test.py``, on one device.
+
+    python -m tpudet_torch.tools.test CONFIG [CHECKPOINT] [--batch-size 8]
+        [--img-size 640] [--metrics bbox] [--out FILE]
+        [--format-out PREFIX] [--device cuda|cpu]
+
+CHECKPOINT is a ``*.msgpack`` weights file (``train_detector``'s
+``best_ema.msgpack`` / ``latest_ema.msgpack``, or tpudet's); without it
+the model takes tpudet's init from numpy seed 0. The detector computes in
+fp32, as tpudet's test CLI does. Prints the fast-bbox report as JSON and
+returns it. The device is ``cuda`` unless ``--device cpu`` asks for the
+CPU; with no GPU the default raises.
+
+Test-time augmentation, the ``segm`` and ``proposal_fast`` metrics (and
+``--mask-thr``, which only masks read) and multi-process evaluation
+(``--coordinator``/``--num-processes``/``--process-id``) are parsed as
+tpudet parses them and raise
+``NotImplementedError``: ROADMAP.md's "rest of the eval flow" and
+"distributed training" items port them.
+"""
+import argparse
+import json
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description='Test a detector')
+    p.add_argument('config')
+    p.add_argument('checkpoint', nargs='?', default=None,
+                   help='msgpack weights (EMA) saved by training')
+    p.add_argument('--batch-size', type=int, default=8)
+    p.add_argument('--img-size', type=int, default=640)
+    p.add_argument('--metrics', nargs='+', default=['bbox'],
+                   choices=['bbox', 'segm', 'proposal_fast'])
+    p.add_argument('--mask-thr', type=float, default=None,
+                   help='mask binarisation threshold (not ported yet)')
+    p.add_argument('--tta', action='store_true',
+                   help='flip test-time augmentation (not ported yet)')
+    p.add_argument('--coordinator', default=None,
+                   help='multi-process evaluation (not ported yet)')
+    p.add_argument('--num-processes', type=int, default=None)
+    p.add_argument('--process-id', type=int, default=None)
+    p.add_argument('--out', help='dump the report as json')
+    p.add_argument('--format-out',
+                   help='dump detections in the COCO result format to '
+                        '<prefix>.bbox.json')
+    p.add_argument('--device', default='cuda', help="'cuda' or 'cpu'")
+    return p.parse_args(argv)
+
+
+def _refuse_unported(args):
+    eval_item = 'comes with ROADMAP.md\'s "rest of the eval flow" item'
+    if args.tta:
+        raise NotImplementedError(f'--tta {eval_item}')
+    for metric in args.metrics:
+        if metric != 'bbox':
+            raise NotImplementedError(f'--metrics {metric} {eval_item}')
+    if args.mask_thr is not None:
+        raise NotImplementedError(f'--mask-thr (masks, with segm) {eval_item}')
+    if (args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None):
+        raise NotImplementedError(
+            '--coordinator/--num-processes/--process-id come with '
+            'ROADMAP.md\'s "distributed training" item')
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    _refuse_unported(args)
+
+    import torch
+
+    from tpudet_torch.apis import init_detector, single_device_test
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import build_dataset
+    from tpudet_torch.evaluation import coco_fast_bbox_eval
+
+    cfg = Config.fromfile(args.config)
+    det = init_detector(cfg, args.checkpoint, device=args.device,
+                        dtype=torch.float32)
+    dataset = build_dataset({**cfg['data']['test'], 'test_mode': True},
+                            dict(device=det.device))
+    results = single_device_test(det.model, dataset,
+                                 batch_size=args.batch_size,
+                                 img_size=args.img_size)
+    annotations = [dataset.get_ann_info_test(i) for i in range(len(dataset))]
+    report = coco_fast_bbox_eval(results, annotations,
+                                 classes=dataset.CLASSES)
+    print(json.dumps(report, indent=2))
+    if args.out:
+        with open(args.out, 'w') as f:
+            json.dump(report, f)
+    if args.format_out:
+        for metric, path in dataset.results2json(results,
+                                                 args.format_out).items():
+            print(f'wrote {metric} results to {path}')
+    return report
+
+
+if __name__ == '__main__':
+    main()

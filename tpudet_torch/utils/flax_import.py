@@ -222,7 +222,8 @@ def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
                 value = (rng.standard_normal(hwio) * 0.01).astype(np.float32)
             else:
                 # flax he_normal: std of the truncated draw corrected by
-                # 0.8796..., the std of N(0, 1) cut at +-2
+                # 0.8796..., the std of N(0, 1) cut at +-2; the fan-in is
+                # kh * kw * cin / groups (shape[1] of a grouped conv)
                 std = np.sqrt(2.0 / (kh * kw * shape[1])) / .87962566103423978
                 value = _truncated_normal(rng, hwio, std)
         elif leaf in ('scale', 'var'):
