@@ -63,9 +63,22 @@ Phases, in order; any failure exits non-zero:
    arrays, its report against ``single_device_test`` +
    ``coco_fast_bbox_eval`` of the same weights; training as in phase 6
    (594 launches of each kernel per step, no copy of ``g``);
-9. output: a ``kernels`` JSON line (with each kernel's share of its
-   bound), the nvidia-smi line, and last ``{"ok": true, "device":
-   {...}}``.
+9. RetinaNet-R50-FPN (``configs/retinanet/retinanet_r50_fpn_1x_coco.py``,
+   ResNet-50, FPN, RetinaHead) at full width and depth, no mish: inference
+   bf16 at batch 8 on 1344^2 canvases through ``Detector`` (at least 4096
+   candidates an image, forward / decode / NMS / e2e ms, device busy);
+   fp32 on the card against the CPU on 2 images; the soft-NMS config,
+   card against CPU; 3 bf16 ``init_trainer`` steps of 2 images at 1344;
+   one fp32 step at 320, card against CPU, with the MaxIoU codes of its
+   batch on both; ``train_detector`` on the shapes config (3 steps from
+   seeded arrays, a checkpoint, the EMA evaluation), then the test CLI on
+   its weights against the API. Every path: 0 mish launches;
+10. output: a ``kernels`` JSON line (with each kernel's share of its
+   bound and its launches on every path), the whole run's seconds, the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+
+Phase 1 also prints which JPEG decoders (libjpeg, nvJPEG) the machine
+holds.
 
 Times come from CUDA events: warm-up, then the median of the timed runs.
 Kernel times (and their plain and library counterparts) replay a CUDA
@@ -110,6 +123,33 @@ ACCUMULATION = 6
 MAX_GTS = 120
 # the fp32 card-vs-CPU step: micro-batch 2, accumulation 2
 CHECK_MICRO, CHECK_ACCUM = 2, 2
+
+# phase 9: RetinaNet-R50-FPN (80 classes, strides 8-128, 9 anchors a cell):
+# inference at batch 8 on 1344^2 canvases (the 1333x800 scale, padded to
+# 32 and square, 338,454 anchors); the class logits of the random weights
+# drawn N(RETINA_CLS_BIAS, RETINA_CLS_SPREAD^2), so that far more than
+# RETINA_MIN_CANDIDATES (box, class) pairs an image clear score_thr 0.05
+# and the nms_pre cap of 4096 binds (the blocked NMS, K > 1536); fp32 card
+# vs CPU on 2 images, and the soft-NMS config; 3 bf16 train steps of 2
+# images with up to RETINA_MAX_GTS gts; one fp32 step at 320 card vs CPU;
+# train_detector on the shapes config for 3 steps of 8 images at 320 (24
+# train, 8 val images from the seed), then the test CLI on its weights
+CONFIG_RETINA = os.path.join(ROOT,
+                             'configs/retinanet/retinanet_r50_fpn_1x_coco.py')
+CONFIG_RETINA_SOFT = os.path.join(
+    ROOT, 'configs/retinanet/retinanet_r50_fpn_softnms_1x_coco.py')
+CONFIG_RETINA_SHAPES = os.path.join(
+    ROOT, 'configs/shapes/retinanet_r50_shapes_320.py')
+RETINA_IMG = 1344
+RETINA_BATCH = 8
+RETINA_FP32_IMAGES = 2
+RETINA_MIN_CANDIDATES = 4096
+RETINA_CLS_BIAS, RETINA_CLS_SPREAD, RETINA_REG_SPREAD = -4.0, 1.0, 0.3
+RETINA_TRAIN_STEPS = 3
+RETINA_TRAIN_BATCH = 2
+RETINA_MAX_GTS = 120
+RETINA_CHECK_IMG = 320
+SHAPES_TRAIN_IMAGES, SHAPES_VAL_IMAGES, SHAPES_STEPS = 24, 8, 3
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -791,14 +831,16 @@ def profile_device(torch, fn, label, calls=3, top=15):
     return wall_ms, busy_ms
 
 
-def eval_set(seed, n=EVAL_IMAGES):
+def eval_set(seed, n=EVAL_IMAGES, classes=None):
     """A set of ``n`` images from a numpy seed: (h, w, 3) BGR uint8 images
     of textured filled rectangles on a noise floor, and a COCO dict whose
-    gts are the rectangles (categories 1-80 named as the config's classes,
-    category 91 outside them). Image 0 holds a crowd gt, image 1 a gt of
-    category 91."""
+    gts are the rectangles (categories 1-K named as ``classes``, COCO's 80
+    by default, category 91 outside them). Image 0 holds a crowd gt, image
+    1 a gt of category 91. Other classes change the categories only: the
+    draws are the same."""
     import numpy as np
     from tpudet_torch.data import COCO_CLASSES
+    classes = COCO_CLASSES if classes is None else classes
     rng = np.random.RandomState(seed)
     arrays, images, anns = {}, [], []
     for i in range(n):
@@ -811,7 +853,9 @@ def eval_set(seed, n=EVAL_IMAGES):
             img[y:y + bh, x:x + bw] = np.clip(
                 rng.randint(0, 256, 3) + rng.randint(-24, 25, (bh, bw, 3)),
                 0, 255)
-            cat = 91 if (i, j) == (1, 0) else int(rng.randint(1, 81))
+            # the same draws for any classes: 1-80, folded onto K
+            cat = 91 if (i, j) == (1, 0) else 1 + (
+                int(rng.randint(1, 81)) - 1) % len(classes)
             anns.append(dict(id=len(anns) + 1, image_id=i + 1,
                              category_id=cat, bbox=[x, y, bw, bh],
                              area=float(bw * bh),
@@ -819,16 +863,16 @@ def eval_set(seed, n=EVAL_IMAGES):
         arrays[i + 1] = img
         images.append(dict(id=i + 1, file_name=f'{i:04d}.jpg', width=w,
                            height=h))
-    cats = [dict(id=k + 1, name=n) for k, n in enumerate(COCO_CLASSES)]
+    cats = [dict(id=k + 1, name=n) for k, n in enumerate(classes)]
     cats.append(dict(id=91, name='unicorn'))
     return arrays, dict(images=images, annotations=anns, categories=cats)
 
 
-def array_dataset(cfg, arrays, coco, device, tmp):
-    """The port's ``CocoDataset`` over images held in memory: each array
-    goes into ``results['img']`` and the config's test pipeline runs from
-    its second transform on, as ``inference_detector`` does for an
-    array."""
+def array_dataset(cfg, arrays, coco, device, tmp, classes=None):
+    """The port's ``CocoDataset`` (of ``classes``, COCO's by default) over
+    images held in memory: each array goes into ``results['img']`` and the
+    config's test pipeline runs from its second transform on, as
+    ``inference_detector`` does for an array."""
     import numpy as np
     from tpudet_torch.data import CocoDataset
 
@@ -851,7 +895,7 @@ def array_dataset(cfg, arrays, coco, device, tmp):
         json.dump(coco, f)
     test = cfg['data']['test']
     return ArrayCocoDataset(ann_file=path, pipeline=test['pipeline'],
-                            test_mode=True, device=device)
+                            classes=classes, test_mode=True, device=device)
 
 
 def match_per_class(ref, got, iou_min):
@@ -1928,16 +1972,18 @@ def run_train_loop(torch, tree):
 # 8. YOLOv5-l: inference from a checkpoint path, the test CLI, training
 
 
-def run_cli_eval(torch, config, path):
+def run_cli_eval(torch, config, path, img_size=IMG,
+                 mish_per_forward=MISH_PER_FORWARD_V5, classes=None):
     """``tpudet_torch.tools.test.main`` on ``config`` with the weights at
-    ``path``, over CLI_IMAGES seeded images served from arrays (a config
-    file written here points the test set at them), every kernel count at
-    0 just before the call; then ``single_device_test`` and
-    ``coco_fast_bbox_eval`` on ``init_detector(config, path)`` in fp32 over
-    the same set: the reports agree within REPORT_ATOL, every value
-    finite, and the detections the CLI wrote (``--format-out``) match the
-    API's (``results2json``) record by record. Returns the launches per
-    batch."""
+    ``path``, over CLI_IMAGES seeded images (categories named as
+    ``classes``, COCO's by default) served from arrays (a config file
+    written here points the test set at them), on ``img_size`` canvases,
+    every kernel count at 0 just before the call; then
+    ``single_device_test`` and ``coco_fast_bbox_eval`` on
+    ``init_detector(config, path)`` in fp32 over the same set: the reports
+    agree within REPORT_ATOL, every value finite, and the detections the
+    CLI wrote (``--format-out``) match the API's (``results2json``) record
+    by record. Returns the launches per batch."""
     import tempfile
 
     from tpudet_torch.apis import init_detector, single_device_test
@@ -1949,7 +1995,7 @@ def run_cli_eval(torch, config, path):
     register_array_data()
     batches = -(-CLI_IMAGES // BATCH)
     with tempfile.TemporaryDirectory() as tmp:
-        arrays, coco = eval_set(CLI_SET_SEED, CLI_IMAGES)
+        arrays, coco = eval_set(CLI_SET_SEED, CLI_IMAGES, classes)
         ann = os.path.join(tmp, 'cli.json')
         with open(ann, 'w') as f:
             json.dump(coco, f)
@@ -1965,7 +2011,7 @@ def run_cli_eval(torch, config, path):
         mish.mish_backward_cuda.launches = 0
         t0 = time.perf_counter()
         report = cli.main([cfg_file, path, '--batch-size', str(BATCH),
-                           '--img-size', str(IMG), '--format-out',
+                           '--img-size', str(img_size), '--format-out',
                            os.path.join(tmp, 'cli')])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
@@ -1973,16 +2019,16 @@ def run_cli_eval(torch, config, path):
                     'mish_bwd': mish.mish_backward_cuda.launches}
         log(f'test CLI over {CLI_IMAGES} images in {batches} batches, fp32: '
             f'{cli_s:.2f} s, launches {json.dumps(launches)}')
-        if launches != {'mish_fwd': batches * MISH_PER_FORWARD_V5,
+        if launches != {'mish_fwd': batches * mish_per_forward,
                         'mish_bwd': 0}:
             raise AssertionError(f'test CLI launches {launches}, not '
-                                 f'{MISH_PER_FORWARD_V5} forward per batch')
+                                 f'{mish_per_forward} forward per batch')
         cfg = Config.fromfile(cfg_file)
         det = init_detector(cfg, path, device='cuda', dtype=torch.float32)
         ds = build_dataset({**cfg['data']['test'], 'test_mode': True},
                            dict(device=det.device))
         results = single_device_test(det.model, ds, batch_size=BATCH,
-                                     img_size=IMG, progress=False)
+                                     img_size=img_size, progress=False)
         ref = coco_fast_bbox_eval(
             results, [ds.get_ann_info_test(i) for i in range(len(ds))],
             classes=ds.CLASSES)
@@ -2050,6 +2096,615 @@ def run_yolov5(torch):
     return infer_launches, train_launches, errs
 
 
+# ---------------------------------------------------------------------------
+# 9. RetinaNet-R50-FPN: inference, soft-NMS, training, train_detector, CLI
+
+
+def jpeg_libraries(build):
+    """Whether a JPEG decoder's header and library are on the machine:
+    ``jpeglib.h``, ``libjpeg.so*``, ``nvjpeg.h``, ``libnvjpeg.so*`` under
+    the CUDA toolkit beside ``nvcc``, the system paths and the ``nvidia``
+    wheels beside torch. Returns {name: [paths]}."""
+    import glob
+    import site
+    cuda = os.path.dirname(os.path.dirname(build._nvcc()))
+    dirs = [os.path.join(cuda, 'include'), os.path.join(cuda, 'lib64')]
+    dirs += glob.glob(os.path.join(cuda, 'targets', '*', 'include'))
+    dirs += glob.glob(os.path.join(cuda, 'targets', '*', 'lib'))
+    dirs += ['/usr/include', '/usr/include/x86_64-linux-gnu',
+             '/usr/lib/x86_64-linux-gnu', '/usr/lib64', '/usr/lib',
+             '/usr/local/include', '/usr/local/lib']
+    for sp in site.getsitepackages():
+        dirs += glob.glob(os.path.join(sp, 'nvidia', '*', 'include'))
+        dirs += glob.glob(os.path.join(sp, 'nvidia', '*', 'lib'))
+    return {name: sorted({p for d in dirs
+                          for p in glob.glob(os.path.join(d, name))})
+            for name in ('jpeglib.h', 'libjpeg.so*', 'nvjpeg.h',
+                         'libnvjpeg.so*')}
+
+
+def retina_norm(cfg):
+    """(mean, std) of the config's Normalize."""
+    import numpy as np
+    for t in cfg['data']['test']['pipeline']:
+        for u in [t] + list(t.get('transforms', [])):
+            if u['type'] == 'Normalize':
+                return (np.asarray(u['mean'], np.float32),
+                        np.asarray(u['std'], np.float32))
+    raise KeyError('no Normalize in the test pipeline')
+
+
+def retina_images(cfg, n, size, seed):
+    """``n`` images of random pixels on ``size`` squares, normalized as the
+    config's pipeline does, (n, size, size, 3) fp32."""
+    import numpy as np
+    mean, std = retina_norm(cfg)
+    px = np.random.RandomState(seed).randint(0, 256, (n, size, size, 3))
+    return ((px - mean) / std).astype(np.float32)
+
+
+def retina_variables(torch, cfg, img, measure_bn=False):
+    """tpudet variables for a RetinaNet config from the numpy seed:
+    tpudet's init (``random_flax_variables``: BatchNorm an identity) with
+    the two prediction convs redrawn. With tpudet's N(0, 0.01^2) kernels
+    and the 0.01 prior every class score sits near 0.01, under score_thr
+    0.05, and no NMS runs; here the class logits spread by
+    RETINA_CLS_SPREAD around RETINA_CLS_BIAS and the deltas by
+    RETINA_REG_SPREAD, the kernels scaled by the rms of each conv's input
+    on ``img`` over all levels.
+
+    With ``measure_bn`` the BatchNorm statistics are those of ``img``
+    (train mode, one cumulative pass), for a model that trains: the
+    running statistics then start where the batch statistics are, and a
+    few steps leave the head's input, and so the scores, where they were.
+    Otherwise eval mode with tpudet's identity BatchNorm: the residual
+    stages grow the activations, but bf16 stays within a few percent of
+    fp32 (with statistics of the batch, bf16 strayed 20-60 % from fp32 on
+    these weights)."""
+    import numpy as np
+    from torch import nn
+    from tpudet_torch.models.builder import build_detector
+    from tpudet_torch.utils.flax_import import (leaf_table,
+                                                load_flax_variables,
+                                                random_flax_variables)
+    model = build_detector(cfg['model'])
+    tree = random_flax_variables(model, seed=SEED)
+    load_flax_variables(model, tree)
+    model.to('cuda', memory_format=torch.channels_last)
+    if measure_bn:
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.reset_running_stats()
+                m.momentum = None  # cumulative: stats of this batch exactly
+    head = model.bbox_head
+    sums = {'retina_cls': [0.0, 0], 'retina_reg': [0.0, 0]}
+
+    def hook(name):
+        def record(mod, args):
+            sums[name][0] += float(args[0].float().pow(2).sum())
+            sums[name][1] += args[0].numel()
+        return record
+    hooks = [getattr(head, n).register_forward_pre_hook(hook(n))
+             for n in sums]
+    model.train(measure_bn)
+    with torch.no_grad():
+        model(torch.from_numpy(img).cuda())
+    for h in hooks:
+        h.remove()
+    if measure_bn:
+        sd = {k: v.detach().float().cpu().numpy()
+              for k, v in model.state_dict().items()}
+        for path, (key, _) in leaf_table(model).items():
+            if path[0] == 'batch_stats':
+                node = tree['batch_stats']
+                for p in path[1:-1]:
+                    node = node[p]
+                node[path[-1]] = sd[key]
+    rng = np.random.RandomState(SEED + 2)
+    for name, spread, bias in (
+            ('retina_cls', RETINA_CLS_SPREAD, RETINA_CLS_BIAS),
+            ('retina_reg', RETINA_REG_SPREAD, 0.0)):
+        conv = tree['params']['bbox_head'][name]
+        rms = math.sqrt(sums[name][0] / sums[name][1])
+        kh, kw, cin, _ = conv['kernel'].shape
+        std = spread / (math.sqrt(kh * kw * cin) * rms)
+        conv['kernel'] = (rng.randn(*conv['kernel'].shape) * std).astype(
+            np.float32)
+        conv['bias'] = np.full_like(conv['bias'], bias)
+    del model
+    torch.cuda.empty_cache()
+    return tree
+
+
+def retina_train_batch(cfg, n, size, seed):
+    """A training batch from a numpy seed: ``n`` images of random pixels
+    normalized as the config's pipeline, 1-20 gts per image padded to
+    RETINA_MAX_GTS, sides from e^U(log 12, log(0.7 size)) so targets land
+    on every level, labels 0-79."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    img = retina_images(cfg, n, size, seed)
+    boxes = np.zeros((n, RETINA_MAX_GTS, 4), np.float32)
+    valid = np.zeros((n, RETINA_MAX_GTS), bool)
+    for i in range(n):
+        k = rng.randint(1, 21)
+        wh = np.exp(rng.uniform(np.log(12), np.log(0.7 * size), (k, 2)))
+        c = rng.uniform(wh / 2, size - wh / 2)
+        boxes[i, :k] = np.concatenate([c - wh / 2, c + wh / 2], -1)
+        valid[i, :k] = True
+    labels = rng.randint(0, 80, (n, RETINA_MAX_GTS)).astype(np.int64)
+    return dict(img=img, gt_bboxes=boxes, gt_labels=labels, gt_valid=valid)
+
+
+def meta_gflop(cfg, size):
+    """GFLOP (a multiply-add counts 2) of one forward of the config's model
+    on a ``size`` square image, counted by ``torch.utils.flop_counter`` on
+    PyTorch's meta device: no weights, no time."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from tpudet_torch.models.builder import build_detector
+    with torch.device('meta'):
+        model = build_detector(cfg['model']).eval()
+        counter = FlopCounterMode(display=False)
+        with counter:
+            model(torch.zeros(1, size, size, 3))
+    return counter.get_total_flops() / 1e9
+
+
+def retina_featmap_sizes(model, size):
+    """The (H, W) of each pyramid level on a ``size`` square: the stride-2
+    extra convs round up."""
+    return [(-(-size // s),) * 2 for s in model.bbox_head.strides]
+
+
+def _mish_counts(mish):
+    return {'mish_fwd': mish.mish_cuda.launches,
+            'mish_bwd': mish.mish_backward_cuda.launches}
+
+
+def _zero_counts(mish):
+    mish.mish_cuda.launches = 0
+    mish.mish_backward_cuda.launches = 0
+
+
+def _flat_levels(preds):
+    """RetinaNet's (cls levels, reg levels) as one list of maps."""
+    return [p for part in preds for p in part]
+
+
+def run_retina_inference(torch, mish):
+    """RetinaNet-R50-FPN bf16, batch 8, on RETINA_IMG canvases through
+    ``init_detector`` / ``Detector``: its launch counts (every count at 0
+    just before the one call), the (box, class) candidates over score_thr
+    per image (at least RETINA_MIN_CANDIDATES, so the nms_pre cap of 4096
+    binds and the blocked NMS runs), forward / decode / NMS / e2e times,
+    peak memory and a profile; then fp32 on the card against the CPU on
+    RETINA_FP32_IMAGES images (TF32 off), bf16 against fp32, and the
+    soft-NMS config (``retinanet_r50_fpn_softnms_1x_coco.py``) on the same
+    weights, card against CPU. Returns (weights tree, launches)."""
+    from tpudet_torch.apis import init_detector
+    from tpudet_torch.config import Config
+    from tpudet_torch.core.nms import batched_nms
+    from tpudet_torch.models.dense_heads import retina_head as head_mod
+
+    cfg = Config.fromfile(CONFIG_RETINA)
+    img_np = retina_images(cfg, RETINA_BATCH, RETINA_IMG, SEED + 900)
+    t0 = time.perf_counter()
+    tree = retina_variables(torch, cfg, img_np)
+    log(f'RetinaNet weights: numpy seed {SEED}, tpudet\'s init, '
+        f'class logits N({RETINA_CLS_BIAS}, {RETINA_CLS_SPREAD}^2), deltas '
+        f'spread {RETINA_REG_SPREAD}; {time.perf_counter() - t0:.1f} s')
+    det = init_detector(cfg, variables=tree, device='cuda',
+                        dtype=torch.bfloat16)
+    model, cfg_t = det.model, dict(det.model.test_cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_anchors = sum(len(a) for a in model.bbox_head.anchor_generator
+                    .grid_anchors(retina_featmap_sizes(model, RETINA_IMG)))
+    log(f'RetinaNet-R50-FPN: {n_params / 1e6:.2f} M parameters, '
+        f'{model.bbox_head.num_classes} classes, {n_anchors} anchors at '
+        f'{RETINA_IMG}^2, bf16; {meta_gflop(cfg, RETINA_IMG):.1f} GFLOP an '
+        f'image at {RETINA_IMG}^2, {meta_gflop(cfg, RETINA_CHECK_IMG):.2f} at '
+        f'{RETINA_CHECK_IMG}^2 (meta device)')
+    img = torch.from_numpy(img_np).cuda()
+
+    _zero_counts(mish)
+    res = det(img)
+    torch.cuda.synchronize()
+    launches = _mish_counts(mish)
+    log(f'RetinaNet inference path launches: {json.dumps(launches)}')
+    if any(launches.values()):
+        raise AssertionError('the RetinaNet path launched a mish kernel')
+    want = (RETINA_BATCH, cfg_t['max_per_img'])
+    if tuple(res.scores.shape) != want or tuple(res.bboxes.shape) != \
+            want + (4,):
+        raise AssertionError(f'detections of shape {tuple(res.bboxes.shape)}'
+                             f', not {want + (4,)}')
+    if not (torch.isfinite(res.bboxes).all() and
+            torch.isfinite(res.scores).all()):
+        raise AssertionError('non-finite detections')
+    n_valid = [int(v) for v in res.valid.sum(1)]
+    # what the head hands batched_nms: the per-level top nms_pre anchors,
+    # decoded; then decode alone (NMS replaced by nothing) and NMS alone
+    nms_call = []
+    with torch.inference_mode():
+        pm = model(img)
+        head_mod.batched_nms = lambda *a, **k: nms_call.append((a, k))
+        try:
+            model.get_bboxes(pm)
+        finally:
+            head_mod.batched_nms = batched_nms
+    (bbox, scores, *nms_args), nms_kw = nms_call[0]
+    cand = [int(c) for c in (scores > cfg_t['score_thr']).sum((1, 2))]
+    log(f'RetinaNet bf16 batch {RETINA_BATCH}: {bbox.shape[1]} anchors an '
+        f'image after the per-level top {cfg_t["nms_pre"]}, (box, class) '
+        f'candidates over score_thr {cfg_t["score_thr"]} per image {cand}, '
+        f'nms_pre {nms_kw["nms_pre"]}; valid detections per image {n_valid}')
+    if min(cand) < RETINA_MIN_CANDIDATES or min(n_valid) < want[1] or \
+            nms_kw['nms_pre'] != 4096:
+        raise AssertionError(f'fewer than {RETINA_MIN_CANDIDATES} candidates, '
+                             f'an image without {want[1]} detections or '
+                             f'another cap')
+
+    # times per batch of 8, everything warmed up first
+    def decode():
+        head_mod.batched_nms = lambda *a, **k: None
+        try:
+            model.get_bboxes(pm)
+        finally:
+            head_mod.batched_nms = batched_nms
+    with torch.inference_mode():
+        for _ in range(3):
+            det(img)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = {
+            'e2e_ms': cuda_ms(lambda: det(img), runs=10),
+            'forward_ms': cuda_ms(lambda: model(img), runs=10),
+            'decode_ms': cuda_ms(decode, runs=10),
+            'nms_ms': cuda_ms(lambda: batched_nms(bbox, scores, *nms_args,
+                                                  **nms_kw), runs=10),
+        }
+    times['img_per_s'] = RETINA_BATCH / times['e2e_ms'] * 1e3
+    times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    log(f'RetinaNet-R50-FPN bf16 batch {RETINA_BATCH} x {RETINA_IMG}^2: '
+        + json.dumps(times))
+    with torch.inference_mode():
+        prof = profile_device(torch, lambda: det(img), 'RetinaNet e2e call')
+    if prof:
+        log(f'RetinaNet inference: device busy {prof[1]:.3f} ms per call of '
+            f'{RETINA_BATCH}')
+
+    # card fp32 (TF32 off) against the same model on the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det32 = init_detector(cfg, variables=tree, device='cuda',
+                          dtype=torch.float32)
+    cpu32 = init_detector(cfg, variables=tree, device='cpu',
+                          dtype=torch.float32)
+    few = img[:RETINA_FP32_IMAGES]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pm_ref = cpu32.model(few.cpu())
+        res_ref = cpu32.model.get_bboxes(pm_ref)
+        cpu_s = time.perf_counter() - t0
+        pm32 = det32.model(few)
+        res32 = det32.model.get_bboxes(pm32)
+        pm16 = [p[:RETINA_FP32_IMAGES] for p in _flat_levels(pm)]
+    err32 = pred_map_error(_flat_levels(pm32), _flat_levels(pm_ref))
+    err16 = pred_map_error(pm16, _flat_levels(pm_ref))
+    log(f'RetinaNet fp32 card vs CPU ({cpu_s:.1f} s on the CPU) pred maps, '
+        f'max|d|/max|ref| per map (5 class, 5 delta levels): {err32} '
+        f'(tolerance {FP32_PRED_TOL}); bf16 card vs fp32 CPU: {err16} '
+        f'(tolerance {BF16_PRED_TOL})')
+    if max(err32) > FP32_PRED_TOL:
+        raise AssertionError('fp32 card pred maps differ from the CPU')
+    if max(err16) > BF16_PRED_TOL:
+        raise AssertionError('bf16 pred maps too far from fp32')
+    for i in range(RETINA_FP32_IMAGES):
+        matched, n_ref, n_got = match_detections(res_ref, res32, i,
+                                                 MATCH_IOU)
+        log(f'RetinaNet fp32 card vs CPU detections, image {i}: {matched} '
+            f'matched of {n_ref} / {n_got} (label and IoU >= {MATCH_IOU})')
+        if not (matched == n_ref == n_got and n_ref > 0):
+            raise AssertionError('fp32 card detections differ from the CPU')
+    del det32, cpu32
+
+    # the soft-NMS config on the same weights: the card's Detector call
+    # against the CPU model's get_bboxes of its pred maps
+    soft_cfg = Config.fromfile(CONFIG_RETINA_SOFT)
+    soft = init_detector(soft_cfg, variables=tree, device='cuda',
+                         dtype=torch.float32)
+    soft_cpu = init_detector(soft_cfg, variables=tree, device='cpu',
+                             dtype=torch.float32)
+    with torch.inference_mode():
+        got = soft(few)
+        ref = soft_cpu.model.get_bboxes(pm_ref)
+    torch.cuda.synchronize()
+    for i in range(RETINA_FP32_IMAGES):
+        matched, n_ref, n_got = match_detections(ref, got, i, MATCH_IOU)
+        gap = float('inf')
+        if n_ref == n_got:  # the picks in order: their decayed scores
+            gap = float((ref.scores[i][ref.valid[i]] - got.scores[i].cpu()[
+                got.valid[i].cpu()]).abs().max())
+        log(f'RetinaNet soft-NMS ({soft_cfg["model"]["test_cfg"]["nms"]}) '
+            f'card vs CPU, image {i}: {matched} matched of {n_ref} / {n_got}, '
+            f'decayed scores in pick order max |delta| {gap:.3e} (tolerance '
+            f'{DET_ATOL})')
+        if not (matched == n_ref == n_got and n_ref > 0 and gap <= DET_ATOL):
+            raise AssertionError('soft-NMS on the card differs from the CPU')
+    del soft, soft_cpu, det, model, pm, pm32, pm_ref, bbox, scores, nms_call
+    torch.cuda.empty_cache()
+    return tree, launches
+
+
+def assignment_differences(torch, anchors, gt_bboxes, gt_valid):
+    """The MaxIoU codes of one batch on the card against the CPU: the
+    anchors whose codes differ, each explained when its max IoU lies
+    within 1 fp32 ulp of neg_iou_thr 0.4 or pos_iou_thr 0.5, or one of its
+    IoUs within 1 ulp of its gt's max (a tie). Returns (differing,
+    explained, max IoU gap card vs CPU)."""
+    import numpy as np
+    from tpudet_torch.core.assigners import max_iou_assign_batch
+    from tpudet_torch.core.bbox import bbox_overlaps
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        a = torch.from_numpy(anchors).to(dev)
+        g = torch.from_numpy(gt_bboxes).to(dev)
+        v = torch.from_numpy(gt_valid).to(dev)
+        codes = max_iou_assign_batch(a, g, v, 0.5, 0.4, 0.0, True)
+        ious = torch.where(v[:, None, :], bbox_overlaps(a[None], g), -1.)
+        out[dev] = (codes.cpu().numpy(), ious.cpu().numpy())
+    gap = float(np.abs(out['cuda'][1] - out['cpu'][1]).max())
+    codes, ious = out['cpu']
+    diff = np.argwhere(out['cuda'][0] != codes)
+    explained = 0
+    for b, i in diff:
+        row = ious[b, i]
+        gt_max = ious[b].max(0)
+        near = lambda x, t: abs(x - t) <= np.spacing(np.float32(t))  # noqa
+        explained += int(near(row.max(), 0.4) or near(row.max(), 0.5) or any(
+            near(row[j], gt_max[j]) for j in np.nonzero(gt_valid[b])[0]))
+    return len(diff), explained, gap
+
+
+def run_retina_training(torch, tree):
+    """RetinaNet-R50-FPN at RETINA_IMG, bf16 compute with fp32 master
+    weights, through ``init_trainer(...).step``: RETINA_TRAIN_STEPS steps
+    of RETINA_TRAIN_BATCH images (the config's samples_per_gpu, no
+    accumulation), each with its launch counts, then a profiled step; then
+    one fp32 step at RETINA_CHECK_IMG at the full lr on the card against
+    the CPU (loss and grad_norm to STEP_LOSS_RTOL, the updated state to
+    STEP_TREE_TOL x its update) with the assignment codes of its batch on
+    both.
+    Returns the launches of a step."""
+    import numpy as np
+    from tpudet_torch.apis import init_trainer
+    from tpudet_torch.config import Config
+    from tpudet_torch.ops import mish
+    from tpudet_torch.utils.flax_import import train_state_to_flax
+    cfg = Config.fromfile(CONFIG_RETINA)
+    cfg['compute_dtype'] = 'bfloat16'
+    trainer = init_trainer(cfg, variables=tree, device='cuda',
+                           max_steps=RETINA_TRAIN_STEPS + 1)
+    if (trainer.accumulation, cfg['data']['samples_per_gpu']) != (
+            1, RETINA_TRAIN_BATCH):
+        raise AssertionError('not one micro-batch of 2 per step')
+    log(f'RetinaNet training: {RETINA_IMG}^2, {RETINA_TRAIN_BATCH} images '
+        f'per step, 1-20 gts each, bf16 compute, fp32 master weights, '
+        f'SGD momentum {trainer.opt_cfg.momentum} nesterov '
+        f'{trainer.opt_cfg.nesterov}, warm-up {trainer.opt_cfg.warmup_iters}')
+    p0 = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+    launches = None
+    for step in range(RETINA_TRAIN_STEPS):
+        batch = retina_train_batch(cfg, RETINA_TRAIN_BATCH, RETINA_IMG,
+                                   SEED + 1000 + step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(mish)
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = _mish_counts(mish)
+        m = {k: float(v) for k, v in metrics.items()}
+        row = dict(step=step, **m, step_ms=step_s * 1e3,
+                   img_per_s=RETINA_TRAIN_BATCH / step_s,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=launches)
+        log('RetinaNet train step: ' + json.dumps(row))
+        if any(launches.values()):
+            raise AssertionError('the RetinaNet train step launched mish')
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f'step {step}: non-finite {bad}')
+    moved = max(float((trainer.state.params[k].detach() - v).abs().max())
+                for k, v in p0.items())
+    log(f'after {RETINA_TRAIN_STEPS} steps: params moved by {moved:.3e}')
+    if not moved > 0:
+        raise AssertionError('params did not move')
+    batch = retina_train_batch(cfg, RETINA_TRAIN_BATCH, RETINA_IMG,
+                               SEED + 1000 + RETINA_TRAIN_STEPS)
+    prof = profile_device(torch, lambda: trainer.step(batch),
+                          'RetinaNet train step', calls=1, top=20)
+    if prof:
+        log(f'RetinaNet train step: device busy {prof[1]:.3f} ms of '
+            f'{prof[0]:.3f} ms wall')
+    del trainer, p0
+    torch.cuda.empty_cache()
+
+    # one fp32 step at RETINA_CHECK_IMG, card (TF32 off) against the CPU,
+    # at the config's full lr: its warm-up starts at 1e-3 of it, an update
+    # near the params' fp32 ulp, which would hide the backward
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.fromfile(CONFIG_RETINA)
+    cfg['custom_hooks'] = [
+        dict(h, lr_weight_warmup_ratio=1.0, lr_bias_warmup_ratio=1.0,
+             momentum_warmup_ratio=1.0)
+        if h.get('type') == 'DetailedLinearWarmUpHook' else h
+        for h in cfg.get('custom_hooks', [])]
+    batch = retina_train_batch(cfg, RETINA_TRAIN_BATCH, RETINA_CHECK_IMG,
+                               SEED + 1100)
+    out = {}
+    for device in ('cuda', 'cpu'):
+        trainer = init_trainer(cfg, variables=tree, device=device,
+                               max_steps=1)
+        init = train_state_to_flax(trainer.state, trainer.model)
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in trainer.step(batch).items()}
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        log(f'RetinaNet fp32 step at {RETINA_CHECK_IMG} on {device}: '
+            f'{time.perf_counter() - t0:.1f} s, ' + json.dumps(metrics))
+        out[device] = (metrics, train_state_to_flax(trainer.state,
+                                                    trainer.model))
+        model = trainer.model
+        del trainer
+        torch.cuda.empty_cache()
+    (mc, sc), (mr, sr) = out['cuda'], out['cpu']
+    rel = abs(mc['loss'] - mr['loss']) / abs(mr['loss'])
+    grel = abs(mc['grad_norm'] - mr['grad_norm']) / abs(mr['grad_norm'])
+    log(f'RetinaNet fp32 step, card vs CPU: loss rel diff {rel:.3e}, '
+        f'grad_norm {mc["grad_norm"]:.6f} vs {mr["grad_norm"]:.6f} (rel diff '
+        f'{grel:.3e}), lr {mc["lr"]:.3e} (tolerance {STEP_LOSS_RTOL})')
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError('RetinaNet fp32 card loss differs from the CPU')
+    if not grel <= STEP_LOSS_RTOL:
+        raise AssertionError('RetinaNet fp32 card grad_norm differs from the '
+                             'CPU')
+    for name, got, ref, start in (
+            ('params', sc.params, sr.params, init.params),
+            ('batch_stats', sc.batch_stats, sr.batch_stats,
+             init.batch_stats),
+            ('ema_params', sc.ema_params, sr.ema_params, init.ema_params),
+            ('ema_batch_stats', sc.ema_batch_stats, sr.ema_batch_stats,
+             init.ema_batch_stats),
+            ('momentum_buf', sc.opt_state.momentum_buf,
+             sr.opt_state.momentum_buf, init.opt_state.momentum_buf)):
+        diff, upd = tree_gap(got, ref), tree_gap(ref, start)
+        log(f'RetinaNet fp32 step, card vs CPU {name}: max |delta| '
+            f'{diff:.3e}, update {upd:.3e} (tolerance {STEP_TREE_TOL} x '
+            f'update)')
+        if not (upd > 0 and diff <= STEP_TREE_TOL * upd):
+            raise AssertionError(f'RetinaNet fp32 card {name} differ from '
+                                 f'the CPU')
+    anchors = np.concatenate(model.bbox_head.anchor_generator.grid_anchors(
+        retina_featmap_sizes(model, RETINA_CHECK_IMG)))
+    n_diff, explained, iou_gap = assignment_differences(
+        torch, anchors, batch['gt_bboxes'], batch['gt_valid'])
+    log(f'RetinaNet assignment at {RETINA_CHECK_IMG}, card vs CPU: '
+        f'{n_diff} of {RETINA_TRAIN_BATCH} x {len(anchors)} anchors differ, '
+        f'{explained} of them within 1 ulp of 0.4, 0.5 or a gt\'s max IoU; '
+        f'IoU max |delta| {iou_gap:.3e}')
+    if explained != n_diff:
+        raise AssertionError('an assignment differs away from a threshold '
+                             'or a tie')
+    return launches
+
+
+def run_retina_shapes(torch):
+    """``train_detector`` on ``configs/shapes/retinanet_r50_shapes_320.py``
+    (3 classes, soft-NMS, the keep-ratio Resize / RandomFlip / Pad(32)
+    host pipeline through ``DetDataLoader``) for SHAPES_STEPS bf16 steps
+    of 8 images served from seeded arrays, a checkpoint and the EMA
+    evaluation at the end; its weights are ``retina_variables`` of the val
+    set's first batch, BatchNorm statistics measured. Every step's launch counts are read
+    (``LoopProbe``). Then the test CLI on ``latest_ema.msgpack`` against
+    ``single_device_test`` + ``coco_fast_bbox_eval``. Returns (launches of
+    a step, launches of a CLI batch)."""
+    import tempfile
+
+    from tpudet_torch.apis import train_detector
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import DetDataLoader
+    register_array_data()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config.fromfile(CONFIG_RETINA_SHAPES)
+        classes = list(cfg['data']['train']['classes'])
+        sets = {}
+        for name, seed, n in (('train', SEED + 1200, SHAPES_TRAIN_IMAGES),
+                              ('val', SEED + 1300, SHAPES_VAL_IMAGES)):
+            arrays, coco = eval_set(seed, n, classes)
+            path = os.path.join(tmp, f'{name}.json')
+            with open(path, 'w') as f:
+                json.dump(coco, f)
+            ARRAYS[path] = arrays
+            sets[name] = (path, arrays, coco)
+        data = cfg['data']
+        cfg['data'] = dict(
+            data,
+            train=dict(type='ArrayCocoDataset', ann_file=sets['train'][0],
+                       classes=classes,
+                       pipeline=_from_arrays(data['train']['pipeline'])),
+            val=dict(type='ArrayCocoDataset', ann_file=sets['val'][0],
+                     classes=classes,
+                     pipeline=_from_arrays(data['val']['pipeline']),
+                     test_mode=True))
+        cfg['compute_dtype'] = 'bfloat16'
+        cfg['checkpoint_config'] = dict(interval=1)
+        cfg['evaluation'] = dict(interval=1, metric='fast-bbox')
+        cfg['log_config'] = dict(interval=1)
+        size = cfg['data']['train_img_size']
+        val = array_dataset(cfg, sets['val'][1], sets['val'][2], 'cuda',
+                            tmp, classes=classes)
+        first = DetDataLoader(val, batch_size=BATCH, img_size=size)._collate(
+            [val[i] for i in range(BATCH)])['img'].cpu().numpy()
+        tree = retina_variables(torch, cfg, first, measure_bn=True)
+        work = os.path.join(tmp, 'shapes')
+        with LoopProbe(torch, profile_at=[SHAPES_STEPS]) as probe:
+            t0 = time.perf_counter()
+            train_detector(cfg, work, max_steps=SHAPES_STEPS, device='cuda',
+                           variables=tree)
+            loop_s = time.perf_counter() - t0
+        rows = probe.rows
+        if [r['step'] for r in rows] != list(range(1, SHAPES_STEPS + 1)):
+            raise AssertionError(f'steps {[r["step"] for r in rows]}')
+        for r in rows:
+            bad = [k for k in ('loss', 'loss_cls', 'loss_bbox', 'grad_norm')
+                   if not math.isfinite(r[k])]
+            if bad or any(r['launches'].values()) or not (
+                    r['params_moved'] > 0 and r['ema_moved'] > 0):
+                raise AssertionError(f'step {r["step"]}: non-finite {bad}, '
+                                     f'launches {r["launches"]} or nothing '
+                                     f'moved')
+        with open(os.path.join(work, 'train.log')) as f:
+            lines = f.read().splitlines()
+        evals = [line for line in lines if ' - eval: ' in line]
+        ckpts = sorted(os.listdir(os.path.join(work, 'ckpts')))
+        log(f'RetinaNet shapes train_detector: {SHAPES_STEPS} steps in '
+            f'{loop_s:.1f} s, ' + json.dumps(loop_summary(
+                rows, cfg['data']['samples_per_gpu']))
+            + f'; ckpts {ckpts}; last eval: '
+            f'{evals[-1].split(" - ")[-1] if evals else None}')
+        weights = os.path.join(work, 'latest_ema.msgpack')
+        if len(evals) != 1 or ckpts != [str(SHAPES_STEPS)] or \
+                not os.path.isfile(weights):
+            raise AssertionError('a checkpoint, the evaluation or the EMA '
+                                 'export is missing')
+        del probe.trainers[:]
+        torch.cuda.empty_cache()
+        cli = run_cli_eval(torch, CONFIG_RETINA_SHAPES, weights,
+                           img_size=size, mish_per_forward=0,
+                           classes=classes)
+        for path, _, _ in sets.values():
+            ARRAYS.pop(path)
+    return rows[-1]['launches'], cli
+
+
+def run_retinanet(torch):
+    """Phase 9: RetinaNet-R50-FPN at full width and depth. Returns each
+    path's launches of each kernel (all 0: ResNet uses ReLU)."""
+    from tpudet_torch.ops import mish
+    tree, infer = run_retina_inference(torch, mish)
+    train = run_retina_training(torch, tree)
+    loop, cli = run_retina_shapes(torch)
+    return {name: {'retinanet_inference_forward': infer[name],
+                   'retinanet_train_step': train[name],
+                   'retinanet_train_detector_step': loop[name],
+                   'retinanet_test_cli_batch': cli[name]}
+            for name in ('mish_fwd', 'mish_bwd')}
+
+
 def main():
     try:
         import torch
@@ -2064,11 +2719,13 @@ def main():
         return 1
 
     # 1. device
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     log(f'nvidia-smi: {smi}')
     log(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}, device count '
         f'{torch.cuda.device_count()}')
+    log('JPEG decoders on this machine: ' + json.dumps(jpeg_libraries(build)))
 
     # 2. build
     t0 = time.perf_counter()
@@ -2108,7 +2765,12 @@ def main():
     v5_infer_launches, v5_train_launches, v5_errs = run_yolov5(torch)
     log(f'YOLOv5-l phases: {time.perf_counter() - t0:.1f} s')
 
-    # 9. output
+    # 9. RetinaNet-R50-FPN; each path once with counts at 0 just before
+    t0 = time.perf_counter()
+    retina_launches = run_retinanet(torch)
+    log(f'RetinaNet phases: {time.perf_counter() - t0:.1f} s')
+
+    # 10. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -2128,6 +2790,8 @@ def main():
                row('mish_bwd', 'tpudet/ops/mish.py:73', worst_bwd, timed_bwd)]
     for k in kernels:
         k['launches_by_path']['eval_batch'] = eval_launches[k['name']]
+        k['launches_by_path'].update(retina_launches[k['name']])
+    log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all')
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

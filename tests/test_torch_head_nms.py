@@ -100,14 +100,6 @@ def test_decode_matches_tpudet():
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-6, rtol=0)
 
 
-def test_unported_nms_branches_raise():
-    maps = [torch.from_numpy(m) for m in _pred_maps(0, img=128,
-                                                     num_classes=4)]
-    _, thead = _heads(num_classes=4)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        thead.get_bboxes(maps, **dict(TEST_CFG, lane_pre=0))
-
-
 def test_topk_scores_breaks_ties_by_lowest_index():
     x = np.array([[1., 3., 3., 2., 3., 1., 2.]], np.float32)
     jv, ji = jnms.topk_scores(jnp.asarray(x), 5)

@@ -1,17 +1,29 @@
-"""Class-aware NMS with lane budgets, batched over images: port of the
-shipped path of ``tpudet/core/nms.py`` (``topk_scores``, ``nms_blocked``,
-``lane_topk_select``, ``class_lane_nms``, ``batched_class_lane_nms``).
+"""Shape-static NMS, batched over images: port of ``tpudet/core/nms.py``
+(``topk_scores``, ``nms_blocked``, ``nms_padded``, ``soft_nms_padded``,
+``nms``, ``multiclass_nms``/``batched_nms``, ``dense_class_nms``,
+``class_sorted_nms``, ``lane_topk_select``, ``class_lane_nms`` and their
+batched forms). YOLACT's ``fast_nms`` and the oracle ``nms_padded_scan``
+wait (ROADMAP.md).
 
 Semantics kept from tpudet, so that the detection sets are equal:
 
 - score ties keep index order: every sort is ``torch.sort(stable=True)``
-  (``torch.topk`` leaves the order of ties unspecified);
+  (``torch.topk`` leaves the order of ties unspecified), and soft-NMS
+  picks the first maximum, as ``jnp.argmax``;
 - suppression is strict ``iou > thr``, with tpudet's IoU arithmetic;
 - ``lane_topk_select`` breaks ties at the first occurrence and pulls the
   box payload with an exact select-and-sum;
+- class-aware NMS offsets each class's boxes by ``label * (max coord +
+  1)`` so that one class-agnostic pass never lets classes overlap;
 - outputs are fixed-size, ``max_out`` rows plus a ``valid`` mask.
 
-The functions take a leading batch axis; one image is a batch of one.
+One deliberate difference: above 16,384 candidates tpudet's
+``topk_scores`` takes ``approx_max_k`` on the TPU; the port always takes
+the exact top-k (on the CPU tpudet returns the same).
+
+The functions take a leading batch axis; the single-image names
+(``multiclass_nms``, ``dense_class_nms``, ``class_sorted_nms``,
+``class_lane_nms``) run a batch of one.
 """
 from __future__ import annotations
 
@@ -141,6 +153,265 @@ def nms_blocked(boxes: torch.Tensor,
     return keep_idx, keep_valid
 
 
+def _gather_rows(x, idx):
+    """``x[b, idx[b]]`` for (B, K, ...) ``x`` and (B, M) ``idx``."""
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+def nms_padded(boxes: torch.Tensor,
+               scores: torch.Tensor,
+               iou_threshold: float,
+               max_out: int,
+               valid: Optional[torch.Tensor] = None):
+    """Greedy hard-NMS over padded candidates, exact, under tpudet's name
+    and contract: ``nms_blocked`` for every K (tpudet builds the K x K
+    suppression matrix up to 1,536 candidates, a TPU cost choice).
+
+    Args:
+        boxes: (B, K, 4) (already class-offset for class-aware NMS);
+            scores: (B, K); valid: optional (B, K) bool.
+
+    Returns:
+        ``(keep_idx, keep_valid)``, each (B, max_out), indices into K in
+        score order; slots past the last keep are 0 and not valid.
+    """
+    return nms_blocked(boxes, scores, iou_threshold, max_out, valid)
+
+
+def soft_nms_padded(boxes: torch.Tensor,
+                    scores: torch.Tensor,
+                    iou_threshold: float,
+                    max_out: int,
+                    valid: Optional[torch.Tensor] = None,
+                    sigma: float = 0.5,
+                    min_score: float = 1e-3,
+                    method: str = 'linear'):
+    """Soft-NMS: ``max_out`` sequential picks of the highest remaining
+    score (the first on a tie); after each pick the others decay
+    (``'linear'``: ``s *= 1 - iou`` where ``iou > thr``; ``'gaussian'``:
+    ``s *= exp(-iou^2 / sigma)``) and the pick leaves the pool. A pick is
+    valid while its score exceeds ``min_score``.
+
+    Args:
+        boxes: (B, K, 4); scores: (B, K); valid: optional (B, K) bool.
+
+    Returns:
+        ``(keep_idx, keep_scores, keep_valid)``, each (B, max_out); the
+        scores are the decayed ones, as mmcv's.
+    """
+    if method not in ('linear', 'gaussian'):
+        raise ValueError(method)
+    b, _ = scores.shape
+    cur = scores if valid is None else torch.where(
+        valid, scores, torch.full_like(scores, NEG_INF))
+    area = ((boxes[..., 2] - boxes[..., 0]) *
+            (boxes[..., 3] - boxes[..., 1]))
+    rows = torch.arange(b, device=scores.device)
+    floor = max(min_score, NEG_INF / 2)
+    idxs, tops = [], []
+    for _ in range(max_out):
+        idx = cur.argmax(dim=-1)  # the first maximum
+        top = cur[rows, idx]
+        iou = _iou_block(boxes[rows, idx][:, None], area[rows, idx][:, None],
+                         boxes, area)[:, 0]
+        if method == 'linear':
+            decay = torch.where(iou > iou_threshold, 1.0 - iou,
+                                torch.ones_like(iou))
+        else:
+            decay = torch.exp(-(iou * iou) / sigma)
+        cur = (cur * decay).index_put_((rows, idx),
+                                       cur.new_tensor(NEG_INF))
+        idxs.append(idx)
+        tops.append(top)
+    keep_scores = torch.stack(tops, dim=1)
+    return torch.stack(idxs, dim=1), keep_scores, keep_scores > floor
+
+
+def nms(boxes, scores, iou_threshold, max_out, valid=None):
+    """Class-agnostic NMS with gathered, padded detections: boxes (B, K, 4),
+    scores (B, K) -> ``(det_boxes, det_scores, keep_idx, keep_valid)``."""
+    keep_idx, keep_valid = nms_padded(boxes, scores, iou_threshold, max_out,
+                                      valid)
+    det_boxes = torch.where(keep_valid[..., None],
+                            _gather_rows(boxes, keep_idx), 0.)
+    det_scores = torch.where(keep_valid, torch.gather(scores, 1, keep_idx),
+                             0.)
+    return det_boxes, det_scores, keep_idx, keep_valid
+
+
+def _class_offsets(boxes, valid, labels):
+    """Each box's class offset ``label * (max coord + 1)``, the max over
+    each image's valid boxes, and the step ``max coord + 1`` (B, 1)."""
+    max_coord = torch.where(valid[..., None], boxes, 0.).amax(dim=(1, 2))
+    step = (max_coord + 1.)[:, None]
+    return labels.to(boxes.dtype) * step, step
+
+
+def batched_nms(bboxes: torch.Tensor,
+                scores: torch.Tensor,
+                score_thr: float,
+                iou_thr: float,
+                max_per_img: int,
+                nms_pre: int = 4096,
+                valid: Optional[torch.Tensor] = None,
+                nms_type: str = 'nms',
+                sigma: float = 0.5,
+                min_score: float = 1e-3,
+                method: str = 'linear') -> NMSResult:
+    """Class-aware NMS of the reference ``multiclass_nms``: every (box,
+    class) pair above ``score_thr`` is a candidate, the top ``nms_pre`` by
+    score (ties by index) go through one class-offset pass of greedy NMS,
+    or of soft-NMS with ``nms_type='soft_nms'``.
+
+    Args:
+        bboxes: (B, N, 4) boxes shared across classes; scores: (B, N, C)
+            without a background column; valid: optional (B, N) bool.
+    """
+    b, n, num_classes = scores.shape
+    flat_scores = scores.reshape(b, n * num_classes)  # class fastest
+    cand_valid = flat_scores > score_thr
+    if valid is not None:
+        cand_valid = cand_valid & valid.repeat_interleave(num_classes, dim=1)
+    masked = torch.where(cand_valid, flat_scores,
+                         torch.full_like(flat_scores, NEG_INF))
+    top_scores, top_cand = topk_scores(masked, min(nms_pre, n * num_classes))
+    top_valid = top_scores > NEG_INF / 2
+    labels = top_cand % num_classes
+    cand_boxes = _gather_rows(bboxes, top_cand // num_classes)
+    offsets, _ = _class_offsets(cand_boxes, top_valid, labels)
+    offset_boxes = cand_boxes + offsets[..., None]
+    if nms_type == 'soft_nms':
+        keep_idx, soft_scores, keep_valid = soft_nms_padded(
+            offset_boxes, top_scores, iou_thr, max_per_img, top_valid,
+            sigma=sigma, min_score=min_score, method=method)
+        det_scores = torch.where(keep_valid, soft_scores, 0.)
+    else:
+        keep_idx, keep_valid = nms_padded(offset_boxes, top_scores, iou_thr,
+                                          max_per_img, top_valid)
+        det_scores = torch.where(keep_valid,
+                                 torch.gather(top_scores, 1, keep_idx), 0.)
+    det_bboxes = torch.where(keep_valid[..., None],
+                             _gather_rows(cand_boxes, keep_idx), 0.)
+    det_labels = torch.where(keep_valid, torch.gather(labels, 1, keep_idx),
+                             -1)
+    return NMSResult(det_bboxes, det_scores, det_labels, keep_valid)
+
+
+def batched_dense_class_nms(bboxes: torch.Tensor,
+                            scores: torch.Tensor,
+                            score_thr: float,
+                            iou_thr: float,
+                            max_per_img: int,
+                            valid: Optional[torch.Tensor] = None
+                            ) -> NMSResult:
+    """Exact uncapped class-aware NMS (the reference's ``nms_pre=-1``):
+    each (image, class) column runs its own blocked greedy NMS (blocks of
+    128) on the shared boxes, and the top ``max_per_img`` of all classes'
+    keeps by score (ties by class, then rank) are returned. A class can
+    give at most ``max_per_img`` detections, so its keep cap is exact.
+
+    Args:
+        bboxes: (B, N, 4); scores: (B, N, C); valid: optional (B, N).
+    """
+    b, n, num_classes = scores.shape
+    st = scores.transpose(1, 2).reshape(b * num_classes, n)
+    v = st > score_thr
+    if valid is not None:
+        v = v & valid.repeat_interleave(num_classes, dim=0)
+    boxes = bboxes[:, None].expand(b, num_classes, n, 4).reshape(
+        b * num_classes, n, 4)
+    kb, ks, _, kv = nms_blocked(boxes, st, iou_thr, max_per_img, valid=v,
+                                block=128, return_dets=True)
+    flat_s = torch.where(kv, ks, torch.full_like(ks, NEG_INF)).reshape(
+        b, num_classes * max_per_img)
+    flat_b = kb.reshape(b, num_classes * max_per_img, 4)
+    top_s, order = torch.sort(flat_s, dim=-1, descending=True, stable=True)
+    top_s, order = top_s[:, :max_per_img], order[:, :max_per_img]
+    det_valid = top_s > NEG_INF / 2
+    return NMSResult(
+        torch.where(det_valid[..., None], _gather_rows(flat_b, order), 0.),
+        torch.where(det_valid, top_s, 0.),
+        torch.where(det_valid, order // max_per_img, -1), det_valid)
+
+
+def _offset_nms(flat_scores, flat_boxes, per_class, iou_thr, max_per_img
+                ) -> NMSResult:
+    """One blocked greedy pass over class-major candidates, ``per_class``
+    slots per class (empty slots score NEG_INF), each class offset so
+    that no two classes overlap; the offsets come off the kept boxes."""
+    flat_valid = flat_scores > NEG_INF / 2
+    labels = torch.arange(flat_scores.shape[1],
+                          device=flat_scores.device) // per_class
+    offs, step = _class_offsets(flat_boxes, flat_valid, labels[None, :])
+    det_off_boxes, det_scores, keep_idx, keep_valid = nms_blocked(
+        flat_boxes + offs[..., None], flat_scores, iou_thr, max_per_img,
+        valid=flat_valid, return_dets=True)
+    det_labels = torch.where(keep_valid, keep_idx // per_class, -1)
+    det_boxes = det_off_boxes - torch.where(
+        keep_valid, det_labels.to(det_off_boxes.dtype) * step, 0.)[..., None]
+    return NMSResult(det_boxes, det_scores, det_labels, keep_valid)
+
+
+def batched_class_sorted_nms(bboxes: torch.Tensor,
+                             scores: torch.Tensor,
+                             score_thr: float,
+                             iou_thr: float,
+                             max_per_img: int,
+                             class_pre: int = 256,
+                             valid: Optional[torch.Tensor] = None
+                             ) -> NMSResult:
+    """Class-aware NMS with a per-class candidate budget: the top
+    ``class_pre`` of each class column by score (ties by index), then one
+    blocked greedy walk over all classes at once.
+
+    Args:
+        bboxes: (B, N, 4); scores: (B, N, C); valid: optional (B, N).
+    """
+    b, n, num_classes = scores.shape
+    p = min(class_pre, n)
+    st = scores.transpose(1, 2)  # (B, C, N)
+    v = st > score_thr
+    if valid is not None:
+        v = v & valid[:, None, :]
+    svals, order = torch.sort(torch.where(v, st, torch.full_like(st, NEG_INF)),
+                              dim=-1, descending=True, stable=True)
+    cand_boxes = _gather_rows(bboxes, order[..., :p].reshape(
+        b, num_classes * p))
+    return _offset_nms(svals[..., :p].reshape(b, num_classes * p),
+                       cand_boxes, p, iou_thr, max_per_img)
+
+
+def _one_image(batched, bboxes, scores, valid, *args, **kwargs):
+    res = batched(bboxes[None], scores[None], *args,
+                  valid=None if valid is None else valid[None], **kwargs)
+    return NMSResult(*(t[0] for t in res))
+
+
+def multiclass_nms(bboxes, scores, score_thr, iou_thr, max_per_img,
+                   nms_pre=4096, valid=None, nms_type='nms', sigma=0.5,
+                   min_score=1e-3, method='linear') -> NMSResult:
+    """`batched_nms` for one image: bboxes (N, 4), scores (N, C)."""
+    return _one_image(batched_nms, bboxes, scores, valid, score_thr,
+                      iou_thr, max_per_img, nms_pre=nms_pre,
+                      nms_type=nms_type, sigma=sigma, min_score=min_score,
+                      method=method)
+
+
+def dense_class_nms(bboxes, scores, score_thr, iou_thr, max_per_img,
+                    valid=None) -> NMSResult:
+    """`batched_dense_class_nms` for one image."""
+    return _one_image(batched_dense_class_nms, bboxes, scores, valid,
+                      score_thr, iou_thr, max_per_img)
+
+
+def class_sorted_nms(bboxes, scores, score_thr, iou_thr, max_per_img,
+                     class_pre=256, valid=None) -> NMSResult:
+    """`batched_class_sorted_nms` for one image."""
+    return _one_image(batched_class_sorted_nms, bboxes, scores, valid,
+                      score_thr, iou_thr, max_per_img, class_pre=class_pre)
+
+
 def lane_topk_select(bboxes: torch.Tensor,
                      scores: torch.Tensor,
                      score_thr: float,
@@ -215,35 +486,15 @@ def batched_class_lane_nms(bboxes: torch.Tensor,
         cand_boxes = torch.gather(
             cand_boxes, 2, order[..., None].expand(*order.shape, 4))
     p = svals.shape[-1]
-    flat_scores = svals.reshape(b, num_classes * p)
-    flat_boxes = cand_boxes.reshape(b, num_classes * p, 4)
-    flat_valid = flat_scores > NEG_INF / 2
-    labels = torch.arange(num_classes * p, device=scores.device) // p
-    max_coord = torch.where(flat_valid[..., None], flat_boxes,
-                            0.).amax(dim=(1, 2))
-    step = (max_coord + 1.)[:, None]
-    offs = labels.to(flat_boxes.dtype)[None, :] * step
-    det_off_boxes, det_scores, keep_idx, keep_valid = nms_blocked(
-        flat_boxes + offs[..., None], flat_scores, iou_thr, max_per_img,
-        valid=flat_valid, return_dets=True)
-    det_labels = torch.where(keep_valid, keep_idx // p, -1)
-    det_boxes = det_off_boxes - torch.where(
-        keep_valid, det_labels.to(det_off_boxes.dtype) * step, 0.)[..., None]
-    return NMSResult(det_boxes, det_scores, det_labels, keep_valid)
+    return _offset_nms(svals.reshape(b, num_classes * p),
+                       cand_boxes.reshape(b, num_classes * p, 4), p,
+                       iou_thr, max_per_img)
 
 
-def class_lane_nms(bboxes: torch.Tensor,
-                   scores: torch.Tensor,
-                   score_thr: float,
-                   iou_thr: float,
-                   max_per_img: int,
-                   lane_pre: int = 4,
-                   class_pre: int = 0,
-                   valid: Optional[torch.Tensor] = None) -> NMSResult:
+def class_lane_nms(bboxes, scores, score_thr, iou_thr, max_per_img,
+                   lane_pre=4, class_pre=0, valid=None) -> NMSResult:
     """`batched_class_lane_nms` for one image: bboxes (N, 4), scores
     (N, C), valid (N,); returns (max_per_img, ...) rows."""
-    res = batched_class_lane_nms(
-        bboxes[None], scores[None], score_thr, iou_thr, max_per_img,
-        lane_pre=lane_pre, class_pre=class_pre,
-        valid=None if valid is None else valid[None])
-    return NMSResult(*(t[0] for t in res))
+    return _one_image(batched_class_lane_nms, bboxes, scores, valid,
+                      score_thr, iou_thr, max_per_img, lane_pre=lane_pre,
+                      class_pre=class_pre)

@@ -1,3 +1,4 @@
+from .retina_head import RetinaHead
 from .yolocsp_head import YOLOCSPHead
 
-__all__ = ['YOLOCSPHead']
+__all__ = ['RetinaHead', 'YOLOCSPHead']

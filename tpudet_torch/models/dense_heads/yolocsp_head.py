@@ -18,7 +18,8 @@ from torch import nn
 
 from ...core.anchors import YOLOV4AnchorGenerator
 from ...core.bbox import YOLOV4BBoxCoder
-from ...core.nms import batched_class_lane_nms, topk_scores
+from ...core.nms import (batched_class_lane_nms, batched_class_sorted_nms,
+                         batched_dense_class_nms, batched_nms, topk_scores)
 from ...core.targets import responsible_matches
 from ...registry import HEADS
 from .. import losses as L
@@ -74,7 +75,8 @@ class YOLOCSPHead(nn.Module):
             base_sizes=[list(b) for b in self.base_sizes])
         for i, cin in enumerate(in_channels):
             self.add_module(f'conv_pred{i}', Conv(
-                cin, len(self.base_sizes[i]) * self.num_attrib, 1))
+                cin, len(self.base_sizes[i]) * self.num_attrib, 1,
+                kernel_init=('normal', 0.01), bias_init=self.bias_prior(i)))
         # anchor grids on the device, per (featmap sizes, device)
         self._grids: Dict = {}
 
@@ -170,14 +172,21 @@ class YOLOCSPHead(nn.Module):
                    lane_pre: int = 0,
                    with_nms: bool = True,
                    nms_type: str = 'nms',
+                   sigma: float = 0.5,
+                   min_score: float = 1e-3,
+                   method: str = 'linear',
                    **kwargs):
-        """Batched decode + class-aware NMS with lane budgets.
+        """Batched decode + class-aware NMS, by tpudet's branches
+        (``yolocsp_head.py:233-262``): lane budgets (``lane_pre > 0``),
+        per-class budgets (``class_pre > 0``), the exact uncapped per-class
+        NMS (``nms_pre <= 0``), else the flat top-``nms_pre`` NMS, soft with
+        ``nms_type='soft_nms'`` (``sigma``, ``min_score``, ``method``).
 
         ``anchor_pre`` keeps the top-k anchors by objectness before the
         class axis is flattened (``anchor_pre=0`` decodes every anchor).
         Decode does not clip to the image: ``**kwargs`` absorbs the
         ``img_shape`` that the shared eval path passes, as tpudet's head
-        does. ``nms_pre`` belongs to NMS branches not ported yet.
+        does.
 
         Args:
             pred_maps: per-level (B, H, W, A*attrib) raw outputs.
@@ -207,11 +216,18 @@ class YOLOCSPHead(nn.Module):
             return batched_class_lane_nms(bbox, scores, score_thr, iou_thr,
                                           max_per_img, lane_pre=lane_pre,
                                           class_pre=class_pre)
-        raise NotImplementedError(
-            f'get_bboxes: only the lane-budgeted NMS (lane_pre > 0, '
-            f"nms_type='nms') is ported; nms_type={nms_type!r}, "
-            f'lane_pre={lane_pre}, class_pre={class_pre}, nms_pre={nms_pre} '
-            f'comes with ROADMAP.md\'s "other NMS branches" item')
+        if nms_type == 'nms' and class_pre > 0:
+            return batched_class_sorted_nms(bbox, scores, score_thr, iou_thr,
+                                            max_per_img, class_pre=class_pre)
+        if nms_type == 'nms' and nms_pre <= 0:
+            return batched_dense_class_nms(bbox, scores, score_thr, iou_thr,
+                                           max_per_img)
+        total = scores.shape[1] * scores.shape[2]
+        return batched_nms(bbox, scores, score_thr, iou_thr, max_per_img,
+                           nms_pre=total if nms_pre <= 0 else min(nms_pre,
+                                                                  total),
+                           nms_type=nms_type, sigma=sigma,
+                           min_score=min_score, method=method)
 
     # ------------------------------------------------------------------
     # training loss (assigner-free path)

@@ -1,6 +1,6 @@
 """Single-stage detector: backbone -> neck -> dense head. Port of
 ``tpudet/models/detectors/single_stage.py`` (``SingleStageDetector``,
-``YOLOV4``, ``YOLOV5``)."""
+``YOLOV4``, ``YOLOV5``, ``RetinaNet``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -15,6 +15,7 @@ from ...registry import DETECTORS
 class SingleStageDetector(nn.Module):
 
     default_iou_thr = 0.65  # NMS IoU when the config omits it
+    strip_test_keys = ()    # extra test_cfg keys the head must not see
 
     def __init__(self, backbone: nn.Module, bbox_head: nn.Module,
                  neck: Optional[nn.Module] = None,
@@ -61,7 +62,12 @@ class SingleStageDetector(nn.Module):
 
     def get_bboxes(self, pred_maps, **kwargs):
         """The head's ``get_bboxes`` with the config's ``test_cfg``
-        translated to its arguments; ``kwargs`` override."""
+        translated to its arguments (``tpudet/models/detectors/
+        single_stage.py:49-67``): the ``nms`` dict gives ``iou_thr``, a
+        ``nms_type`` other than ``'nms'`` and soft-NMS's ``sigma``,
+        ``min_score`` and ``method``; ``nms_pre <= 0`` (the reference's
+        -1, uncapped) becomes 0; ``min_bbox_size`` and ``strip_test_keys``
+        are dropped. ``kwargs`` override."""
         cfg = dict(self.test_cfg or {})
         nms_cfg = cfg.pop('nms', None)
         if nms_cfg is not None:
@@ -69,7 +75,14 @@ class SingleStageDetector(nn.Module):
                                          self.default_iou_thr)
             if nms_cfg.get('type', 'nms') != 'nms':
                 cfg['nms_type'] = nms_cfg['type']
+            for key in ('sigma', 'min_score', 'method'):
+                if key in nms_cfg:
+                    cfg[key] = nms_cfg[key]
         cfg.pop('min_bbox_size', None)
+        for key in self.strip_test_keys:
+            cfg.pop(key, None)
+        if 'nms_pre' in cfg and cfg['nms_pre'] <= 0:
+            cfg['nms_pre'] = 0
         cfg.update(kwargs)
         return self.bbox_head.get_bboxes(pred_maps, **cfg)
 
@@ -82,3 +95,10 @@ class YOLOV4(SingleStageDetector):
 @DETECTORS.register_module()
 class YOLOV5(SingleStageDetector):
     """Named alias, mirroring the reference detector registry."""
+
+
+@DETECTORS.register_module()
+class RetinaNet(SingleStageDetector):
+    """The generic anchor path (reference
+    mmdet/models/detectors/retinanet.py)."""
+    default_iou_thr = 0.5

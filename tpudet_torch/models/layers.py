@@ -62,7 +62,19 @@ class Conv(nn.Conv2d):
     """``nn.Conv2d`` computing in its input's dtype: the weight (and bias)
     are cast to it at the call, as flax's ``nn.Conv(dtype=...)`` casts its
     fp32 params. A no-op cast once ``set_dtype`` has stored them in that
-    dtype."""
+    dtype.
+
+    ``kernel_init`` and ``bias_init`` name tpudet's initializers of the
+    flax conv this one stands for; ``utils/flax_import.
+    random_flax_variables`` draws by them. ``kernel_init`` is
+    ``'he_normal'``, ``'xavier_uniform'`` or ``('normal', std)``;
+    ``bias_init`` a number or an array of the bias's shape."""
+
+    def __init__(self, *args, kernel_init='he_normal', bias_init=0.,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)

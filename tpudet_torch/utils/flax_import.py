@@ -202,11 +202,31 @@ def _truncated_normal(rng: np.random.RandomState, shape, std: float):
     return (x * std).astype(np.float32)
 
 
+def _draw_kernel(rng: np.random.RandomState, init, hwio) -> np.ndarray:
+    """A conv kernel (HWIO; I is cin / groups) drawn by flax's
+    initializer ``init``: ``'he_normal'`` (truncated normal, fan-in),
+    ``'xavier_uniform'`` (uniform, fan-average) or ``('normal', std)``."""
+    kh, kw, cin, cout = hwio
+    if init == 'he_normal':
+        # the std of the truncated draw corrected by 0.8796..., the std of
+        # N(0, 1) cut at +-2
+        std = np.sqrt(2.0 / (kh * kw * cin)) / .87962566103423978
+        return _truncated_normal(rng, hwio, std)
+    if init == 'xavier_uniform':
+        limit = np.sqrt(6.0 / (kh * kw * (cin + cout)))
+        return rng.uniform(-limit, limit, hwio).astype(np.float32)
+    kind, std = init
+    if kind != 'normal':
+        raise ValueError(f'unknown kernel initializer {init!r}')
+    return (rng.standard_normal(hwio) * std).astype(np.float32)
+
+
 def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
     """A tpudet variables tree for ``model`` drawn with tpudet's init from a
-    numpy seed: conv kernels ``he_normal`` (fan-in truncated normal), the
-    head's pred convs N(0, 0.01^2) with the head's bias priors, BatchNorm
-    scale 1, bias 0, mean 0, var 1."""
+    numpy seed: each conv's kernel and bias by the initializers it names
+    (``layers.Conv.kernel_init``, ``bias_init``; a plain ``nn.Conv2d``
+    takes ``he_normal`` and a zero bias), BatchNorm scale 1, bias 0, mean
+    0, var 1. Kernels are drawn in the order of their sorted flax paths."""
     rng = np.random.RandomState(seed)
     modules = dict(model.named_modules())
     sd = model.state_dict()
@@ -216,16 +236,12 @@ def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
         shape = tuple(sd[key].shape)
         leaf = path[-1]
         if is_kernel:
-            kh, kw = shape[2], shape[3]
-            hwio = (kh, kw, shape[1], shape[0])
-            if module.bias is not None:  # a head pred conv
-                value = (rng.standard_normal(hwio) * 0.01).astype(np.float32)
-            else:
-                # flax he_normal: std of the truncated draw corrected by
-                # 0.8796..., the std of N(0, 1) cut at +-2; the fan-in is
-                # kh * kw * cin / groups (shape[1] of a grouped conv)
-                std = np.sqrt(2.0 / (kh * kw * shape[1])) / .87962566103423978
-                value = _truncated_normal(rng, hwio, std)
+            value = _draw_kernel(
+                rng, getattr(module, 'kernel_init', 'he_normal'),
+                (shape[2], shape[3], shape[1], shape[0]))
+        elif isinstance(module, nn.Conv2d):  # a conv bias
+            value = np.broadcast_to(np.asarray(
+                getattr(module, 'bias_init', 0.), np.float32), shape).copy()
         elif leaf in ('scale', 'var'):
             value = np.ones(shape, np.float32)
         else:
@@ -234,9 +250,4 @@ def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[leaf] = value
-    head = getattr(model, 'bbox_head', None)
-    if head is not None and hasattr(head, 'bias_prior'):
-        for i in range(head.num_levels):
-            tree['params']['bbox_head'][f'conv_pred{i}']['bias'] = \
-                head.bias_prior(i)
     return tree
