@@ -214,26 +214,28 @@ def test_load_image_from_file_is_bit_exact(tmp_path):
 
 def test_load_image_without_cv2_says_decoding_comes_later(monkeypatch,
                                                           tmp_path):
+    """On the CPU every file is read by cv2; without it the read raises
+    and names the ways that need no cv2."""
     monkeypatch.setitem(sys.modules, 'cv2', None)
-    load = P.LoadImageFromFile()
-    with pytest.raises(ImportError, match='later slice'):
+    load = P.LoadImageFromFile(device='cpu')
+    with pytest.raises(ImportError, match='Decode JPEGs on a CUDA device'):
         load(dict(img_info=dict(filename='x.jpg'), img_prefix=str(tmp_path)))
 
 
 def test_load_image_takes_only_the_cv2_backend():
-    """Every backend decodes with cv2: ``'turbojpeg'`` and ``'native'``
-    read the bytes and ``cv2.imdecode`` them (tpudet's fallback); an
-    unknown backend raises."""
+    """On the CPU every backend decodes with cv2: ``'turbojpeg'`` and
+    ``'native'`` read the bytes and ``cv2.imdecode`` them (tpudet's
+    fallback); an unknown backend raises."""
     for backend in ('cv2', 'turbojpeg', 'native'):
-        P.LoadImageFromFile(im_decode_backend=backend)
+        P.LoadImageFromFile(im_decode_backend=backend, device='cpu')
     with pytest.raises(ValueError, match='pillow'):
-        P.LoadImageFromFile(im_decode_backend='pillow')
+        P.LoadImageFromFile(im_decode_backend='pillow', device='cpu')
 
 
 def test_missing_file_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
-        P.LoadImageFromFile()(dict(img_info=dict(filename='none.jpg'),
-                                   img_prefix=str(tmp_path)))
+        P.LoadImageFromFile(device='cpu')(dict(
+            img_info=dict(filename='none.jpg'), img_prefix=str(tmp_path)))
 
 
 @pytest.mark.parametrize('transform', ['Resize', 'Pad', 'Normalize'])

@@ -277,8 +277,9 @@ def test_turbojpeg_backend_reads_the_bytes_with_cv2(tmp_path):
     results = dict(img_info=dict(filename='a.jpg'),
                    img_prefix=str(tmp_path))
     ref = J.LoadImageFromFile()(dict(results))
-    got = P.LoadImageFromFile(im_decode_backend='turbojpeg')(dict(results))
+    got = P.LoadImageFromFile(im_decode_backend='turbojpeg',
+                              device='cpu')(dict(results))
     np.testing.assert_array_equal(got['img'], ref['img'])
     with pytest.raises(FileNotFoundError):
-        P.LoadImageFromFile(im_decode_backend='turbojpeg')(dict(
+        P.LoadImageFromFile(im_decode_backend='turbojpeg', device='cpu')(dict(
             img_info=dict(filename='none.jpg'), img_prefix=str(tmp_path)))

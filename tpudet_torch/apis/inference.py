@@ -1,12 +1,13 @@
 """Inference API: counterpart of ``tpudet/apis/inference.py``
 (``init_detector``, ``Detector``, ``inference_detector``,
-``nms_result_to_per_class``).
+``async_inference_detector``, ``nms_result_to_per_class``).
 
 ``init_detector`` returns a :class:`Detector`: the built model on its
 device with its weights, and the config's test pipeline on the same
 device. ``inference_detector`` takes a decoded BGR uint8 image (a numpy
-array) or a file path, and returns the reference's result format: a list
-of per-class (n, 5) numpy arrays.
+array) or a file path (a JPEG decodes on the card with nvJPEG), and
+returns the reference's result format: a list of per-class (n, 5) numpy
+arrays.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 with no GPU they raise rather than run on the CPU. The mask branch comes
@@ -156,11 +157,9 @@ def _pipeline_pad_divisor(detector) -> int:
     return scan(getattr(detector.pipeline, 'transforms', [])) or 32
 
 
-def inference_detector(detector: Detector,
-                       img: Union[str, np.ndarray],
-                       pad_to: Optional[int] = 640):
-    """Single-image inference returning per-class (n, 5) arrays in the
-    original image's frame."""
+def _dispatch(detector: Detector, img: Union[str, np.ndarray],
+              pad_to: Optional[int]) -> NMSResult:
+    """The test pipeline and one detector call on one image."""
     results = _prepare_image(detector, img)
     image = torch.as_tensor(results['img'], device=detector.device).float()
     if pad_to is not None:
@@ -168,7 +167,30 @@ def inference_detector(detector: Detector,
                             divisor=_pipeline_pad_divisor(detector))
     scale_factor = np.asarray(results['scale_factor'],
                               np.float32).reshape(1, 4)
-    res = detector(image[None], scale_factor, rescale=True)
+    return detector(image[None], scale_factor, rescale=True)
+
+
+def inference_detector(detector: Detector,
+                       img: Union[str, np.ndarray],
+                       pad_to: Optional[int] = 640):
+    """Single-image inference returning per-class (n, 5) arrays in the
+    original image's frame."""
+    res = _dispatch(detector, img, pad_to)
+    return nms_result_to_per_class(res, len(detector.CLASSES))[0]
+
+
+async def async_inference_detector(detector: Detector,
+                                   img: Union[str, np.ndarray],
+                                   pad_to: Optional[int] = 640):
+    """:func:`inference_detector` as a coroutine (tpudet's
+    ``async_inference_detector``): prepare and dispatch the call, yield
+    to other tasks (``await asyncio.sleep(0)``) while the device computes,
+    then fetch. The NMS's block walk waits for the device on the host
+    inside the call, so the yield comes after it."""
+    import asyncio
+
+    res = _dispatch(detector, img, pad_to)
+    await asyncio.sleep(0)
     return nms_result_to_per_class(res, len(detector.CLASSES))[0]
 
 

@@ -13,8 +13,9 @@ affine chain, the HSV jitter) are torch ops on the transform's ``device``,
 ``cuda`` unless the caller asks for the CPU; the first of them moves the
 host image there. The image is an (H, W, 3) BGR uint8 tensor until
 ``Normalize``, float32 RGB after it. Boxes, labels and shapes stay on the
-host. Files are read by cv2 on the host, imported only when a file is
-read.
+host. On a CUDA device JPEG files decode on the card with nvJPEG; other
+files, and every file on the CPU, are read by cv2 on the host, imported
+only when such a file is read.
 
 ``Resize`` and the affine chain's scale step reproduce
 ``cv2.resize(..., INTER_LINEAR)`` on uint8 images bit for bit, in integer
@@ -32,6 +33,7 @@ from __future__ import annotations
 import functools
 import os.path as osp
 import random
+import threading
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -78,39 +80,76 @@ def _rng(results):
 
 @PIPELINES.register_module()
 class LoadImageFromFile:
-    """File -> (H, W, 3) BGR uint8 numpy array, read by cv2 on the host.
+    """File -> (H, W, 3) BGR uint8 image, on the transform's ``device``.
 
-    ``im_decode_backend='turbojpeg'`` (or ``'native'``) reads the file's
-    bytes and decodes them with ``cv2.imdecode``: tpudet does the same
-    wherever its native libjpeg loader cannot decode a file, and the two
-    give the same pixels for baseline JPEGs
-    (``tpudet/data/pipelines.py:54-80``). Decoding on the GPU comes with a
-    later slice."""
+    On a CUDA device the file's bytes go to ``ops/jpeg.py``'s
+    ``decode_image``, whatever ``im_decode_backend`` names: a JPEG decodes
+    with nvJPEG straight into a tensor on the card, so that no cv2 is
+    needed there, and another format needs cv2. tpudet decodes JPEGs with
+    its libjpeg loader under ``'turbojpeg'``/``'native'`` and with cv2
+    otherwise (``tpudet/data/pipelines.py:51-90``); nvJPEG's pixels differ
+    from libjpeg's by a few levels (PERF.md). The decode runs on a side
+    stream of the calling thread, and the thread's current stream waits
+    for it by an event: a loader's prefetch thread does not wait for the
+    consumer's kernels, and the consumer's reads follow the decode.
 
-    def __init__(self, to_float32=False, im_decode_backend='cv2', **kwargs):
+    On the CPU the image is read by cv2 on the host as a numpy array:
+    ``cv2.imread``, or ``cv2.imdecode`` of the file's bytes under
+    ``'turbojpeg'``/``'native'`` (tpudet's libjpeg loader gives the same
+    pixels for baseline JPEGs). Without cv2 that read raises."""
+
+    on_device = True
+
+    def __init__(self, to_float32=False, im_decode_backend='cv2',
+                 device: Union[str, torch.device] = 'cuda', **kwargs):
         if im_decode_backend not in ('cv2', 'turbojpeg', 'native'):
             raise ValueError(f'unknown im_decode_backend '
                              f'{im_decode_backend!r}')
         self.to_float32 = to_float32
         self.from_bytes = im_decode_backend != 'cv2'
+        self.device = resolve_device(device)
+        self._streams = threading.local()
 
-    def _read(self, filename):
+    def _decode_on_card(self, data: bytes, filename: str) -> torch.Tensor:
+        from ..ops import jpeg
+        side = getattr(self._streams, 'stream', None)
+        if side is None:
+            side = self._streams.stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(side):
+            img = jpeg.decode_image(data, self.device)
+        if img is None:
+            raise FileNotFoundError(filename)
+        current = torch.cuda.current_stream(self.device)
+        current.wait_stream(side)
+        img.record_stream(current)
+        return img
+
+    @staticmethod
+    def _cv2():
         try:
             import cv2
         except ImportError as e:
             raise ImportError(
-                'LoadImageFromFile reads files with cv2, which is not '
-                'installed; decoding image files without cv2 comes with a '
-                'later slice. Pass decoded BGR uint8 arrays instead '
+                'LoadImageFromFile reads every file on the CPU with cv2, '
+                'which is not installed. Decode '
+                'JPEGs on a CUDA device, or pass decoded BGR uint8 arrays '
                 '(inference_detector takes one).') from e
+        return cv2
+
+    def _read_bytes(self, filename):
+        try:
+            with open(filename, 'rb') as f:
+                return f.read()
+        except OSError:
+            raise FileNotFoundError(filename)
+
+    def _read(self, filename):
+        if self.device.type == 'cuda':
+            return self._decode_on_card(self._read_bytes(filename), filename)
+        cv2 = self._cv2()
         if self.from_bytes:
-            try:
-                with open(filename, 'rb') as f:
-                    data = f.read()
-            except OSError:
-                raise FileNotFoundError(filename)
-            return cv2.imdecode(np.frombuffer(data, np.uint8),
-                                cv2.IMREAD_COLOR)
+            return cv2.imdecode(np.frombuffer(self._read_bytes(filename),
+                                              np.uint8), cv2.IMREAD_COLOR)
         return cv2.imread(filename, cv2.IMREAD_COLOR)
 
     def __call__(self, results):
@@ -121,13 +160,15 @@ class LoadImageFromFile:
         if img is None:
             raise FileNotFoundError(filename)
         if self.to_float32:
-            img = img.astype(np.float32)
+            img = img.float() if isinstance(img, torch.Tensor) else \
+                img.astype(np.float32)
+        shape = tuple(img.shape)
         results['filename'] = filename
         results['ori_filename'] = img_info['filename']
         results['img'] = img
-        results['img_shape'] = img.shape
-        results['ori_shape'] = img.shape
-        results['pad_shape'] = img.shape
+        results['img_shape'] = shape
+        results['ori_shape'] = shape
+        results['pad_shape'] = shape
         results['scale_factor'] = np.array([1., 1., 1., 1.], np.float32)
         results['img_fields'] = ['img']
         results['bbox_fields'] = []

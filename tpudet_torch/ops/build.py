@@ -4,8 +4,11 @@ Each kernel source ``csrc/<name>.cu`` has a plain C interface. On first use
 it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``build/kernels/`` at the root of the checkout (git-ignored) and
 loaded with ``ctypes``. No PyTorch header is included, so a build takes
-seconds. The library's file name carries a hash of its source and flags,
-so an edited source is rebuilt and a stale library is never loaded.
+seconds. A source may add flags of its own (``EXTRA_FLAGS``): the nvJPEG
+shim links the toolkit's ``libnvjpeg`` and finds it at run time through an
+rpath. The library's file name carries a hash of its source and all its
+flags, so an edited source or flag is rebuilt and a stale library is
+never loaded.
 
 Nothing here runs at import time: the CPU-only test host has no ``nvcc``.
 """
@@ -19,12 +22,17 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
+
+# flags of one source beyond NVCC_FLAGS; '{lib}' is the toolkit's lib64
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
+    'nvjpeg_shim': ('-lnvjpeg', '-L{lib}', '-Xlinker', '-rpath,{lib}'),
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -41,10 +49,21 @@ def _nvcc() -> str:
                        'CUDA toolkit (set CUDA_HOME or put nvcc on PATH)')
 
 
+def extra_flags(name: str) -> Tuple[str, ...]:
+    """The flags of source ``name`` beyond ``NVCC_FLAGS``."""
+    extra = EXTRA_FLAGS.get(name, ())
+    if extra:
+        lib = os.path.join(os.path.dirname(os.path.dirname(_nvcc())),
+                           'lib64')
+        extra = tuple(f.format(lib=lib) for f in extra)
+    return extra
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f'{name}.cu'
+    flags = ' '.join(NVCC_FLAGS + extra_flags(name))
     digest = hashlib.sha256(src.read_bytes() +
-                            ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f'lib{name}-{digest}.so'
 
 
@@ -62,7 +81,8 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             continue
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, str(CSRC / f'{name}.cu')]
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, str(CSRC / f'{name}.cu'),
+               *extra_flags(name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started.append((name, out, tmp, proc, time.perf_counter()))
