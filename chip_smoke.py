@@ -92,7 +92,23 @@ Phases, in order; any failure exits non-zero:
    (``LoadImageFromFile`` decoding on the card) -> ``DetDataLoader`` ->
    ``single_device_test``, each image after ``Resize`` against the same
    flow fed the committed cv2 decodes;
-11. output: a ``kernels`` JSON line (with each kernel's share of its
+11. the two-stage family, no mish: Faster R-CNN R50-FPN
+   (``configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py``, 80 classes) at
+   full width and depth, weights drawn from the seed in tpudet's layout
+   and carried by ``flax_import``: inference bf16 at batch 8 on 1344^2
+   canvases through ``Detector`` (1000 proposals an image, finite
+   detections; forward, RPN proposals, RoIAlign, bbox head, get_bboxes
+   and e2e ms, device busy, RoIAlign's peak memory, beside phase 9's
+   RetinaNet); fp32 on the card against the CPU on 2 images (the RPN's
+   keeps, RoIAlign level codes, detections); ``rpn_r50_fpn_1x_coco.py``'s
+   proposals and ``fast_rcnn_r50_fpn_1x_coco.py`` fed them, card against
+   CPU; 3 bf16 ``init_trainer`` steps of 2 images at 1344 (the
+   ``forward_train`` loss path) and one fp32 step at 320 card against
+   CPU (sampled rois and labels, the four losses, the updated state);
+   ``train_detector`` on the config for 3 steps from seeded arrays with a
+   checkpoint, the EMA evaluation and a resumed 4th step, then the test
+   CLI on its weights against the API. Every path: 0 mish launches;
+12. output: a ``kernels`` JSON line (with each kernel's share of its
    bound and its launches on every path), the whole run's seconds, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -170,6 +186,25 @@ RETINA_TRAIN_BATCH = 2
 RETINA_MAX_GTS = 120
 RETINA_CHECK_IMG = 320
 SHAPES_TRAIN_IMAGES, SHAPES_VAL_IMAGES, SHAPES_STEPS = 24, 8, 3
+
+CONFIG_FRCNN = os.path.join(
+    ROOT, 'configs/faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py')
+CONFIG_RPN = os.path.join(ROOT, 'configs/rpn/rpn_r50_fpn_1x_coco.py')
+CONFIG_FAST = os.path.join(ROOT, 'configs/fast_rcnn/fast_rcnn_r50_fpn_1x_coco.py')
+FRCNN_IMG, FRCNN_BATCH, FRCNN_FP32_IMAGES = 1344, 8, 2
+FRCNN_PART_IMG = 640  # RPN and FastRCNN, card against CPU
+FRCNN_RPN_CLS_SPREAD, FRCNN_RPN_REG_SPREAD = 2.0, 0.3
+FRCNN_CLS_SPREAD, FRCNN_REG_SPREAD = 2.0, 1.0
+FRCNN_TRAIN_STEPS, FRCNN_TRAIN_BATCH, FRCNN_CHECK_IMG = 3, 2, 320
+FRCNN_LOSSES = ('loss_rpn_cls', 'loss_rpn_bbox', 'loss_cls', 'loss_bbox')
+FRCNN_LOOP_IMAGES, FRCNN_LOOP_VAL_IMAGES, FRCNN_LOOP_STEPS = 6, 4, 3
+# card against CPU in fp32: the share of proposals, detections or sampled
+# roi slots allowed to differ (a score near-tie or an IoU at the NMS
+# threshold flips under rounding), and, when a sampled slot differs, the
+# losses' and the state's tolerances in place of STEP_LOSS_RTOL and
+# STEP_TREE_TOL
+FRCNN_KEEP_SHARE = 0.01
+FRCNN_FLIP_LOSS_RTOL, FRCNN_FLIP_TREE_TOL = 5e-2, 0.5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -642,7 +677,7 @@ def _iou(a, b):
 def match_detections(ref, got, image, iou_min):
     """Greedy one-to-one matching of ``got``'s valid detections to
     ``ref``'s on one image: same label, IoU >= iou_min. Returns (matched,
-    n_ref, n_got)."""
+    n_ref, n_got, the largest box delta of the matches in px)."""
     import numpy as np
     rv = ref.valid[image].cpu().numpy()
     gv = got.valid[image].cpu().numpy()
@@ -651,16 +686,17 @@ def match_detections(ref, got, image, iou_min):
     rl = ref.labels[image].cpu().numpy()[rv]
     gl = got.labels[image].cpu().numpy()[gv]
     if len(rb) == 0 or len(gb) == 0:
-        return 0, len(rb), len(gb)
+        return 0, len(rb), len(gb), 0.0
     ok = (_iou(rb, gb) >= iou_min) & (rl[:, None] == gl[None, :])
     used = np.zeros(len(gb), bool)
-    matched = 0
+    matched, gap = 0, 0.0
     for r in range(len(rb)):
         cand = np.nonzero(ok[r] & ~used)[0]
         if len(cand):
             used[cand[0]] = True
             matched += 1
-    return matched, len(rb), len(gb)
+            gap = max(gap, float(np.abs(rb[r] - gb[cand[0]]).max()))
+    return matched, len(rb), len(gb), gap
 
 
 def pred_map_error(got, ref):
@@ -774,7 +810,7 @@ def run_slice(torch, config=CONFIG, name='YOLOv4-l',
     if max(err32) > FP32_PRED_TOL:
         raise AssertionError('fp32 card pred maps differ from the CPU')
     for i in range(fp32_images):
-        matched, n_ref, n_got = match_detections(res_ref, res32, i,
+        matched, n_ref, n_got, _ = match_detections(res_ref, res32, i,
                                                  MATCH_IOU)
         log(f'fp32 card vs CPU detections, image {i}: {matched} matched of '
             f'{n_ref} / {n_got} (label and IoU >= {MATCH_IOU})')
@@ -787,7 +823,7 @@ def run_slice(torch, config=CONFIG, name='YOLOv4-l',
     with torch.inference_mode():
         pm16 = [p[:fp32_images] for p in det.forward(img)]
     err16 = pred_map_error(pm16, pm_ref)
-    m16, n_ref16, n_got16 = match_detections(res_ref, res, 0, 0.5)
+    m16, n_ref16, n_got16, _ = match_detections(res_ref, res, 0, 0.5)
     log(f'bf16 card vs fp32 CPU pred maps, max|d|/max|ref| per level: '
         f'{err16} (tolerance {BF16_PRED_TOL}); detections of image 0 '
         f'matched at IoU 0.5 and label: {m16} of {n_ref16} / {n_got16}')
@@ -2189,6 +2225,70 @@ def retina_images(cfg, n, size, seed):
     return ((px - mean) / std).astype(np.float32)
 
 
+def redrawn_variables(torch, cfg, img, layers, seed, measure_bn=False):
+    """tpudet's init for ``cfg``'s model (``random_flax_variables`` from
+    the numpy seed) with the prediction layers ``layers`` (module path ->
+    (spread, bias)) redrawn from ``RandomState(seed)``: kernels
+    N(0, (spread / (sqrt(fan_in) * rms))^2), rms that of the layer's input
+    over all its calls in a forward of ``img``, so that the outputs spread
+    by about ``spread`` around ``bias``. With ``measure_bn`` the forward
+    runs in train mode and the BatchNorm statistics are those of ``img``
+    (one cumulative pass); otherwise in eval mode with tpudet's identity
+    BatchNorm."""
+    import numpy as np
+    from torch import nn
+    from tpudet_torch.models.builder import build_detector
+    from tpudet_torch.utils.flax_import import (leaf_table,
+                                                load_flax_variables,
+                                                random_flax_variables)
+    model = build_detector(cfg['model'])
+    tree = random_flax_variables(model, seed=SEED)
+    load_flax_variables(model, tree)
+    model.to('cuda', memory_format=torch.channels_last)
+    if measure_bn:
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.reset_running_stats()
+                m.momentum = None  # cumulative: stats of this batch exactly
+    sums = {path: [0.0, 0] for path in layers}
+
+    def hook(path):
+        def record(mod, args):
+            sums[path][0] += float(args[0].float().pow(2).sum())
+            sums[path][1] += args[0].numel()
+        return record
+    hooks = [model.get_submodule('.'.join(path)).register_forward_pre_hook(
+        hook(path)) for path in layers]
+    model.train(measure_bn)
+    with torch.no_grad():
+        model(torch.from_numpy(img).cuda())
+    for h in hooks:
+        h.remove()
+    if measure_bn:
+        sd = {k: v.detach().float().cpu().numpy()
+              for k, v in model.state_dict().items()}
+        for path, (key, _) in leaf_table(model).items():
+            if path[0] == 'batch_stats':
+                node = tree['batch_stats']
+                for p in path[1:-1]:
+                    node = node[p]
+                node[path[-1]] = sd[key]
+    rng = np.random.RandomState(seed)
+    for path, (spread, bias) in layers.items():
+        node = tree['params']
+        for p in path:
+            node = node[p]
+        rms = math.sqrt(sums[path][0] / sums[path][1])
+        fan_in = int(np.prod(node['kernel'].shape[:-1]))
+        std = spread / (math.sqrt(fan_in) * rms)
+        node['kernel'] = (rng.randn(*node['kernel'].shape) * std).astype(
+            np.float32)
+        node['bias'] = np.full_like(node['bias'], bias)
+    del model
+    torch.cuda.empty_cache()
+    return tree
+
+
 def retina_variables(torch, cfg, img, measure_bn=False):
     """tpudet variables for a RetinaNet config from the numpy seed:
     tpudet's init (``random_flax_variables``: BatchNorm an identity) with
@@ -2207,59 +2307,11 @@ def retina_variables(torch, cfg, img, measure_bn=False):
     stages grow the activations, but bf16 stays within a few percent of
     fp32 (with statistics of the batch, bf16 strayed 20-60 % from fp32 on
     these weights)."""
-    import numpy as np
-    from torch import nn
-    from tpudet_torch.models.builder import build_detector
-    from tpudet_torch.utils.flax_import import (leaf_table,
-                                                load_flax_variables,
-                                                random_flax_variables)
-    model = build_detector(cfg['model'])
-    tree = random_flax_variables(model, seed=SEED)
-    load_flax_variables(model, tree)
-    model.to('cuda', memory_format=torch.channels_last)
-    if measure_bn:
-        for m in model.modules():
-            if isinstance(m, nn.BatchNorm2d):
-                m.reset_running_stats()
-                m.momentum = None  # cumulative: stats of this batch exactly
-    head = model.bbox_head
-    sums = {'retina_cls': [0.0, 0], 'retina_reg': [0.0, 0]}
-
-    def hook(name):
-        def record(mod, args):
-            sums[name][0] += float(args[0].float().pow(2).sum())
-            sums[name][1] += args[0].numel()
-        return record
-    hooks = [getattr(head, n).register_forward_pre_hook(hook(n))
-             for n in sums]
-    model.train(measure_bn)
-    with torch.no_grad():
-        model(torch.from_numpy(img).cuda())
-    for h in hooks:
-        h.remove()
-    if measure_bn:
-        sd = {k: v.detach().float().cpu().numpy()
-              for k, v in model.state_dict().items()}
-        for path, (key, _) in leaf_table(model).items():
-            if path[0] == 'batch_stats':
-                node = tree['batch_stats']
-                for p in path[1:-1]:
-                    node = node[p]
-                node[path[-1]] = sd[key]
-    rng = np.random.RandomState(SEED + 2)
-    for name, spread, bias in (
-            ('retina_cls', RETINA_CLS_SPREAD, RETINA_CLS_BIAS),
-            ('retina_reg', RETINA_REG_SPREAD, 0.0)):
-        conv = tree['params']['bbox_head'][name]
-        rms = math.sqrt(sums[name][0] / sums[name][1])
-        kh, kw, cin, _ = conv['kernel'].shape
-        std = spread / (math.sqrt(kh * kw * cin) * rms)
-        conv['kernel'] = (rng.randn(*conv['kernel'].shape) * std).astype(
-            np.float32)
-        conv['bias'] = np.full_like(conv['bias'], bias)
-    del model
-    torch.cuda.empty_cache()
-    return tree
+    return redrawn_variables(
+        torch, cfg, img,
+        {('bbox_head', 'retina_cls'): (RETINA_CLS_SPREAD, RETINA_CLS_BIAS),
+         ('bbox_head', 'retina_reg'): (RETINA_REG_SPREAD, 0.0)},
+        SEED + 2, measure_bn)
 
 
 def retina_train_batch(cfg, n, size, seed):
@@ -2327,7 +2379,8 @@ def run_retina_inference(torch, mish):
     peak memory and a profile; then fp32 on the card against the CPU on
     RETINA_FP32_IMAGES images (TF32 off), bf16 against fp32, and the
     soft-NMS config (``retinanet_r50_fpn_softnms_1x_coco.py``) on the same
-    weights, card against CPU. Returns (weights tree, launches)."""
+    weights, card against CPU. Returns (weights tree, launches, the bf16
+    times)."""
     from tpudet_torch.apis import init_detector
     from tpudet_torch.config import Config
     from tpudet_torch.core.nms import batched_nms
@@ -2447,7 +2500,7 @@ def run_retina_inference(torch, mish):
     if max(err16) > BF16_PRED_TOL:
         raise AssertionError('bf16 pred maps too far from fp32')
     for i in range(RETINA_FP32_IMAGES):
-        matched, n_ref, n_got = match_detections(res_ref, res32, i,
+        matched, n_ref, n_got, _ = match_detections(res_ref, res32, i,
                                                  MATCH_IOU)
         log(f'RetinaNet fp32 card vs CPU detections, image {i}: {matched} '
             f'matched of {n_ref} / {n_got} (label and IoU >= {MATCH_IOU})')
@@ -2467,7 +2520,7 @@ def run_retina_inference(torch, mish):
         ref = soft_cpu.model.get_bboxes(pm_ref)
     torch.cuda.synchronize()
     for i in range(RETINA_FP32_IMAGES):
-        matched, n_ref, n_got = match_detections(ref, got, i, MATCH_IOU)
+        matched, n_ref, n_got, _ = match_detections(ref, got, i, MATCH_IOU)
         gap = float('inf')
         if n_ref == n_got:  # the picks in order: their decayed scores
             gap = float((ref.scores[i][ref.valid[i]] - got.scores[i].cpu()[
@@ -2480,7 +2533,7 @@ def run_retina_inference(torch, mish):
             raise AssertionError('soft-NMS on the card differs from the CPU')
     del soft, soft_cpu, det, model, pm, pm32, pm_ref, bbox, scores, nms_call
     torch.cuda.empty_cache()
-    return tree, launches
+    return tree, launches, times
 
 
 def assignment_differences(torch, anchors, gt_bboxes, gt_valid):
@@ -2739,15 +2792,577 @@ def run_retina_shapes(torch):
 
 def run_retinanet(torch):
     """Phase 9: RetinaNet-R50-FPN at full width and depth. Returns each
-    path's launches of each kernel (all 0: ResNet uses ReLU)."""
+    path's launches of each kernel (all 0: ResNet uses ReLU) and the
+    inference times."""
     from tpudet_torch.ops import mish
-    tree, infer = run_retina_inference(torch, mish)
+    tree, infer, times = run_retina_inference(torch, mish)
     train = run_retina_training(torch, tree)
     loop, cli = run_retina_shapes(torch)
     return {name: {'retinanet_inference_forward': infer[name],
                    'retinanet_train_step': train[name],
                    'retinanet_train_detector_step': loop[name],
                    'retinanet_test_cli_batch': cli[name]}
+            for name in ('mish_fwd', 'mish_bwd')}, times
+
+
+# ---------------------------------------------------------------------------
+# 11. the two-stage family: Faster R-CNN R50-FPN, RPN, FastRCNN
+
+
+def two_stage_variables(torch, cfg, img, measure_bn=False):
+    """tpudet variables for a two-stage config from the numpy seed:
+    ``redrawn_variables`` of the four prediction layers. At tpudet's init
+    every objectness sits near 0.5 (N(0, 0.01^2) kernels: the proposals
+    nearly tied) and every class probability near 1/81, under score_thr
+    0.05 (no detection). Here objectness logits spread by
+    FRCNN_RPN_CLS_SPREAD, RPN deltas by FRCNN_RPN_REG_SPREAD, RoI class
+    logits by FRCNN_CLS_SPREAD and RoI deltas by FRCNN_REG_SPREAD, all
+    around 0."""
+    return redrawn_variables(
+        torch, cfg, img,
+        {('rpn_head', 'rpn_cls'): (FRCNN_RPN_CLS_SPREAD, 0.0),
+         ('rpn_head', 'rpn_reg'): (FRCNN_RPN_REG_SPREAD, 0.0),
+         ('roi_head', 'bbox_head', 'fc_cls'): (FRCNN_CLS_SPREAD, 0.0),
+         ('roi_head', 'bbox_head', 'fc_reg'): (FRCNN_REG_SPREAD, 0.0)},
+        SEED + 3, measure_bn)
+
+
+def sub_tree(tree, parts):
+    """The variables of the modules ``parts`` (``backbone``, ``neck``, a
+    head) of a detector's tree, for a detector made of them."""
+    return {c: {k: v for k, v in tree[c].items() if k in parts}
+            for c in tree}
+
+
+def as_detections(proposals, valid):
+    """Proposals as an ``NMSResult`` of label 0, for ``match_detections``."""
+    from tpudet_torch.core.nms import NMSResult
+    zeros = valid.new_zeros(valid.shape, dtype=proposals.dtype)
+    return NMSResult(proposals, zeros, zeros.long(), valid)
+
+
+def run_frcnn_inference(torch, mish, retina_times):
+    """Faster R-CNN R50-FPN bf16, batch 8, on FRCNN_IMG canvases through
+    ``init_detector`` / ``Detector``: its launch counts (every count at 0
+    just before the one call), 1000 proposals an image, finite detections;
+    forward / RPN proposals / RoIAlign / bbox head / get_bboxes / e2e ms,
+    RoIAlign's peak memory, a profile; then fp32 on the card against the
+    CPU on FRCNN_FP32_IMAGES images (TF32 off): the RPN's keeps, level
+    codes and the detections. ``retina_times`` (phase 9's) are printed
+    beside the times. Returns (weights tree, launches)."""
+    from tpudet_torch.apis import init_detector
+    from tpudet_torch.config import Config
+    from tpudet_torch.ops.roi_align import roi_levels
+
+    cfg = Config.fromfile(CONFIG_FRCNN)
+    img_np = retina_images(cfg, FRCNN_BATCH, FRCNN_IMG, SEED + 1400)
+    t0 = time.perf_counter()
+    tree = two_stage_variables(torch, cfg, img_np)
+    log(f'Faster R-CNN weights: numpy seed {SEED}, tpudet\'s init with '
+        f'objectness logits spread {FRCNN_RPN_CLS_SPREAD}, RPN deltas '
+        f'{FRCNN_RPN_REG_SPREAD}, RoI class logits {FRCNN_CLS_SPREAD}, RoI '
+        f'deltas {FRCNN_REG_SPREAD}; {time.perf_counter() - t0:.1f} s')
+    det = init_detector(cfg, variables=tree, device='cuda',
+                        dtype=torch.bfloat16)
+    model = det.model
+    rpn_cfg = model.test_cfg['rpn']
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f'Faster R-CNN R50-FPN: {n_params / 1e6:.2f} M parameters, '
+        f'{model.roi_head.num_classes} classes, bf16; '
+        f'{meta_gflop_two_stage(cfg, FRCNN_IMG):.1f} GFLOP an image at '
+        f'{FRCNN_IMG}^2 (meta device: backbone, neck and heads, 1000 rois)')
+    img = torch.from_numpy(img_np).cuda()
+
+    _zero_counts(mish)
+    res = det(img)
+    torch.cuda.synchronize()
+    launches = _mish_counts(mish)
+    log(f'Faster R-CNN inference path launches: {json.dumps(launches)}')
+    if any(launches.values()):
+        raise AssertionError('the Faster R-CNN path launched a mish kernel')
+    with torch.inference_mode():
+        out = model(img)
+    n_props = [int(v) for v in out[1].sum(1)]
+    n_valid = [int(v) for v in res.valid.sum(1)]
+    levels = roi_levels(out[0], 4)[out[1]]
+    log(f'Faster R-CNN bf16 batch {FRCNN_BATCH}: proposals per image '
+        f'{n_props}, by RoIAlign level {[int((levels == k).sum()) for k in range(4)]}; '
+        f'detections per image {n_valid} (max_per_img '
+        f'{model.test_cfg["rcnn"]["max_per_img"]})')
+    if n_props != [rpn_cfg['max_per_img']] * FRCNN_BATCH:
+        raise AssertionError('not 1000 proposals an image')
+    if not (torch.isfinite(res.bboxes).all() and
+            torch.isfinite(res.scores).all() and min(n_valid) > 0):
+        raise AssertionError('non-finite detections or an image without')
+
+    # the stages alone, on the stages' own inputs, everything warmed up
+    with torch.inference_mode():
+        feats = model.extract_feat(img)
+        rpn_preds = model.rpn_head(feats)
+        props, _, valid = model.rpn_head.get_proposals(
+            rpn_preds, img_shape=tuple(img.shape[1:3]),
+            nms_pre=rpn_cfg['nms_pre'], max_num=rpn_cfg['max_per_img'],
+            iou_thr=rpn_cfg['nms']['iou_threshold'])
+        pooled = model.roi_head.extract(feats, props, valid)
+        head_out = model.roi_head.bbox_head(pooled)
+        for _ in range(3):
+            det(img)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model.roi_head.extract(feats, props, valid)
+        torch.cuda.synchronize()
+        roi_align_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        times = {
+            'e2e_ms': cuda_ms(lambda: det(img), runs=10),
+            'forward_ms': cuda_ms(lambda: model(img), runs=10),
+            'backbone_neck_ms': cuda_ms(lambda: model.extract_feat(img),
+                                        runs=10),
+            'rpn_head_ms': cuda_ms(lambda: model.rpn_head(feats), runs=10),
+            'rpn_proposals_ms': cuda_ms(lambda: model.rpn_head.get_proposals(
+                rpn_preds, img_shape=tuple(img.shape[1:3]),
+                nms_pre=rpn_cfg['nms_pre'], max_num=rpn_cfg['max_per_img'],
+                iou_thr=rpn_cfg['nms']['iou_threshold']), runs=10),
+            'roi_align_ms': cuda_ms(lambda: model.roi_head.extract(
+                feats, props, valid), runs=10),
+            'bbox_head_ms': cuda_ms(lambda: model.roi_head.bbox_head(pooled),
+                                    runs=10),
+            'get_bboxes_ms': cuda_ms(lambda: model.get_bboxes(
+                (props, valid) + tuple(head_out)), runs=10),
+        }
+    times['img_per_s'] = FRCNN_BATCH / times['e2e_ms'] * 1e3
+    times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    times['roi_align_peak_gib'] = roi_align_peak
+    log(f'Faster R-CNN R50-FPN bf16 batch {FRCNN_BATCH} x {FRCNN_IMG}^2: '
+        + json.dumps(times))
+    log(f'beside RetinaNet-R50-FPN at the same shape (phase 9): '
+        + json.dumps(retina_times))
+    with torch.inference_mode():
+        prof = profile_device(torch, lambda: det(img), 'Faster R-CNN e2e call',
+                              top=20)
+        prof_align = profile_device(
+            torch, lambda: model.roi_head.extract(feats, props, valid),
+            'RoIAlign of 8 x 1000 rois', top=5)
+    if prof:
+        log(f'Faster R-CNN inference: device busy {prof[1]:.3f} ms per call '
+            f'of {FRCNN_BATCH}; RoIAlign alone '
+            f'{prof_align[1] if prof_align else float("nan"):.3f} ms busy')
+    del feats, rpn_preds, props, valid, pooled, head_out, out, res
+    torch.cuda.empty_cache()
+
+    # card fp32 (TF32 off) against the same model on the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det32 = init_detector(cfg, variables=tree, device='cuda',
+                          dtype=torch.float32)
+    cpu32 = init_detector(cfg, variables=tree, device='cpu',
+                          dtype=torch.float32)
+    few = img[:FRCNN_FP32_IMAGES]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out_ref = cpu32.model(few.cpu())
+        res_ref = cpu32.model.get_bboxes(out_ref)
+        cpu_s = time.perf_counter() - t0
+        out32 = det32.model(few)
+        res32 = det32.model.get_bboxes(out32)
+    for i in range(FRCNN_FP32_IMAGES):
+        m, n_ref, n_got, gap = match_detections(
+            as_detections(*out_ref[:2]), as_detections(*out32[:2]),
+            i, MATCH_IOU)
+        same = ((out_ref[0][i] - out32[0][i].cpu()).abs().amax(-1)
+                .le(MATCH_CORNER_PX) & out_ref[1][i] & out32[1][i].cpu())
+        level_diff = int((roi_levels(out_ref[0][i][same], 4) != roi_levels(
+            out32[0][i].cpu()[same], 4)).sum())
+        dm, dn_ref, dn_got, dgap = match_detections(res_ref, res32, i,
+                                                    MATCH_IOU)
+        log(f'Faster R-CNN fp32 card vs CPU ({cpu_s:.1f} s on the CPU), image '
+            f'{i}: RPN keeps {n_got} / {n_ref}, {n_ref - m} of the CPU\'s '
+            f'without a match (IoU >= {MATCH_IOU}), {int(same.sum())} slots '
+            f'equal to {MATCH_CORNER_PX} px, largest box delta of the matches '
+            f'{gap:.3e} px; RoIAlign level codes that differ among the equal '
+            f'slots {level_diff}; '
+            f'detections {dm} matched of {dn_ref} / {dn_got} (label and IoU '
+            f'>= {MATCH_IOU}), largest box delta {dgap:.3e} px')
+        if not (n_ref - m <= FRCNN_KEEP_SHARE * n_ref and
+                dn_ref - dm <= FRCNN_KEEP_SHARE * dn_ref and dn_ref > 0):
+            raise AssertionError('fp32 card proposals or detections differ '
+                                 'from the CPU')
+    del det32, cpu32, det, model
+    torch.cuda.empty_cache()
+    return tree, launches
+
+
+def meta_gflop_two_stage(cfg, size):
+    """GFLOP (a multiply-add counts 2) of the backbone, neck, RPN head and
+    the RoI head on 1000 rois of one ``size`` square image, counted on
+    PyTorch's meta device (no weights, no time; the proposals' NMS and
+    RoIAlign's gather are not counted)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from tpudet_torch.models.builder import build_detector
+    with torch.device('meta'):
+        model = build_detector(cfg['model']).eval()
+        counter = FlopCounterMode(display=False)
+        with counter:
+            feats = model.extract_feat(torch.zeros(1, size, size, 3))
+            model.rpn_head(feats)
+            head = model.roi_head.bbox_head
+            head(torch.zeros(1, 1000, 1, 1, head.shared_fc0.in_features))
+    return counter.get_total_flops() / 1e9
+
+
+def run_rpn_and_fast_rcnn(torch, mish, tree):
+    """``rpn_r50_fpn_1x_coco.py`` on the Faster R-CNN weights' backbone,
+    neck and RPN head: proposals of FRCNN_FP32_IMAGES images at
+    FRCNN_PART_IMG, fp32, card against CPU; then
+    ``fast_rcnn_r50_fpn_1x_coco.py`` on its backbone, neck and RoI head,
+    fed the card's proposals on both devices: detections card against
+    CPU. Returns each one's launches (every count at 0 just before)."""
+    from tpudet_torch.apis import init_detector
+    from tpudet_torch.config import Config
+    launches = {}
+    cfg_rpn = Config.fromfile(CONFIG_RPN)
+    img = torch.from_numpy(retina_images(cfg_rpn, FRCNN_FP32_IMAGES,
+                                         FRCNN_PART_IMG, SEED + 1500))
+    rpn_tree = sub_tree(tree, ('backbone', 'neck', 'rpn_head'))
+    rpn = init_detector(cfg_rpn, variables=rpn_tree, device='cuda',
+                        dtype=torch.float32)
+    rpn_cpu = init_detector(cfg_rpn, variables=rpn_tree, device='cpu',
+                            dtype=torch.float32)
+    _zero_counts(mish)
+    got = rpn(img.cuda())
+    torch.cuda.synchronize()
+    launches['rpn_inference'] = _mish_counts(mish)
+    with torch.inference_mode():
+        ref = rpn_cpu(img)
+    for i in range(FRCNN_FP32_IMAGES):
+        m, n_ref, n_got, gap = match_detections(ref, got, i, MATCH_IOU)
+        log(f'RPN ({CONFIG_RPN.split("/")[-1]}) fp32 at {FRCNN_PART_IMG}^2, '
+            f'card vs CPU, image {i}: proposals {n_got} / {n_ref}, '
+            f'{n_ref - m} of the CPU\'s without a match, largest box delta '
+            f'{gap:.3e} px; launches {json.dumps(launches["rpn_inference"])}')
+        if not (n_ref - m <= FRCNN_KEEP_SHARE * n_ref and n_ref > 0):
+            raise AssertionError('RPN proposals on the card differ from the '
+                                 'CPU')
+    cfg_fast = Config.fromfile(CONFIG_FAST)
+    fast_tree = sub_tree(tree, ('backbone', 'neck', 'roi_head'))
+    fast = init_detector(cfg_fast, variables=fast_tree, device='cuda',
+                         dtype=torch.float32)
+    fast_cpu = init_detector(cfg_fast, variables=fast_tree, device='cpu',
+                             dtype=torch.float32)
+    props, valid = got.bboxes, got.valid
+    _zero_counts(mish)
+    with torch.inference_mode():
+        out = fast.model(img.cuda(), props, valid)
+        res = fast.model.get_bboxes(out)
+    torch.cuda.synchronize()
+    launches['fast_rcnn_inference'] = _mish_counts(mish)
+    with torch.inference_mode():
+        ref = fast_cpu.model.get_bboxes(fast_cpu.model(img, props.cpu(),
+                                                       valid.cpu()))
+    for i in range(FRCNN_FP32_IMAGES):
+        m, n_ref, n_got, gap = match_detections(ref, res, i, MATCH_IOU)
+        log(f'FastRCNN ({CONFIG_FAST.split("/")[-1]}) on those proposals, '
+            f'card vs CPU, image {i}: detections {m} matched of {n_ref} / '
+            f'{n_got}, largest box delta {gap:.3e} px; launches '
+            f'{json.dumps(launches["fast_rcnn_inference"])}')
+        if not (n_ref - m <= FRCNN_KEEP_SHARE * n_ref and n_ref > 0 and
+                torch.isfinite(res.bboxes).all()):
+            raise AssertionError('FastRCNN detections on the card differ '
+                                 'from the CPU')
+    if any(v for d in launches.values() for v in d.values()):
+        raise AssertionError('RPN or FastRCNN launched a mish kernel')
+    del rpn, rpn_cpu, fast, fast_cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def feed_card_proposals(rpn_head, own, device):
+    """Record the train-time proposals that ``rpn_head.get_proposals``
+    makes on ``device`` in ``own[device]``; on the CPU, hand the card's
+    on in their place. A score near-tie or an IoU at the NMS threshold
+    can flip under rounding and shift every later proposal's slot, and
+    the fixed-priority sampler then takes other rois: with the same
+    proposals the step holds the rest of the path to its tolerances."""
+    orig = rpn_head.get_proposals
+
+    def get_proposals(*args, **kwargs):
+        res = tuple(t.detach() for t in orig(*args, **kwargs))
+        own[device] = res
+        if device == 'cpu':
+            return tuple(t.cpu() for t in own['cuda'])
+        return res
+    rpn_head.get_proposals = get_proposals
+
+
+class SampleRecorder:
+    """Records what ``roi_head.sample_rois`` returns in each call."""
+
+    def __init__(self, head):
+        self.head, self.calls = head, []
+        orig = head.sample_rois
+
+        def sample_rois(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            self.calls.append(tuple(t.detach().cpu() for t in out))
+            return out
+        head.sample_rois = sample_rois
+
+
+def run_frcnn_training(torch, tree):
+    """Faster R-CNN at FRCNN_IMG, bf16 compute with fp32 master weights,
+    through ``init_trainer(...).step`` (the ``forward_train`` loss path):
+    FRCNN_TRAIN_STEPS steps of the config's 2 images, each with its launch
+    counts, then a profiled step; then one fp32 step at FRCNN_CHECK_IMG at
+    the full lr on the card against the CPU: the RPN's train-time
+    proposals (one-to-one), then, with the card's proposals fed to the
+    CPU's step (``feed_card_proposals``), the sampled rois and labels
+    (slots that differ), the four losses, grad_norm and the updated state.
+    Returns the launches of a step."""
+    from tpudet_torch.apis import init_trainer
+    from tpudet_torch.config import Config
+    from tpudet_torch.ops import mish
+    from tpudet_torch.utils.flax_import import train_state_to_flax
+    cfg = Config.fromfile(CONFIG_FRCNN)
+    cfg['compute_dtype'] = 'bfloat16'
+    trainer = init_trainer(cfg, variables=tree, device='cuda',
+                           max_steps=FRCNN_TRAIN_STEPS + 1)
+    if (trainer.accumulation, cfg['data']['samples_per_gpu']) != (
+            1, FRCNN_TRAIN_BATCH):
+        raise AssertionError('not one micro-batch of 2 per step')
+    log(f'Faster R-CNN training: {FRCNN_IMG}^2, {FRCNN_TRAIN_BATCH} images '
+        f'per step, 1-20 gts each, bf16 compute, fp32 master weights, the '
+        f'forward_train loss path ({list(trainer.batch_keys)})')
+    p0 = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+    launches = None
+    for step in range(FRCNN_TRAIN_STEPS):
+        batch = retina_train_batch(cfg, FRCNN_TRAIN_BATCH, FRCNN_IMG,
+                                   SEED + 1600 + step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(mish)
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = _mish_counts(mish)
+        m = {k: float(v) for k, v in metrics.items()}
+        row = dict(step=step, **m, step_ms=step_s * 1e3,
+                   img_per_s=FRCNN_TRAIN_BATCH / step_s,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=launches)
+        log('Faster R-CNN train step: ' + json.dumps(row))
+        if any(launches.values()):
+            raise AssertionError('the Faster R-CNN train step launched mish')
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad or set(FRCNN_LOSSES) - set(m):
+            raise AssertionError(f'step {step}: non-finite {bad} or a loss '
+                                 f'missing')
+    moved = max(float((trainer.state.params[k].detach() - v).abs().max())
+                for k, v in p0.items())
+    log(f'after {FRCNN_TRAIN_STEPS} steps: params moved by {moved:.3e}')
+    if not moved > 0:
+        raise AssertionError('params did not move')
+    batch = retina_train_batch(cfg, FRCNN_TRAIN_BATCH, FRCNN_IMG,
+                               SEED + 1600 + FRCNN_TRAIN_STEPS)
+    prof = profile_device(torch, lambda: trainer.step(batch),
+                          'Faster R-CNN train step', calls=1, top=20)
+    if prof:
+        log(f'Faster R-CNN train step: device busy {prof[1]:.3f} ms of '
+            f'{prof[0]:.3f} ms wall')
+    del trainer, p0
+    torch.cuda.empty_cache()
+
+    # one fp32 step at FRCNN_CHECK_IMG, card (TF32 off) against the CPU,
+    # at the config's full lr (its warm-up starts at 1e-3 of it)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.fromfile(CONFIG_FRCNN)
+    cfg['custom_hooks'] = [
+        dict(h, lr_weight_warmup_ratio=1.0, lr_bias_warmup_ratio=1.0,
+             momentum_warmup_ratio=1.0)
+        if h.get('type') == 'DetailedLinearWarmUpHook' else h
+        for h in cfg.get('custom_hooks', [])]
+    batch = retina_train_batch(cfg, FRCNN_TRAIN_BATCH, FRCNN_CHECK_IMG,
+                               SEED + 1700)
+    out, own = {}, {}
+    for device in ('cuda', 'cpu'):
+        trainer = init_trainer(cfg, variables=tree, device=device,
+                               max_steps=1)
+        rec = SampleRecorder(trainer.model.roi_head)
+        feed_card_proposals(trainer.model.rpn_head, own, device)
+        init = train_state_to_flax(trainer.state, trainer.model)
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in trainer.step(batch).items()}
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        log(f'Faster R-CNN fp32 step at {FRCNN_CHECK_IMG} on {device}: '
+            f'{time.perf_counter() - t0:.1f} s, ' + json.dumps(metrics))
+        out[device] = (metrics, train_state_to_flax(trainer.state,
+                                                    trainer.model),
+                       rec.calls[0])
+        del trainer
+        torch.cuda.empty_cache()
+    (mc, sc, samp_c), (mr, sr, samp_r) = out['cuda'], out['cpu']
+    for i in range(FRCNN_TRAIN_BATCH):
+        m, n_ref, n_got, gap = match_detections(
+            as_detections(own['cpu'][0], own['cpu'][2]),
+            as_detections(own['cuda'][0], own['cuda'][2]), i, MATCH_IOU)
+        log(f'Faster R-CNN fp32 step, the RPN\'s train-time proposals, card '
+            f'vs CPU, image {i}: {n_got} / {n_ref}, {n_ref - m} of the '
+            f'CPU\'s without a match, largest box delta {gap:.3e} px (the '
+            f'CPU\'s step takes the card\'s)')
+        if n_ref - m > FRCNN_KEEP_SHARE * n_ref:
+            raise AssertionError('train-time proposals on the card differ '
+                                 'from the CPU')
+    rois_c, sampled_c, labels_c = samp_c[:3]
+    rois_r, sampled_r, labels_r = samp_r[:3]
+    slot_diff = int(((rois_c - rois_r).abs().amax(-1) > MATCH_CORNER_PX)
+                    .logical_or(labels_c != labels_r)
+                    .logical_or(sampled_c != sampled_r).sum())
+    n_slots = int(sampled_r.numel())
+    rel = {k: abs(mc[k] - mr[k]) / max(abs(mr[k]), 1e-12)
+           for k in FRCNN_LOSSES + ('loss', 'grad_norm')}
+    log(f'Faster R-CNN fp32 step, card vs CPU: sampled roi slots that '
+        f'differ (box by > {MATCH_CORNER_PX} px, label or sampled) '
+        f'{slot_diff} of {n_slots} ({int(sampled_r.sum())} sampled, '
+        f'{int(samp_r[4].sum())} positive); relative loss differences '
+        + json.dumps(rel))
+    roi_tol = STEP_LOSS_RTOL if slot_diff == 0 else FRCNN_FLIP_LOSS_RTOL
+    if slot_diff > FRCNN_KEEP_SHARE * n_slots or any(
+            rel[k] > STEP_LOSS_RTOL for k in ('loss_rpn_cls',
+                                              'loss_rpn_bbox')) or any(
+            rel[k] > roi_tol for k in ('loss_cls', 'loss_bbox', 'loss',
+                                       'grad_norm')):
+        raise AssertionError('the fp32 step on the card differs from the '
+                             'CPU')
+    tree_tol = STEP_TREE_TOL if slot_diff == 0 else FRCNN_FLIP_TREE_TOL
+    for name, got, ref, start in (
+            ('params', sc.params, sr.params, init.params),
+            ('batch_stats', sc.batch_stats, sr.batch_stats,
+             init.batch_stats),
+            ('ema_params', sc.ema_params, sr.ema_params, init.ema_params),
+            ('momentum_buf', sc.opt_state.momentum_buf,
+             sr.opt_state.momentum_buf, init.opt_state.momentum_buf)):
+        diff, upd = tree_gap(got, ref), tree_gap(ref, start)
+        log(f'Faster R-CNN fp32 step, card vs CPU {name}: max |delta| '
+            f'{diff:.3e}, update {upd:.3e} (tolerance {tree_tol} x update)')
+        if not (upd > 0 and diff <= tree_tol * upd):
+            raise AssertionError(f'Faster R-CNN fp32 card {name} differ '
+                                 f'from the CPU')
+    return launches
+
+
+def run_frcnn_loop(torch, tree):
+    """``train_detector`` on ``faster_rcnn_r50_fpn_1x_coco.py`` (the host
+    pipeline: keep-ratio Resize to 1333 x 800, RandomFlip, Pad(64), through
+    ``DetDataLoader``) for FRCNN_LOOP_STEPS bf16 steps of 2 images served
+    from seeded arrays, a checkpoint and the EMA evaluation; a second call
+    resumes from the checkpoint for one more step (its state equal to the
+    saved one); then the test CLI on ``latest_ema.msgpack`` against
+    ``single_device_test`` + ``coco_fast_bbox_eval``. The weights are
+    ``two_stage_variables`` of the val set's first batch, BatchNorm
+    statistics measured. Returns (launches of a step, of a CLI batch)."""
+    import tempfile
+
+    from tpudet_torch.apis import train_detector
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import DetDataLoader
+    from tpudet_torch.utils.flax_import import train_state_to_flax
+    register_array_data()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config.fromfile(CONFIG_FRCNN)
+        sets = {}
+        for name, seed, n in (('train', SEED + 1800, FRCNN_LOOP_IMAGES),
+                              ('val', SEED + 1900, FRCNN_LOOP_VAL_IMAGES)):
+            arrays, coco = eval_set(seed, n)
+            path = os.path.join(tmp, f'{name}.json')
+            with open(path, 'w') as f:
+                json.dump(coco, f)
+            ARRAYS[path] = arrays
+            sets[name] = (path, arrays, coco)
+        data = cfg['data']
+        cfg['data'] = dict(
+            data,
+            train=dict(type='ArrayCocoDataset', ann_file=sets['train'][0],
+                       pipeline=_from_arrays(data['train']['pipeline'])),
+            val=dict(type='ArrayCocoDataset', ann_file=sets['val'][0],
+                     pipeline=_from_arrays(data['val']['pipeline']),
+                     test_mode=True))
+        cfg['compute_dtype'] = 'bfloat16'
+        cfg['log_config'] = dict(interval=1)
+        size = cfg['data']['train_img_size']
+        val = array_dataset(cfg, sets['val'][1], sets['val'][2], 'cuda', tmp)
+        first = DetDataLoader(val, batch_size=2, img_size=size)._collate(
+            [val[i] for i in range(2)])['img'].cpu().numpy()
+        tree = two_stage_variables(torch, cfg, first, measure_bn=True)
+        work = os.path.join(tmp, 'frcnn')
+        with LoopProbe(torch, profile_at=[FRCNN_LOOP_STEPS]) as probe:
+            t0 = time.perf_counter()
+            train_detector(cfg, work, max_steps=FRCNN_LOOP_STEPS,
+                           device='cuda', variables=tree)
+            loop_s = time.perf_counter() - t0
+        saved = train_state_to_flax(probe.trainers[0].state,
+                                    probe.trainers[0].model)
+        del probe.trainers[:]
+        torch.cuda.empty_cache()
+        with LoopProbe(torch, record_start=True) as resumed:
+            train_detector(cfg, work, max_steps=FRCNN_LOOP_STEPS + 1,
+                           device='cuda', variables=tree)
+        rows = probe.rows + resumed.rows
+        if [r['step'] for r in rows] != list(range(1, FRCNN_LOOP_STEPS + 2)):
+            raise AssertionError(f'steps {[r["step"] for r in rows]}')
+        for r in rows:
+            bad = [k for k in ('loss',) + FRCNN_LOSSES + ('grad_norm',)
+                   if not math.isfinite(r[k])]
+            if bad or any(r['launches'].values()) or not (
+                    r['params_moved'] > 0 and r['ema_moved'] > 0):
+                raise AssertionError(f'step {r["step"]}: non-finite {bad}, '
+                                     f'launches {r["launches"]} or nothing '
+                                     f'moved')
+        gap = tree_gap(resumed.start_states[0].params, saved.params)
+        with open(os.path.join(work, 'train.log')) as f:
+            lines = f.read().splitlines()
+        evals = [line for line in lines if ' - eval: ' in line]
+        ckpts = sorted(os.listdir(os.path.join(work, 'ckpts')), key=int)
+        log(f'Faster R-CNN train_detector: {FRCNN_LOOP_STEPS} steps in '
+            f'{loop_s:.1f} s, ' + json.dumps(loop_summary(
+                probe.rows, cfg['data']['samples_per_gpu']))
+            + f'; resumed state vs saved: max |delta| {gap:.3e}; ckpts '
+            f'{ckpts}; last eval: '
+            f'{evals[-1].split(" - ")[-1] if evals else None}')
+        weights = os.path.join(work, 'latest_ema.msgpack')
+        if gap != 0.0 or len(evals) != 2 or ckpts != [
+                str(FRCNN_LOOP_STEPS), str(FRCNN_LOOP_STEPS + 1)] or \
+                not os.path.isfile(weights):
+            raise AssertionError('the resumed state, a checkpoint, the '
+                                 'evaluation or the EMA export is wrong')
+        del resumed.trainers[:]
+        torch.cuda.empty_cache()
+        cli = run_cli_eval(torch, CONFIG_FRCNN, weights, img_size=FRCNN_IMG,
+                           mish_per_forward=0)
+        for path, _, _ in sets.values():
+            ARRAYS.pop(path)
+    return rows[-1]['launches'], cli
+
+
+def run_two_stage(torch, retina_times):
+    """Phase 11: the two-stage family at full width and depth, its
+    inference times printed beside ``retina_times``. Returns each path's
+    launches of each kernel (all 0: ResNet, FPN and the heads use
+    ReLU)."""
+    from tpudet_torch.ops import mish
+    tree, infer = run_frcnn_inference(torch, mish, retina_times)
+    parts = run_rpn_and_fast_rcnn(torch, mish, tree)
+    train = run_frcnn_training(torch, tree)
+    loop, cli = run_frcnn_loop(torch, tree)
+    return {name: {'faster_rcnn_inference_forward': infer[name],
+                   'rpn_inference': parts['rpn_inference'][name],
+                   'fast_rcnn_inference': parts['fast_rcnn_inference'][name],
+                   'faster_rcnn_train_step': train[name],
+                   'faster_rcnn_train_detector_step': loop[name],
+                   'faster_rcnn_test_cli_batch': cli[name]}
             for name in ('mish_fwd', 'mish_bwd')}
 
 
@@ -3335,7 +3950,7 @@ def main():
 
     # 9. RetinaNet-R50-FPN; each path once with counts at 0 just before
     t0 = time.perf_counter()
-    retina_launches = run_retinanet(torch)
+    retina_launches, retina_times = run_retinanet(torch)
     log(f'RetinaNet phases: {time.perf_counter() - t0:.1f} s')
 
     # 10. serving; the served run and the file flow each with counts at 0
@@ -3350,7 +3965,13 @@ def main():
     torch.cuda.empty_cache()
     log(f'serving phases: {time.perf_counter() - t0:.1f} s')
 
-    # 11. output
+    # 11. the two-stage family; each path once with counts at 0 just
+    # before
+    t0 = time.perf_counter()
+    two_stage_launches = run_two_stage(torch, retina_times)
+    log(f'two-stage phases: {time.perf_counter() - t0:.1f} s')
+
+    # 12. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -3385,6 +4006,7 @@ def main():
         if k['name'] != 'letterbox':
             paths['eval_batch'] = eval_launches[k['name']]
             paths.update(retina_launches[k['name']])
+            paths.update(two_stage_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all')

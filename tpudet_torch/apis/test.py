@@ -25,7 +25,13 @@ def single_device_test(model, dataset, batch_size: int = 8,
     Batches are padded to ``img_size`` squares. ``infer_fn(img,
     scale_factor, img_hw) -> NMSResult`` replaces the model's forward,
     decode and NMS, as in tpudet (which also passes its variables)."""
-    num_classes = model.bbox_head.num_classes
+    # single-stage heads, two-stage RoI heads, or the proposal-only RPN
+    if hasattr(model, 'bbox_head'):
+        num_classes = model.bbox_head.num_classes
+    elif hasattr(model, 'roi_head'):
+        num_classes = model.roi_head.num_classes
+    else:
+        num_classes = 1
     device = next(model.parameters()).device
 
     def infer(img, scale_factor, img_hw):

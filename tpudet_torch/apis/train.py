@@ -13,14 +13,19 @@ EMA evaluation with ``best_ema.msgpack``, and ``latest_ema.msgpack`` with
 the param checksum line at the end. One device: the global batch is
 ``samples_per_gpu``, accumulation ``ceil(nominal_batch_size / global)``.
 
+A detector with ``forward_train`` (the two-stage family, ``FastRCNN``)
+trains through it (``tpudet/apis/train.py:167-196``): its arguments are
+taken from the batch by name, a required name missing from the batch
+raises, and the total is the sum of the keys that contain ``loss``.
+
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 with no GPU they raise rather than run on the CPU. Multi-process training
-and the ``forward_train`` loss path of the other families come with later
-slices (ROADMAP.md).
+comes with a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
 import contextlib
+import inspect
 import math
 import os
 import os.path as osp
@@ -108,22 +113,29 @@ class Trainer:
         self.nan_interval = nan_interval
         self.device = next(model.parameters()).device
         self.steps = 0
+        # a forward_train model's batch names, in its signature's order
+        self.batch_keys = (tuple(forward_train_params(model))
+                           if hasattr(model, 'forward_train') else None)
 
     def step(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``batch``: ``img`` (B, H, W, 3) normalized,
         ``gt_bboxes`` (B, G, 4) xyxy, ``gt_labels`` (B, G), ``gt_valid``
         (B, G); or, for a config with ``data.device_aug``, a
-        ``MosaicTileLoader`` batch (``TILE_KEYS``). Numpy arrays or
-        tensors, B = samples_per_gpu * accumulation. Returns the step's
-        metrics (0-d tensors on the device). Every ``nan_guard.interval``
-        steps a non-finite loss or gradient norm raises
-        ``FloatingPointError``."""
+        ``MosaicTileLoader`` batch (``TILE_KEYS``); for a model with
+        ``forward_train``, the entries named by its parameters
+        (``FastRCNN`` also takes ``proposals`` and ``prop_valid``). Numpy
+        arrays or tensors, B = samples_per_gpu * accumulation. Returns the
+        step's metrics (0-d tensors on the device). Every
+        ``nan_guard.interval`` steps a non-finite loss or gradient norm
+        raises ``FloatingPointError``."""
         if self.steps >= self.max_steps:
             raise RuntimeError(f'the schedule ends at max_steps='
                                f'{self.max_steps}')
-        keys = TILE_KEYS if 'tiles' in batch else BATCH_KEYS
+        keys = self.batch_keys or (TILE_KEYS if 'tiles' in batch
+                                   else BATCH_KEYS)
         batch = {k: torch.as_tensor(batch[k]) if k == 'aug_seed'
-                 else to_device(batch[k], self.device) for k in keys}
+                 else to_device(batch[k], self.device) for k in keys
+                 if k in batch}
         n = batch[keys[0]].shape[0]
         if n % self.accumulation:
             raise ValueError(f'batch of {n} images does not split into '
@@ -138,6 +150,35 @@ class Trainer:
                     f'non-finite training metrics at step {self.steps}: '
                     f'{bad}')
         return metrics
+
+
+def forward_train_params(model):
+    """The parameters of ``model.forward_train``, by name."""
+    return inspect.signature(model.forward_train).parameters
+
+
+def forward_train_loss(model):
+    """tpudet's ``forward_train`` loss path (``tpudet/apis/train.py:
+    167-196``): the loss dict of ``model.forward_train`` called with the
+    micro-batch's entries by parameter name. An optional parameter missing
+    from the batch ends the arguments; a required one raises
+    ``TypeError``."""
+    params = forward_train_params(model)
+
+    def loss_fn(micro):
+        args = []
+        for name, p in params.items():
+            if name in micro:
+                args.append(micro[name])
+            elif p.default is not inspect.Parameter.empty:
+                break
+            else:
+                raise TypeError(
+                    f"forward_train of {type(model).__name__} requires "
+                    f"parameter '{name}' but the batch only provides "
+                    f"{sorted(micro)}")
+        return model.forward_train(*args)
+    return loss_fn
 
 
 def _accumulation(cfg: Config) -> int:
@@ -170,7 +211,9 @@ def _build_trainer(cfg: Config, variables: Optional[Dict],
         if hook.get('type') == 'StateEMAHook':
             ema_cfg = hook
     loss_fn = None
-    if cfg['data'].get('device_aug') is not None:
+    if hasattr(model, 'forward_train'):
+        loss_fn = forward_train_loss(model)
+    elif cfg['data'].get('device_aug') is not None:
         augment = DeviceAug(**{
             'out_size': cfg['data'].get('train_img_size', 640),
             **cfg['data']['device_aug']})

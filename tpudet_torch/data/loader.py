@@ -3,7 +3,10 @@ Counterparts of ``DetDataLoader`` and ``MosaicTileLoader`` in
 ``tpudet/data/loader.py``.
 
 Every batch is a dict of static shapes: the images on a zero canvas of one
-size, gts padded to ``max_gts`` with a validity mask. Shards are
+size, gts padded to ``max_gts`` with a validity mask. An image larger than
+``img_size`` widens that batch's canvas to hold it (tpudet's loader
+raises there, so an evaluation at the two-stage configs' 1333 x 800 test
+scale fails in tpudet at the default 640). Shards are
 rank-strided over a per-epoch-seeded order (``process_index`` /
 ``process_count``).
 
@@ -90,11 +93,10 @@ class DetDataLoader:
     def _collate(self, samples) -> Dict:
         b = len(samples)
         imgs = [torch.as_tensor(s['img']) for s in samples]
+        h = max(t.shape[0] for t in imgs)
+        w = max(t.shape[1] for t in imgs)
         if self.img_size is not None:
-            h = w = self.img_size
-        else:
-            h = max(t.shape[0] for t in imgs)
-            w = max(t.shape[1] for t in imgs)
+            h, w = max(h, self.img_size), max(w, self.img_size)
         img = torch.zeros((b, h, w, 3), dtype=torch.float32,
                           device=imgs[0].device)
         gt_bboxes = np.zeros((b, self.max_gts, 4), np.float32)

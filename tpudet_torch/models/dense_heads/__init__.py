@@ -1,4 +1,5 @@
 from .retina_head import RetinaHead
+from .rpn_head import RPNHead
 from .yolocsp_head import YOLOCSPHead
 
-__all__ = ['RetinaHead', 'YOLOCSPHead']
+__all__ = ['RetinaHead', 'RPNHead', 'YOLOCSPHead']

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from ...registry import DETECTORS
+from ..layers import cast_weights
 
 
 @DETECTORS.register_module()
@@ -37,9 +38,7 @@ class SingleStageDetector(nn.Module):
         Training keeps fp32 master weights and sets only ``self.dtype``, the
         dtype the image is cast to: every conv then casts its fp32
         parameters to its input's dtype at each call (``layers.Conv``)."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                m.to(dtype)
+        cast_weights(self, dtype)
         self.dtype = dtype
         return self
 

@@ -1,4 +1,5 @@
-"""Shared conv/norm/act building blocks, port of ``tpudet/models/layers.py``.
+"""Shared conv/norm/act building blocks, port of ``tpudet/models/layers.py``,
+and the dense layer of the RoI heads (flax's ``nn.Dense``).
 
 Modules run NCHW (``channels_last`` memory on the card); the detector
 takes and returns tpudet's NHWC layout at its surface. Attribute names
@@ -79,6 +80,32 @@ class Conv(nn.Conv2d):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype, as ``Conv``: flax's
+    ``nn.Dense``. Its ``weight`` is (out, in), the transpose of flax's
+    ``kernel`` (in, out); ``kernel_init`` and ``bias_init`` name tpudet's
+    initializers (``'xavier_uniform'`` or ``('normal', std)``; a number),
+    which ``random_flax_variables`` draws by."""
+
+    def __init__(self, *args, kernel_init='xavier_uniform', bias_init=0.,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def cast_weights(model: nn.Module, dtype: torch.dtype) -> None:
+    """Store every conv's and dense layer's parameters in ``dtype``, the
+    inference compute dtype (BatchNorm keeps fp32)."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            m.to(dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

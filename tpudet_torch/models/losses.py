@@ -1,7 +1,7 @@
 """Losses: port of the part of ``tpudet/models/losses.py`` that the ported
-heads use (``reduce_loss``, the BCE with logits, ``giou_loss``,
-``smooth_l1_loss``, ``l1_loss``, ``sigmoid_focal_loss``). The rest of
-tpudet's loss zoo comes with the models that use it.
+heads use (``reduce_loss``, the BCE with logits, ``bce_loss``,
+``giou_loss``, ``smooth_l1_loss``, ``l1_loss``, ``sigmoid_focal_loss``).
+The rest of tpudet's loss zoo comes with the models that use it.
 
 Every loss takes an optional ``weight`` and ``avg_factor``, so padded
 slots add nothing and a mean over the positives is a sum divided by
@@ -42,6 +42,14 @@ def binary_cross_entropy_with_logits(pred, target):
     ``max(p, 0) - p t + log1p(exp(-|p|))``."""
     return (torch.maximum(pred, pred.new_zeros(())) - pred * target +
             torch.log1p(torch.exp(-pred.abs())))
+
+
+def bce_loss(pred, target, weight=None, reduction: str = 'mean',
+             avg_factor=None, loss_weight: float = 1.0):
+    """The sigmoid ``CrossEntropyLoss`` (``use_sigmoid=True``):
+    elementwise BCE with logits, then ``reduce_loss``."""
+    loss = binary_cross_entropy_with_logits(pred, target)
+    return loss_weight * reduce_loss(loss, reduction, weight, avg_factor)
 
 
 def giou_loss(pred, target, weight=None, reduction: str = 'mean',

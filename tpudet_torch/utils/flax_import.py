@@ -8,6 +8,12 @@ path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
 
 - a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW); a conv ``bias`` is
   carried as it is;
+- a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), and its
+  ``bias`` is carried as it is. The layer's type tells the two kernels
+  apart, not their rank: an Adam buffer stacks (m, v) on a leading axis,
+  so a Dense kernel there is 3-D. The port flattens a pooled RoI in
+  tpudet's HWC order (``Shared2FCBBoxHead``), so the rows of
+  ``shared_fc0`` need no permutation;
 - BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) become
   ``weight/bias/running_mean/running_var``.
 
@@ -29,24 +35,31 @@ from torch import nn
 Path = Tuple[str, ...]
 
 
-def leaf_table(model: nn.Module) -> Dict[Path, Tuple[str, bool]]:
-    """``(collection, *module path, leaf)`` -> ``(state_dict key, is a conv
-    kernel)`` for every tensor of ``model`` that tpudet holds."""
-    table: Dict[Path, Tuple[str, bool]] = {}
+CONV, DENSE = 'conv', 'dense'
+
+
+def leaf_table(model: nn.Module) -> Dict[Path, Tuple[str, str]]:
+    """``(collection, *module path, leaf)`` -> ``(state_dict key, kernel
+    kind)`` for every tensor of ``model`` that tpudet holds; the kind is
+    ``CONV`` or ``DENSE`` for a kernel and ``''`` (false) for any other
+    leaf."""
+    table: Dict[Path, Tuple[str, str]] = {}
     for name, m in model.named_modules():
         path = tuple(name.split('.')) if name else ()
         prefix = f'{name}.' if name else ''
-        if isinstance(m, nn.Conv2d):
-            table[('params', *path, 'kernel')] = (prefix + 'weight', True)
+        kind = (CONV if isinstance(m, nn.Conv2d) else
+                DENSE if isinstance(m, nn.Linear) else '')
+        if kind:
+            table[('params', *path, 'kernel')] = (prefix + 'weight', kind)
             if m.bias is not None:
-                table[('params', *path, 'bias')] = (prefix + 'bias', False)
+                table[('params', *path, 'bias')] = (prefix + 'bias', '')
         elif isinstance(m, nn.BatchNorm2d):
-            table[('params', *path, 'scale')] = (prefix + 'weight', False)
-            table[('params', *path, 'bias')] = (prefix + 'bias', False)
+            table[('params', *path, 'scale')] = (prefix + 'weight', '')
+            table[('params', *path, 'bias')] = (prefix + 'bias', '')
             table[('batch_stats', *path, 'mean')] = (prefix + 'running_mean',
-                                                     False)
+                                                     '')
             table[('batch_stats', *path, 'var')] = (prefix + 'running_var',
-                                                    False)
+                                                    '')
     return table
 
 
@@ -75,29 +88,37 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
     return model
 
 
-def _from_flax_layout(value: np.ndarray, is_kernel: bool) -> np.ndarray:
-    """HWIO -> OIHW on the last four axes of a conv kernel leaf (a leading
-    axis, as in Adam's stacked (m, v) buffers, is kept)."""
-    if not is_kernel:
+KERNEL_RANK = {CONV: 4, DENSE: 2}
+
+
+def _from_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
+    """HWIO -> OIHW on the last four axes of a conv kernel leaf, (in, out)
+    -> (out, in) on the last two of a Dense one (a leading axis, as in
+    Adam's stacked (m, v) buffers, is kept)."""
+    if not kind:
         return value
-    lead = tuple(range(value.ndim - 4))
     n = value.ndim
+    lead = tuple(range(n - KERNEL_RANK[kind]))
+    if kind == DENSE:
+        return np.transpose(value, lead + (n - 1, n - 2))
     return np.transpose(value, lead + (n - 1, n - 2, n - 4, n - 3))
 
 
-def _to_flax_layout(value: np.ndarray, is_kernel: bool) -> np.ndarray:
-    """OIHW -> HWIO on the last four axes (inverse of the above)."""
-    if not is_kernel:
+def _to_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
+    """OIHW -> HWIO, (out, in) -> (in, out) (inverse of the above)."""
+    if not kind:
         return value
-    lead = tuple(range(value.ndim - 4))
     n = value.ndim
+    lead = tuple(range(n - KERNEL_RANK[kind]))
+    if kind == DENSE:
+        return np.transpose(value, lead + (n - 1, n - 2))
     return np.transpose(value, lead + (n - 2, n - 1, n - 3, n - 4))
 
 
 def _tree(table, tensors: Dict[str, torch.Tensor], collection: str) -> Dict:
     """The flax tree of ``collection`` from tensors keyed by torch name."""
     tree: Dict = {}
-    for path, (key, is_kernel) in table.items():
+    for path, (key, kind) in table.items():
         if path[0] != collection:
             continue
         node = tree
@@ -105,14 +126,13 @@ def _tree(table, tensors: Dict[str, torch.Tensor], collection: str) -> Dict:
             node = node.setdefault(p, {})
         value = tensors[key].detach().float().cpu().numpy()
         # a copy: on the CPU ``numpy()`` shares the live tensor's memory
-        node[path[-1]] = np.array(_to_flax_layout(value, is_kernel),
-                                  order='C')
+        node[path[-1]] = np.array(_to_flax_layout(value, kind), order='C')
     return tree
 
 
 def state_dict_to_flax(model: nn.Module) -> Dict:
     """``model``'s weights as a tpudet ``{'params', 'batch_stats'}`` tree of
-    fp32 numpy arrays (conv kernels HWIO)."""
+    fp32 numpy arrays (conv kernels HWIO, Dense kernels (in, out))."""
     table = leaf_table(model)
     sd = model.state_dict()
     return {'params': _tree(table, sd, 'params'),
@@ -132,11 +152,12 @@ def _tensors(tree, table, like: Dict[str, torch.Tensor], what: str,
         if path not in table:
             raise KeyError(f'flax leaf {"/".join(path)} has no place in '
                            f'{what}')
-        key, is_kernel = table[path]
-        if is_kernel and value.ndim < 4:
-            raise ValueError(f'{"/".join(path)}: expected an HWIO conv '
-                             f'kernel, got shape {value.shape}')
-        value = _from_flax_layout(value, is_kernel)
+        key, kind = table[path]
+        if kind and value.ndim < KERNEL_RANK[kind]:
+            raise ValueError(f'{"/".join(path)}: expected a {kind} kernel '
+                             f'of rank {KERNEL_RANK[kind]}, got shape '
+                             f'{value.shape}')
+        value = _from_flax_layout(value, kind)
         ref = like[key]
         if value.shape != tuple(ref.shape):
             raise ValueError(f'{"/".join(path)}: shape {value.shape} does '
@@ -223,23 +244,28 @@ def _draw_kernel(rng: np.random.RandomState, init, hwio) -> np.ndarray:
 
 def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
     """A tpudet variables tree for ``model`` drawn with tpudet's init from a
-    numpy seed: each conv's kernel and bias by the initializers it names
-    (``layers.Conv.kernel_init``, ``bias_init``; a plain ``nn.Conv2d``
-    takes ``he_normal`` and a zero bias), BatchNorm scale 1, bias 0, mean
-    0, var 1. Kernels are drawn in the order of their sorted flax paths."""
+    numpy seed: each conv's and Dense layer's kernel and bias by the
+    initializers it names (``layers.Conv``/``layers.Dense``
+    ``kernel_init``, ``bias_init``; a plain ``nn.Conv2d`` takes
+    ``he_normal`` and a zero bias), BatchNorm scale 1, bias 0, mean 0, var
+    1. A Dense kernel (in, out) is drawn as a 1 x 1 conv's. Kernels are
+    drawn in the order of their sorted flax paths."""
     rng = np.random.RandomState(seed)
     modules = dict(model.named_modules())
     sd = model.state_dict()
     tree: Dict = {}
-    for path, (key, is_kernel) in sorted(leaf_table(model).items()):
+    for path, (key, kind) in sorted(leaf_table(model).items()):
         module = modules['.'.join(path[1:-1])]
         shape = tuple(sd[key].shape)
         leaf = path[-1]
-        if is_kernel:
+        if kind == CONV:
             value = _draw_kernel(
                 rng, getattr(module, 'kernel_init', 'he_normal'),
                 (shape[2], shape[3], shape[1], shape[0]))
-        elif isinstance(module, nn.Conv2d):  # a conv bias
+        elif kind == DENSE:
+            value = _draw_kernel(
+                rng, module.kernel_init, (1, 1, shape[1], shape[0]))[0, 0]
+        elif isinstance(module, (nn.Conv2d, nn.Linear)):  # a bias
             value = np.broadcast_to(np.asarray(
                 getattr(module, 'bias_init', 0.), np.float32), shape).copy()
         elif leaf in ('scale', 'var'):
