@@ -108,7 +108,21 @@ Phases, in order; any failure exits non-zero:
    ``train_detector`` on the config for 3 steps from seeded arrays with a
    checkpoint, the EMA evaluation and a resumed 4th step, then the test
    CLI on its weights against the API. Every path: 0 mish launches;
-12. output: a ``kernels`` JSON line (with each kernel's share of its
+12. Mask R-CNN R50-FPN (``configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py``,
+   80 classes, 14 x 14 mask pooling, 28 x 28 masks) at full width and
+   depth, no mish, weights as phase 11's with the mask logits redrawn:
+   inference bf16 at batch 8 on 1344^2 canvases with each detection's
+   mask pasted and RLE-encoded at 1333 x 800 on the card (e2e, bbox-only,
+   forward, mask head, paste and RLE ms, device busy, peak memory); fp32
+   on the card against the CPU on 2 images (detections, the matched
+   masks' probabilities, the pasted pixels); seeded images with polygon
+   gts through ``CocoDataset``, ``single_device_test(with_masks=True)``
+   and ``coco_fast_segm_eval``, then the test CLI's ``--eval bbox segm``
+   against the API; 3 bf16 ``init_trainer`` steps of 2 images at 1344
+   with ``gt_frame_masks`` made by ``LoadAnnotations(with_mask=True)`` on
+   the card, one fp32 step at 320 card against CPU; ``train_detector`` for
+   2 steps and a resumed 3rd;
+13. output: a ``kernels`` JSON line (with each kernel's share of its
    bound and its launches on every path), the whole run's seconds, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -205,6 +219,27 @@ FRCNN_LOOP_IMAGES, FRCNN_LOOP_VAL_IMAGES, FRCNN_LOOP_STEPS = 6, 4, 3
 # STEP_TREE_TOL
 FRCNN_KEEP_SHARE = 0.01
 FRCNN_FLIP_LOSS_RTOL, FRCNN_FLIP_TREE_TOL = 5e-2, 0.5
+
+# phase 12: Mask R-CNN R50-FPN (80 classes, 14 x 14 mask pooling, 28 x 28
+# masks): inference bf16 at batch 8 on 1344^2 canvases, each detection
+# pasted and RLE-encoded at 1333 x 800; the fp32 card against the CPU on
+# 2 images; the segm evaluation and the test CLI; training
+CONFIG_MRCNN = os.path.join(ROOT,
+                            'configs/mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py')
+MRCNN_IMG, MRCNN_BATCH, MRCNN_FP32_IMAGES = 1344, 8, 2
+MRCNN_ORI = (800, 1333, 3)
+# conv_logits redrawn so that the mask logits spread by about this many
+# units (tpudet's N(0, 0.001^2) puts every probability at 0.5 +- 1e-3)
+MASK_LOGIT_SPREAD = 4.0
+# fp32 card (TF32 off) against the CPU on the matched detections: the mask
+# probabilities within MRCNN_PROB_ATOL; of the pasted pixels at most
+# MRCNN_PIXEL_SHARE may differ, each only where the CPU's resampled
+# probability lies within MRCNN_PIXEL_BAND of the threshold
+MRCNN_PROB_ATOL, MRCNN_PIXEL_SHARE, MRCNN_PIXEL_BAND = 1e-3, 1e-4, 1e-3
+MASK_THR = 0.5
+MRCNN_EVAL_IMAGES = 8
+MRCNN_LOSSES = FRCNN_LOSSES + ('loss_mask',)
+MRCNN_LOOP_IMAGES, MRCNN_LOOP_VAL_IMAGES, MRCNN_LOOP_STEPS = 4, 2, 2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -674,29 +709,40 @@ def _iou(a, b):
                               1e-6)
 
 
-def match_detections(ref, got, image, iou_min):
+def detection_pairs(ref, got, image, iou_min):
     """Greedy one-to-one matching of ``got``'s valid detections to
-    ``ref``'s on one image: same label, IoU >= iou_min. Returns (matched,
-    n_ref, n_got, the largest box delta of the matches in px)."""
+    ``ref``'s on one image: same label, IoU >= iou_min. Returns the pairs
+    as (ref slot, got slot)."""
     import numpy as np
-    rv = ref.valid[image].cpu().numpy()
-    gv = got.valid[image].cpu().numpy()
+    rv = np.nonzero(ref.valid[image].cpu().numpy())[0]
+    gv = np.nonzero(got.valid[image].cpu().numpy())[0]
+    if not (len(rv) and len(gv)):
+        return []
     rb = ref.bboxes[image].float().cpu().numpy()[rv]
     gb = got.bboxes[image].float().cpu().numpy()[gv]
     rl = ref.labels[image].cpu().numpy()[rv]
     gl = got.labels[image].cpu().numpy()[gv]
-    if len(rb) == 0 or len(gb) == 0:
-        return 0, len(rb), len(gb), 0.0
     ok = (_iou(rb, gb) >= iou_min) & (rl[:, None] == gl[None, :])
-    used = np.zeros(len(gb), bool)
-    matched, gap = 0, 0.0
-    for r in range(len(rb)):
+    used = np.zeros(len(gv), bool)
+    pairs = []
+    for r in range(len(rv)):
         cand = np.nonzero(ok[r] & ~used)[0]
         if len(cand):
             used[cand[0]] = True
-            matched += 1
-            gap = max(gap, float(np.abs(rb[r] - gb[cand[0]]).max()))
-    return matched, len(rb), len(gb), gap
+            pairs.append((int(rv[r]), int(gv[cand[0]])))
+    return pairs
+
+
+def match_detections(ref, got, image, iou_min):
+    """``detection_pairs`` counted: (matched, n_ref, n_got, the largest
+    box delta of the matches in px)."""
+    pairs = detection_pairs(ref, got, image, iou_min)
+    rb = ref.bboxes[image].float().cpu()
+    gb = got.bboxes[image].float().cpu()
+    gap = max([float((rb[r] - gb[g]).abs().max()) for r, g in pairs]
+              or [0.0])
+    return (len(pairs), int(ref.valid[image].sum()),
+            int(got.valid[image].sum()), gap)
 
 
 def pred_map_error(got, ref):
@@ -2225,7 +2271,8 @@ def retina_images(cfg, n, size, seed):
     return ((px - mean) / std).astype(np.float32)
 
 
-def redrawn_variables(torch, cfg, img, layers, seed, measure_bn=False):
+def redrawn_variables(torch, cfg, img, layers, seed, measure_bn=False,
+                      run=None):
     """tpudet's init for ``cfg``'s model (``random_flax_variables`` from
     the numpy seed) with the prediction layers ``layers`` (module path ->
     (spread, bias)) redrawn from ``RandomState(seed)``: kernels
@@ -2234,7 +2281,8 @@ def redrawn_variables(torch, cfg, img, layers, seed, measure_bn=False):
     by about ``spread`` around ``bias``. With ``measure_bn`` the forward
     runs in train mode and the BatchNorm statistics are those of ``img``
     (one cumulative pass); otherwise in eval mode with tpudet's identity
-    BatchNorm."""
+    BatchNorm. ``run(model, img)`` replaces the forward (a mask head runs
+    only when asked for masks)."""
     import numpy as np
     from torch import nn
     from tpudet_torch.models.builder import build_detector
@@ -2261,7 +2309,7 @@ def redrawn_variables(torch, cfg, img, layers, seed, measure_bn=False):
         hook(path)) for path in layers]
     model.train(measure_bn)
     with torch.no_grad():
-        model(torch.from_numpy(img).cuda())
+        (run or (lambda m, x: m(x)))(model, torch.from_numpy(img).cuda())
     for h in hooks:
         h.remove()
     if measure_bn:
@@ -3367,6 +3415,531 @@ def run_two_stage(torch, retina_times):
 
 
 # ---------------------------------------------------------------------------
+# 12. Mask R-CNN R50-FPN: the mask head, the paste and RLEs, segm, training
+
+def mask_variables(torch, cfg, img, measure_bn=False):
+    """``two_stage_variables`` with ``conv_logits`` of the mask head redrawn
+    too, so that the mask logits spread by MASK_LOGIT_SPREAD around 0 (its
+    input measured over the masks of each image's first 100 proposals)."""
+    def run(model, x):
+        out = model(x)
+        model.predict_masks(x, out[0][:, :100], out[1][:, :100])
+
+    return redrawn_variables(
+        torch, cfg, img,
+        {('rpn_head', 'rpn_cls'): (FRCNN_RPN_CLS_SPREAD, 0.0),
+         ('rpn_head', 'rpn_reg'): (FRCNN_RPN_REG_SPREAD, 0.0),
+         ('roi_head', 'bbox_head', 'fc_cls'): (FRCNN_CLS_SPREAD, 0.0),
+         ('roi_head', 'bbox_head', 'fc_reg'): (FRCNN_REG_SPREAD, 0.0),
+         ('roi_head', 'mask_head', 'conv_logits'): (MASK_LOGIT_SPREAD, 0.0)},
+        SEED + 5, measure_bn, run=run)
+
+
+def run_mrcnn_inference(torch, mish):
+    """Mask R-CNN R50-FPN bf16, batch 8, on MRCNN_IMG canvases: detections,
+    each one's mask probabilities of its class (``predict_masks`` on the
+    call's own features) and its RLE at 1333 x 800 (``masks_to_segm_
+    results``: the paste and the run boundaries on the card), every count
+    at 0 just before the one call; e2e, the bbox-only call, forward, mask
+    head, paste and RLE ms, device busy, peak memory; then fp32 on the card
+    against the CPU on MRCNN_FP32_IMAGES images (TF32 off): detections
+    one-to-one, the mask probabilities of the matched ones, the pasted
+    pixels. Returns (weights tree, launches, times)."""
+    import numpy as np
+    from tpudet_torch.apis import init_detector
+    from tpudet_torch.apis.test import masks_to_segm_results, predict_masks
+    from tpudet_torch.config import Config
+    from tpudet_torch.core.mask import (decode_rle, encode_rle_batch,
+                                        paste_masks)
+
+    cfg = Config.fromfile(CONFIG_MRCNN)
+    img_np = retina_images(cfg, MRCNN_BATCH, MRCNN_IMG, SEED + 2000)
+    t0 = time.perf_counter()
+    tree = mask_variables(torch, cfg, img_np)
+    log(f'Mask R-CNN weights: numpy seed {SEED}, tpudet\'s init with phase '
+        f'11\'s four prediction layers redrawn and the mask logits spread '
+        f'{MASK_LOGIT_SPREAD}; {time.perf_counter() - t0:.1f} s')
+    det = init_detector(cfg, variables=tree, device='cuda',
+                        dtype=torch.bfloat16)
+    model = det.model
+    nc = model.roi_head.num_classes
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f'Mask R-CNN R50-FPN: {n_params / 1e6:.2f} M parameters, {nc} '
+        f'classes, bf16, 14 x 14 mask pooling, 28 x 28 masks')
+    img = torch.from_numpy(img_np).cuda()
+    sf = torch.ones((MRCNN_BATCH, 4), device='cuda')
+    h, w = MRCNN_ORI[:2]
+    metas = [dict(ori_shape=MRCNN_ORI)] * MRCNN_BATCH
+
+    def e2e():
+        with torch.inference_mode():
+            res, probs = predict_masks(model, img, sf)
+            return res, probs, masks_to_segm_results(probs, res, metas, nc,
+                                                     MASK_THR)
+
+    torch.cuda.synchronize()
+    _zero_counts(mish)
+    res, probs, segm = e2e()
+    torch.cuda.synchronize()
+    launches = _mish_counts(mish)
+    log(f'Mask R-CNN inference path launches: {json.dumps(launches)}')
+    if any(launches.values()):
+        raise AssertionError('the Mask R-CNN path launched a mish kernel')
+    n_valid = [int(v) for v in res.valid.sum(1)]
+    n_rle = [sum(len(c) for c in s) for s in segm]
+    areas = [[decode_rle(r).sum() for c in s for r in c][:3] for s in segm]
+    log(f'Mask R-CNN bf16 batch {MRCNN_BATCH}: detections per image '
+        f'{n_valid}, RLEs per image {n_rle} at {w} x {h}; mask '
+        f'probabilities min {float(probs.min()):.4f} max '
+        f'{float(probs.max()):.4f} mean {float(probs.float().mean()):.4f}; '
+        f'first areas {areas[0]}')
+    if n_rle != n_valid or min(n_valid) == 0 or not bool(
+            torch.isfinite(probs).all()) or any(
+            sum(r['counts']) != h * w for s in segm for c in s for r in c):
+        raise AssertionError('masks missing, non-finite or of the wrong size')
+
+    with torch.inference_mode():
+        feats = model.extract_feat(img)
+        outputs = model.detect(feats, tuple(img.shape[1:3]))
+        res = model.get_bboxes(outputs, scale_factors=sf)
+        in_boxes = res.bboxes * sf[:, None, :]
+        sel = [(probs[i][res.valid[i]], res.bboxes[i][res.valid[i]])
+               for i in range(MRCNN_BATCH)]
+        pasted = [paste_masks(p, b, h, w, MASK_THR) for p, b in sel]
+        for _ in range(2):
+            e2e()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = {
+            'e2e_ms': cuda_ms(lambda: e2e(), warmup=1, runs=5),
+            'bbox_only_e2e_ms': cuda_ms(lambda: det(img), runs=5),
+            'forward_ms': cuda_ms(lambda: model(img), runs=5),
+            'mask_head_ms': cuda_ms(lambda: model.roi_head.mask_forward(
+                feats, in_boxes, res.valid), runs=10),
+            'paste_ms': cuda_ms(lambda: [paste_masks(p, b, h, w, MASK_THR)
+                                         for p, b in sel], runs=5),
+            'rle_ms': cuda_ms(lambda: [encode_rle_batch(m) for m in pasted],
+                              runs=5),
+        }
+    times['img_per_s'] = MRCNN_BATCH / times['e2e_ms'] * 1e3
+    times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    log(f'Mask R-CNN R50-FPN bf16 batch {MRCNN_BATCH} x {MRCNN_IMG}^2, masks '
+        f'at {w} x {h}: ' + json.dumps(times))
+    prof = profile_device(torch, e2e, 'Mask R-CNN e2e call with masks',
+                          calls=2, top=20)
+    if prof:
+        times['device_busy_ms'], times['profiled_wall_ms'] = prof[1], prof[0]
+        log(f'Mask R-CNN inference with masks: device busy {prof[1]:.3f} ms '
+            f'of {prof[0]:.3f} ms per call of {MRCNN_BATCH}')
+    del feats, outputs, res, probs, segm, pasted, sel, in_boxes
+    torch.cuda.empty_cache()
+
+    # card fp32 (TF32 off) against the same model on the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det32 = init_detector(cfg, variables=tree, device='cuda',
+                          dtype=torch.float32)
+    cpu32 = init_detector(cfg, variables=tree, device='cpu',
+                          dtype=torch.float32)
+    k = MRCNN_FP32_IMAGES
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        res_ref, probs_ref = predict_masks(cpu32.model, img[:k].cpu(),
+                                           sf[:k].cpu())
+        cpu_s = time.perf_counter() - t0
+        res32, probs32 = predict_masks(det32.model, img[:k], sf[:k])
+    worst = dict(prob=0.0, pixels=0, total=0, outside_band=0)
+    for i in range(k):
+        pairs = detection_pairs(res_ref, res32, i, MATCH_IOU)
+        n_ref = int(res_ref.valid[i].sum())
+        r_idx = torch.tensor([r for r, _ in pairs], dtype=torch.long)
+        g_idx = torch.tensor([g for _, g in pairs], dtype=torch.long)
+        pr, pg = probs_ref[i][r_idx], probs32[i][g_idx.cuda()]
+        gap = float((pr - pg.cpu()).abs().max()) if len(pairs) else 0.0
+        boxes_r = res_ref.bboxes[i][r_idx]
+        card = paste_masks(pg, boxes_r.cuda(), h, w, MASK_THR).cpu()
+        ref = paste_masks(pr, boxes_r, h, w, MASK_THR)
+        band = paste_masks(pr, boxes_r, h, w, MASK_THR - MRCNN_PIXEL_BAND) ^ \
+            paste_masks(pr, boxes_r, h, w, MASK_THR + MRCNN_PIXEL_BAND)
+        diff = card ^ ref
+        worst['prob'] = max(worst['prob'], gap)
+        worst['pixels'] += int(diff.sum())
+        worst['total'] += int(ref.numel())
+        worst['outside_band'] += int((diff & ~band).sum())
+        log(f'Mask R-CNN fp32 card vs CPU ({cpu_s:.1f} s on the CPU), image '
+            f'{i}: detections {len(pairs)} matched of {n_ref} / '
+            f'{int(res32.valid[i].sum())} (label and IoU >= {MATCH_IOU}); '
+            f'mask probabilities of the matched max |delta| {gap:.3e} '
+            f'(tolerance {MRCNN_PROB_ATOL}); pasted pixels (the CPU\'s boxes) '
+            f'that differ {int(diff.sum())} of {int(ref.numel())}, '
+            f'{int((diff & ~band).sum())} of them with the probability '
+            f'further than {MRCNN_PIXEL_BAND} from {MASK_THR}')
+        if not (n_ref - len(pairs) <= FRCNN_KEEP_SHARE * n_ref and n_ref > 0
+                and gap <= MRCNN_PROB_ATOL):
+            raise AssertionError('fp32 card detections or mask probabilities '
+                                 'differ from the CPU')
+    times['fp32_prob_max_abs'] = worst['prob']
+    times['fp32_pixel_share'] = worst['pixels'] / max(worst['total'], 1)
+    if worst['pixels'] > MRCNN_PIXEL_SHARE * worst['total'] or \
+            worst['outside_band']:
+        raise AssertionError('fp32 card pasted pixels differ from the CPU')
+    del det32, cpu32, det, model
+    torch.cuda.empty_cache()
+    return tree, launches, times
+
+
+def with_polygons(coco):
+    """``eval_set``'s COCO dict with a polygon segmentation for each gt:
+    its rectangle, or every other one a diamond inside it."""
+    for i, a in enumerate(coco['annotations']):
+        x, y, bw, bh = a['bbox']
+        if i % 2:
+            poly = [x + bw / 2, y, x + bw, y + bh / 2, x + bw / 2, y + bh,
+                    x, y + bh / 2]
+        else:
+            poly = [x, y, x + bw, y, x + bw, y + bh, x, y + bh]
+        a['segmentation'] = [[float(v) for v in poly]]
+    return coco
+
+
+def run_mrcnn_eval(torch, mish, tree):
+    """MRCNN_EVAL_IMAGES seeded images with polygon gts through
+    ``CocoDataset`` (the config's test pipeline on the card),
+    ``single_device_test(with_masks=True)`` (bf16) and
+    ``coco_fast_segm_eval``, every count at 0 just before; then the test
+    CLI (``--eval bbox segm``, fp32, the weights from a msgpack) against
+    ``single_device_test`` + both reports of the same weights: the reports
+    within REPORT_ATOL, its ``segm.json`` equal to ``results2json``'s.
+    Returns the launches of the flow and of the CLI."""
+    import tempfile
+
+    from tpudet_torch.apis import init_detector, single_device_test
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import build_dataset
+    from tpudet_torch.evaluation import (coco_fast_bbox_eval,
+                                         coco_fast_segm_eval)
+    from tpudet_torch.tools import test as cli
+    from tpudet_torch.utils.checkpoint import save_variables
+    register_array_data()
+    cfg = Config.fromfile(CONFIG_MRCNN)
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays, coco = eval_set(SEED + 2100, MRCNN_EVAL_IMAGES)
+        coco = with_polygons(coco)
+        det = init_detector(cfg, variables=tree, device='cuda',
+                            dtype=torch.bfloat16)
+        ds = array_dataset(cfg, arrays, coco, 'cuda', tmp)
+        _zero_counts(mish)
+        t0 = time.perf_counter()
+        results, segms = single_device_test(det.model, ds, batch_size=BATCH,
+                                            img_size=MRCNN_IMG,
+                                            progress=False, with_masks=True)
+        torch.cuda.synchronize()
+        flow_s = time.perf_counter() - t0
+        flow = _mish_counts(mish)
+        annos = [ds.get_ann_info_test(i) for i in range(len(ds))]
+        t0 = time.perf_counter()
+        report = coco_fast_segm_eval(results, segms, annos,
+                                     classes=ds.CLASSES)
+        eval_s = time.perf_counter() - t0
+        n = sum(len(c) for s in segms for c in s)
+        log(f'Mask R-CNN evaluation, {len(ds)} images, bf16: flow '
+            f'{flow_s:.2f} s ({len(ds) / flow_s:.1f} img/s), {n} RLEs, '
+            f'segm eval {eval_s:.2f} s: {json.dumps(report)}; launches '
+            f'{json.dumps(flow)}')
+        if any(flow.values()) or not n or not all(
+                math.isfinite(report[k]) for k in ('segm_map', 'segm_map50',
+                                                   'segm_map75')):
+            raise AssertionError('the segm flow launched mish, made no mask '
+                                 'or reported a non-finite mAP')
+        del det, ds
+        torch.cuda.empty_cache()
+
+        ann = os.path.join(tmp, 'segm.json')
+        with open(ann, 'w') as f:
+            json.dump(coco, f)
+        ARRAYS[ann] = arrays
+        weights = os.path.join(tmp, 'mrcnn.msgpack')
+        save_variables(weights, tree)
+        pipeline = _from_arrays(cfg['data']['test']['pipeline'])
+        cfg_file = os.path.join(tmp, 'mrcnn_cli.py')
+        with open(cfg_file, 'w') as f:
+            f.write(f'_base_ = {CONFIG_MRCNN!r}\n'
+                    f"data = dict(test=dict(type='ArrayCocoDataset', "
+                    f'ann_file={ann!r}, pipeline={pipeline!r}))\n')
+        _zero_counts(mish)
+        t0 = time.perf_counter()
+        got = cli.main([cfg_file, weights, '--batch-size', str(BATCH),
+                        '--img-size', str(MRCNN_IMG), '--eval', 'bbox',
+                        'segm', '--format-out', os.path.join(tmp, 'cli')])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = _mish_counts(mish)
+        cfg_cli = Config.fromfile(cfg_file)
+        det = init_detector(cfg_cli, weights, device='cuda',
+                            dtype=torch.float32)
+        ds = build_dataset({**cfg_cli['data']['test'], 'test_mode': True},
+                           dict(device=det.device))
+        results, segms = single_device_test(det.model, ds, batch_size=BATCH,
+                                            img_size=MRCNN_IMG,
+                                            progress=False, with_masks=True)
+        annos = [ds.get_ann_info_test(i) for i in range(len(ds))]
+        ref = dict(coco_fast_bbox_eval(results, annos, classes=ds.CLASSES),
+                   **coco_fast_segm_eval(results, segms, annos,
+                                         classes=ds.CLASSES))
+        gap = max(0.0 if math.isnan(got[k]) and math.isnan(v)
+                  else abs(got[k] - v) for k, v in ref.items())
+        with open(os.path.join(tmp, 'cli.segm.json')) as f:
+            cli_segm = json.load(f)
+        with open(ds.results2json(results, os.path.join(tmp, 'api'),
+                                  segm_results=segms)['segm']) as f:
+            api_segm = json.load(f)
+        log(f'test CLI --eval bbox segm over {len(ds)} images, fp32: '
+            f'{cli_s:.2f} s, launches {json.dumps(cli_launches)}; report '
+            f'{json.dumps(got)}; the API\'s max |delta| {gap:.3e} (tolerance '
+            f'{REPORT_ATOL}); segm.json {len(cli_segm)} records, equal to '
+            f'results2json\'s: {cli_segm == api_segm}')
+        if list(got) != list(ref) or not gap <= REPORT_ATOL or \
+                cli_segm != api_segm or not cli_segm or any(
+                    cli_launches.values()):
+            raise AssertionError('the test CLI segm report or json differs '
+                                 'from the API')
+        ARRAYS.pop(ann)
+        del det, ds
+        torch.cuda.empty_cache()
+    return flow, cli_launches
+
+
+def mask_train_batch(torch, cfg, n, size, seed, device):
+    """``retina_train_batch`` with each gt's polygon (a 12-gon inscribed in
+    its box) rasterized into its gt frame by the port's
+    ``LoadAnnotations(with_mask=True)`` on ``device``: ``gt_frame_masks``
+    (n, RETINA_MAX_GTS, 28, 28)."""
+    import numpy as np
+    from tpudet_torch.data.pipelines import LoadAnnotations
+    batch = retina_train_batch(cfg, n, size, seed)
+    load = LoadAnnotations(with_mask=True, device=device)
+    a = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+    masks = torch.zeros((n, RETINA_MAX_GTS, 28, 28), device=device)
+    for i in range(n):
+        k = int(batch['gt_valid'][i].sum())
+        boxes = batch['gt_bboxes'][i][:k]
+        c, r = (boxes[:, :2] + boxes[:, 2:]) / 2, (boxes[:, 2:] -
+                                                    boxes[:, :2]) / 2
+        segs = [[np.stack([cx + rx * np.cos(a), cy + ry * np.sin(a)], 1)
+                 .reshape(-1).tolist()] for (cx, cy), (rx, ry) in zip(c, r)]
+        masks[i, :k] = load(dict(ann_info=dict(
+            bboxes=boxes, labels=batch['gt_labels'][i][:k],
+            masks=segs)))['gt_frame_masks']
+    batch['gt_frame_masks'] = masks
+    return batch
+
+
+def run_mrcnn_training(torch, tree):
+    """Mask R-CNN at MRCNN_IMG, bf16 compute with fp32 master weights,
+    through ``init_trainer(...).step`` (the ``forward_train`` loss path,
+    ``gt_frame_masks`` made on the card): FRCNN_TRAIN_STEPS steps of 2
+    images, each with its launch counts, then a profiled step; then one
+    fp32 step at FRCNN_CHECK_IMG on the card against the CPU with the
+    card's proposals fed to the CPU: the gt-frame masks made on each
+    device, the sampled slots, the five losses, grad_norm and the updated
+    state. Returns the launches of a step."""
+    from tpudet_torch.apis import init_trainer
+    from tpudet_torch.config import Config
+    from tpudet_torch.ops import mish
+    from tpudet_torch.utils.flax_import import train_state_to_flax
+    cfg = Config.fromfile(CONFIG_MRCNN)
+    cfg['compute_dtype'] = 'bfloat16'
+    trainer = init_trainer(cfg, variables=tree, device='cuda',
+                           max_steps=FRCNN_TRAIN_STEPS + 1)
+    log(f'Mask R-CNN training: {MRCNN_IMG}^2, {FRCNN_TRAIN_BATCH} images per '
+        f'step, 1-20 gts each with gt-frame masks made on the card, bf16 '
+        f'compute, fp32 master weights ({list(trainer.batch_keys)})')
+    launches = None
+    for step in range(FRCNN_TRAIN_STEPS):
+        batch = mask_train_batch(torch, cfg, FRCNN_TRAIN_BATCH, MRCNN_IMG,
+                                 SEED + 2200 + step, 'cuda')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(mish)
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = _mish_counts(mish)
+        m = {k: float(v) for k, v in metrics.items()}
+        log('Mask R-CNN train step: ' + json.dumps(dict(
+            step=step, **m, step_ms=step_s * 1e3,
+            img_per_s=FRCNN_TRAIN_BATCH / step_s,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches=launches)))
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if any(launches.values()) or bad or set(MRCNN_LOSSES) - set(m):
+            raise AssertionError(f'step {step}: mish launched, non-finite '
+                                 f'{bad} or a loss missing')
+    batch = mask_train_batch(torch, cfg, FRCNN_TRAIN_BATCH, MRCNN_IMG,
+                             SEED + 2200 + FRCNN_TRAIN_STEPS, 'cuda')
+    prof = profile_device(torch, lambda: trainer.step(batch),
+                          'Mask R-CNN train step', calls=1, top=15)
+    if prof:
+        log(f'Mask R-CNN train step: device busy {prof[1]:.3f} ms of '
+            f'{prof[0]:.3f} ms wall')
+    del trainer
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.fromfile(CONFIG_MRCNN)
+    cfg['custom_hooks'] = [
+        dict(h, lr_weight_warmup_ratio=1.0, lr_bias_warmup_ratio=1.0,
+             momentum_warmup_ratio=1.0)
+        if h.get('type') == 'DetailedLinearWarmUpHook' else h
+        for h in cfg.get('custom_hooks', [])]
+    batch = mask_train_batch(torch, cfg, FRCNN_TRAIN_BATCH, FRCNN_CHECK_IMG,
+                             SEED + 2300, 'cuda')
+    masks_cpu = mask_train_batch(torch, cfg, FRCNN_TRAIN_BATCH,
+                                 FRCNN_CHECK_IMG, SEED + 2300,
+                                 'cpu')['gt_frame_masks']
+    if not torch.equal(batch['gt_frame_masks'].cpu(), masks_cpu):
+        raise AssertionError('gt-frame masks made on the card differ from '
+                             'the CPU\'s')
+    out, own = {}, {}
+    for device in ('cuda', 'cpu'):
+        trainer = init_trainer(cfg, variables=tree, device=device,
+                               max_steps=1)
+        rec = SampleRecorder(trainer.model.roi_head)
+        feed_card_proposals(trainer.model.rpn_head, own, device)
+        init = train_state_to_flax(trainer.state, trainer.model)
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in trainer.step(batch).items()}
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        log(f'Mask R-CNN fp32 step at {FRCNN_CHECK_IMG} on {device}: '
+            f'{time.perf_counter() - t0:.1f} s, ' + json.dumps(metrics))
+        out[device] = (metrics, train_state_to_flax(trainer.state,
+                                                    trainer.model),
+                       rec.calls[0])
+        del trainer
+        torch.cuda.empty_cache()
+    (mc, sc, samp_c), (mr, sr, samp_r) = out['cuda'], out['cpu']
+    slot_diff = int(((samp_c[0] - samp_r[0]).abs().amax(-1) >
+                     MATCH_CORNER_PX).logical_or(samp_c[2] != samp_r[2])
+                    .logical_or(samp_c[1] != samp_r[1]).sum())
+    rel = {k: abs(mc[k] - mr[k]) / max(abs(mr[k]), 1e-12)
+           for k in MRCNN_LOSSES + ('loss', 'grad_norm')}
+    log(f'Mask R-CNN fp32 step, card vs CPU (the card\'s proposals on both; '
+        f'gt-frame masks equal): sampled slots that differ {slot_diff} of '
+        f'{int(samp_r[1].numel())}; relative loss differences '
+        + json.dumps(rel))
+    if slot_diff or any(v > STEP_LOSS_RTOL for v in rel.values()):
+        raise AssertionError('the fp32 Mask R-CNN step on the card differs '
+                             'from the CPU')
+    for name, got, ref, start in (
+            ('params', sc.params, sr.params, init.params),
+            ('ema_params', sc.ema_params, sr.ema_params, init.ema_params)):
+        diff, upd = tree_gap(got, ref), tree_gap(ref, start)
+        log(f'Mask R-CNN fp32 step, card vs CPU {name}: max |delta| '
+            f'{diff:.3e}, update {upd:.3e} (tolerance {STEP_TREE_TOL} x '
+            f'update)')
+        if not (upd > 0 and diff <= STEP_TREE_TOL * upd):
+            raise AssertionError(f'Mask R-CNN fp32 card {name} differ from '
+                                 f'the CPU')
+    return launches
+
+
+def run_mrcnn_loop(torch, tree):
+    """``train_detector`` on ``mask_rcnn_r50_fpn_1x_coco.py`` (the host
+    pipeline with ``LoadAnnotations(with_mask=True)`` on the card, Resize
+    to 1333 x 800, RandomFlip, Pad(64)) for MRCNN_LOOP_STEPS bf16 steps of
+    2 images with polygon gts served from seeded arrays, a checkpoint and
+    the EMA evaluation; a second call resumes for one more step (its state
+    equal to the saved one). Returns the launches of a step."""
+    import tempfile
+
+    from tpudet_torch.apis import train_detector
+    from tpudet_torch.config import Config
+    from tpudet_torch.utils.flax_import import train_state_to_flax
+    register_array_data()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config.fromfile(CONFIG_MRCNN)
+        paths = {}
+        for name, seed, n in (('train', SEED + 2400, MRCNN_LOOP_IMAGES),
+                              ('val', SEED + 2500, MRCNN_LOOP_VAL_IMAGES)):
+            arrays, coco = eval_set(seed, n)
+            path = os.path.join(tmp, f'{name}.json')
+            with open(path, 'w') as f:
+                json.dump(with_polygons(coco), f)
+            ARRAYS[path] = arrays
+            paths[name] = path
+        data = cfg['data']
+        cfg['data'] = dict(
+            data,
+            train=dict(type='ArrayCocoDataset', ann_file=paths['train'],
+                       pipeline=_from_arrays(data['train']['pipeline'])),
+            val=dict(type='ArrayCocoDataset', ann_file=paths['val'],
+                     pipeline=_from_arrays(data['val']['pipeline']),
+                     test_mode=True))
+        cfg['compute_dtype'] = 'bfloat16'
+        cfg['log_config'] = dict(interval=1)
+        work = os.path.join(tmp, 'mrcnn')
+        with LoopProbe(torch) as probe:
+            t0 = time.perf_counter()
+            train_detector(cfg, work, max_steps=MRCNN_LOOP_STEPS,
+                           device='cuda', variables=tree)
+            loop_s = time.perf_counter() - t0
+        saved = train_state_to_flax(probe.trainers[0].state,
+                                    probe.trainers[0].model)
+        del probe.trainers[:]
+        torch.cuda.empty_cache()
+        with LoopProbe(torch, record_start=True) as resumed:
+            train_detector(cfg, work, max_steps=MRCNN_LOOP_STEPS + 1,
+                           device='cuda', variables=tree)
+        rows = probe.rows + resumed.rows
+        if [r['step'] for r in rows] != list(range(1, MRCNN_LOOP_STEPS + 2)):
+            raise AssertionError(f'steps {[r["step"] for r in rows]}')
+        for r in rows:
+            bad = [k for k in ('loss',) + MRCNN_LOSSES + ('grad_norm',)
+                   if not math.isfinite(r[k])]
+            if bad or any(r['launches'].values()) or not (
+                    r['params_moved'] > 0 and r['ema_moved'] > 0):
+                raise AssertionError(f'step {r["step"]}: non-finite {bad}, '
+                                     f'launches {r["launches"]} or nothing '
+                                     f'moved')
+        gap = tree_gap(resumed.start_states[0].params, saved.params)
+        ckpts = sorted(os.listdir(os.path.join(work, 'ckpts')), key=int)
+        log(f'Mask R-CNN train_detector: {MRCNN_LOOP_STEPS} steps in '
+            f'{loop_s:.1f} s, ' + json.dumps(loop_summary(
+                probe.rows, cfg['data']['samples_per_gpu']))
+            + f'; loss_mask {[round(r["loss_mask"], 5) for r in rows]}; '
+            f'resumed state vs saved: max |delta| {gap:.3e}; ckpts {ckpts}')
+        if gap != 0.0 or not os.path.isfile(
+                os.path.join(work, 'latest_ema.msgpack')):
+            raise AssertionError('the resumed state or the EMA export is '
+                                 'wrong')
+        del resumed.trainers[:]
+        for path in paths.values():
+            ARRAYS.pop(path)
+        torch.cuda.empty_cache()
+    return rows[-1]['launches']
+
+
+def run_mask_rcnn(torch):
+    """Phase 12: Mask R-CNN R50-FPN at full width and depth. Returns each
+    path's launches of each kernel (all 0: ResNet, FPN and the heads use
+    ReLU) and the inference times."""
+    from tpudet_torch.ops import mish
+    tree, infer, times = run_mrcnn_inference(torch, mish)
+    flow, cli = run_mrcnn_eval(torch, mish, tree)
+    train = run_mrcnn_training(torch, tree)
+    loop = run_mrcnn_loop(torch, tree)
+    return {name: {'mask_rcnn_inference_with_masks': infer[name],
+                   'mask_rcnn_segm_eval_flow': flow[name],
+                   'mask_rcnn_test_cli': cli[name],
+                   'mask_rcnn_train_step': train[name],
+                   'mask_rcnn_train_detector_step': loop[name]}
+            for name in ('mish_fwd', 'mish_bwd')}, times
+
+
+# ---------------------------------------------------------------------------
 # 10. serving: nvJPEG, the letterbox kernel, ModelServer over HTTP
 
 
@@ -3971,7 +4544,12 @@ def main():
     two_stage_launches = run_two_stage(torch, retina_times)
     log(f'two-stage phases: {time.perf_counter() - t0:.1f} s')
 
-    # 12. output
+    # 12. Mask R-CNN; each path once with counts at 0 just before
+    t0 = time.perf_counter()
+    mask_launches, _ = run_mask_rcnn(torch)
+    log(f'Mask R-CNN phases: {time.perf_counter() - t0:.1f} s')
+
+    # 13. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -4007,6 +4585,7 @@ def main():
             paths['eval_batch'] = eval_launches[k['name']]
             paths.update(retina_launches[k['name']])
             paths.update(two_stage_launches[k['name']])
+            paths.update(mask_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all')

@@ -128,13 +128,19 @@ def test_init_detector_reads_weights_and_classes_by_path(setup):
 
 
 @pytest.mark.parametrize('flags', [
-    ['--tta'], ['--metrics', 'segm'], ['--metrics', 'bbox', 'proposal_fast'],
-    ['--mask-thr', '0.5'],
+    ['--tta'], ['--metrics', 'bbox', 'proposal_fast'],
     ['--coordinator', 'localhost:1234'], ['--num-processes', '2'],
     ['--process-id', '0']], ids=lambda f: '_'.join(f).strip('-'))
 def test_cli_refuses_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         cli.main(['cfg.py', '--device', 'cpu'] + flags)
+
+
+def test_cli_takes_segm_and_mask_thr_as_tpudet():
+    args = cli.parse_args(['cfg.py', '--eval', 'bbox', 'segm',
+                           '--mask-thr', '0.4'])
+    assert args.metrics == ['bbox', 'segm'] and args.mask_thr == 0.4
+    assert cli.parse_args(['cfg.py']).mask_thr == 0.5
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(setup, monkeypatch):

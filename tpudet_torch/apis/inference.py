@@ -10,8 +10,7 @@ returns the reference's result format: a list of per-class (n, 5) numpy
 arrays.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
-with no GPU they raise rather than run on the CPU. The mask branch comes
-with a later slice (ROADMAP.md).
+with no GPU they raise rather than run on the CPU.
 """
 from __future__ import annotations
 
@@ -172,11 +171,35 @@ def _dispatch(detector: Detector, img: Union[str, np.ndarray],
 
 def inference_detector(detector: Detector,
                        img: Union[str, np.ndarray],
-                       pad_to: Optional[int] = 640):
+                       pad_to: Optional[int] = 640,
+                       with_masks: bool = False,
+                       mask_thr: float = 0.5):
     """Single-image inference returning per-class (n, 5) arrays in the
-    original image's frame."""
-    res = _dispatch(detector, img, pad_to)
-    return nms_result_to_per_class(res, len(detector.CLASSES))[0]
+    original image's frame; ``with_masks`` on a detector with a mask
+    branch returns the reference's two-tuple ``(bbox_result,
+    segm_result)``, the second per-class lists of uncompressed RLE dicts
+    (``tpudet/apis/inference.py:167-222``)."""
+    if not with_masks:
+        res = _dispatch(detector, img, pad_to)
+        return nms_result_to_per_class(res, len(detector.CLASSES))[0]
+    from .test import _mask_mode, masks_to_segm_results, predict_masks
+    model = detector.model
+    if _mask_mode(model) is None:
+        raise ValueError(f'{type(model).__name__} has no mask branch')
+    results = _prepare_image(detector, img)
+    image = torch.as_tensor(results['img'], device=detector.device).float()
+    if pad_to is not None:
+        image = _pad_canvas(image, pad_to,
+                            divisor=_pipeline_pad_divisor(detector))
+    scale_factor = torch.as_tensor(np.asarray(
+        results['scale_factor'], np.float32).reshape(1, 4),
+        device=detector.device)
+    with torch.inference_mode():
+        res, probs = predict_masks(model, image[None], scale_factor)
+        ori = results.get('ori_shape') or tuple(image.shape[:2])
+        segm = masks_to_segm_results(probs, res, [dict(ori_shape=ori)],
+                                     len(detector.CLASSES), mask_thr)[0]
+    return nms_result_to_per_class(res, len(detector.CLASSES))[0], segm
 
 
 async def async_inference_detector(detector: Detector,

@@ -1,30 +1,97 @@
 """Batched COCO-val testing: counterpart of ``single_device_test`` in
-``tpudet/apis/test.py:132-293``, on its plain path: one process, no
-test-time augmentation, no masks.
+``tpudet/apis/test.py:132-293`` on one process, without test-time
+augmentation, and of its mask path (``_mask_mode``,
+``masks_to_segm_results``).
 
 The model's forward, decode and NMS run on the model's device; the split
-into per-class arrays runs on the host.
+into per-class arrays runs on the host. With masks, the paste and the
+RLE's run boundaries run on the device too (``core/mask.py``); only the
+boundaries cross to the host.
 """
 from __future__ import annotations
 
+import inspect
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..core.mask import encode_rle_batch, paste_masks
 from ..data.loader import DetDataLoader
 from .inference import nms_result_to_per_class
+
+MASK_ITEM = 'comes with ROADMAP.md\'s "rest of the zoo" item'
+
+
+def _mask_mode(model):
+    """The detector's mask-prediction API, if any (``tpudet/apis/test.py:
+    58-68``): ``'roi'`` for the Mask R-CNN family. YOLACT's ``'proto'``
+    (``predict_masks(outputs)``) and PointRend's ``'roi_labels'``
+    (``predict_masks(img, boxes, valid, labels)``) are not ported and
+    raise."""
+    if not hasattr(model, 'predict_masks'):
+        return None
+    params = list(inspect.signature(model.predict_masks).parameters)
+    if 'outputs' in params:
+        raise NotImplementedError(f"YOLACT's 'proto' mask mode {MASK_ITEM}")
+    if 'det_labels' in params:
+        raise NotImplementedError(
+            f"PointRend's 'roi_labels' mask mode {MASK_ITEM}")
+    return 'roi'
+
+
+def predict_masks(model, img, scale_factor):
+    """Detections and each one's mask probabilities of its predicted class
+    for an image batch (tpudet's ``infer_masks``): the detections of the
+    model's forward (``scale_factor`` maps them to the original images),
+    then the mask branch on them in the network input's frame, on the
+    same call's features. Returns ``(NMSResult, probs (B, D, s, s))``."""
+    feats = model.extract_feat(img)
+    res = model.get_bboxes(model.detect(feats, tuple(img.shape[1:3])),
+                           scale_factors=scale_factor)
+    in_boxes = res.bboxes * scale_factor[:, None, :]
+    # (B, D, s, s, C): keep each detection's predicted class
+    probs = model.predict_masks(img, in_boxes, res.valid, feats=feats)
+    b, d, s = probs.shape[:3]
+    cls_idx = res.labels.clamp(0, probs.shape[-1] - 1)
+    return res, torch.gather(probs, -1, cls_idx[:, :, None, None, None]
+                             .expand(b, d, s, s, 1))[..., 0]
+
+
+def masks_to_segm_results(mask_probs, res, metas, num_classes,
+                          mask_thr: float = 0.5):
+    """Paste each image's detection masks into its original frame and
+    return the reference's per-image, per-class lists of uncompressed RLE
+    dicts (``tpudet/apis/test.py:71-93``). The paste and the run
+    boundaries run on ``mask_probs``' device."""
+    labels = res.labels.cpu().numpy()
+    valid = res.valid.cpu().numpy()
+    out = []
+    for i, meta in enumerate(metas):
+        h, w = meta['ori_shape'][:2]
+        v = torch.as_tensor(valid[i], device=mask_probs.device)
+        masks = paste_masks(mask_probs[i][v], res.bboxes[i][v], h, w,
+                            mask_thr)
+        per_cls = [[] for _ in range(num_classes)]
+        for rle, c in zip(encode_rle_batch(masks), labels[i][valid[i]]):
+            per_cls[int(c)].append(rle)
+        out.append(per_cls)
+    return out
 
 
 def single_device_test(model, dataset, batch_size: int = 8,
                        img_size: int = 640, progress: bool = True,
-                       infer_fn=None) -> List[list]:
+                       with_masks: bool = False, mask_thr: float = 0.5,
+                       infer_fn=None):
     """Run detection over a test-mode dataset (its pipeline on the model's
-    device); returns per-image per-class (n, 5) arrays in dataset order.
+    device); returns per-image per-class (n, 5) arrays in dataset order,
+    and with ``with_masks`` (a detector with a mask branch) the two-tuple
+    ``(bbox_results, segm_results)`` of per-class RLE lists.
 
-    Batches are padded to ``img_size`` squares. ``infer_fn(img,
+    Batches are padded to at least ``img_size`` squares. ``infer_fn(img,
     scale_factor, img_hw) -> NMSResult`` replaces the model's forward,
-    decode and NMS, as in tpudet (which also passes its variables)."""
+    decode and NMS on the plain path, as in tpudet (which also passes its
+    variables)."""
     # single-stage heads, two-stage RoI heads, or the proposal-only RPN
     if hasattr(model, 'bbox_head'):
         num_classes = model.bbox_head.num_classes
@@ -32,6 +99,11 @@ def single_device_test(model, dataset, batch_size: int = 8,
         num_classes = model.roi_head.num_classes
     else:
         num_classes = 1
+    mode = _mask_mode(model) if with_masks else None
+    if with_masks and mode is None:
+        raise ValueError(f'{type(model).__name__} has no mask branch')
+    if infer_fn is not None and with_masks:
+        raise ValueError('infer_fn override only supports the plain path')
     device = next(model.parameters()).device
 
     def infer(img, scale_factor, img_hw):
@@ -45,18 +117,28 @@ def single_device_test(model, dataset, batch_size: int = 8,
                            img_size=img_size, shuffle=False,
                            drop_last=False)
     results: List[Optional[list]] = [None] * len(dataset)
+    segms: List[Optional[list]] = [None] * len(dataset)
     done = 0
     model.eval()
     with torch.inference_mode():
         for batch in loader:
             img = batch['img'].to(device)
-            img_hw = torch.as_tensor(
-                np.array([m['img_shape'][:2] if m.get('img_shape')
-                          else img.shape[1:3] for m in batch['img_metas']],
-                         np.float32), device=device)
             scale_factor = torch.as_tensor(batch['scale_factor'],
                                            device=device)
-            res = (infer_fn or infer)(img, scale_factor, img_hw)
+            if mode is None:
+                img_hw = torch.as_tensor(
+                    np.array([m['img_shape'][:2] if m.get('img_shape')
+                              else img.shape[1:3]
+                              for m in batch['img_metas']], np.float32),
+                    device=device)
+                res = (infer_fn or infer)(img, scale_factor, img_hw)
+            else:
+                res, probs = predict_masks(model, img, scale_factor)
+                seg_batch = masks_to_segm_results(
+                    probs, res, batch['img_metas'], num_classes, mask_thr)
+                for seg, meta in zip(seg_batch, batch['img_metas']):
+                    if segms[meta['_idx']] is None:
+                        segms[meta['_idx']] = seg
             per_img = nms_result_to_per_class(res, num_classes)
             for out, meta in zip(per_img, batch['img_metas']):
                 if results[meta['_idx']] is None:
@@ -64,4 +146,7 @@ def single_device_test(model, dataset, batch_size: int = 8,
             done += len(batch['img_metas'])
             if progress and done % (batch_size * 20) == 0:
                 print(f'tested {done}/{len(dataset)}')
-    return [r for r in results if r is not None]
+    bbox_results = [r for r in results if r is not None]
+    if mode is None:
+        return bbox_results
+    return bbox_results, [s for s in segms if s is not None]

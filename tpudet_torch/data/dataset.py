@@ -210,28 +210,38 @@ class CocoDataset:
             dataset=self,
             _idx=idx)
 
-    def results2json(self, results, outfile_prefix: str) -> Dict[str, str]:
+    def results2json(self, results, outfile_prefix: str,
+                     segm_results=None) -> Dict[str, str]:
         """Dump detections in the COCO result format: one record per
         detection with ``image_id``, ``category_id`` (the annotation file's
-        ids), xywh ``bbox`` and ``score``. Returns {'bbox': written path}.
-        """
+        ids), xywh ``bbox`` and ``score`` in ``<prefix>.bbox.json``; with
+        ``segm_results`` (per image, per class RLE lists) the same records
+        with the RLE ``segmentation`` in ``<prefix>.segm.json``. Returns
+        {metric: written path}."""
 
         def _xywh(box):
             x1, y1, x2, y2 = (float(v) for v in box[:4])
             return [x1, y1, x2 - x1, y2 - y1]
 
-        det_json = []
+        det_json, segm_json = [], []
         for idx, per_class in enumerate(results):
             img_id = self.img_ids[idx]
             for cls, dets in enumerate(per_class):
-                for det in dets:
-                    det_json.append(dict(image_id=img_id,
-                                         bbox=_xywh(det),
-                                         score=float(det[4]),
-                                         category_id=int(self.cat_ids[cls])))
+                for j, det in enumerate(dets):
+                    rec = dict(image_id=img_id, bbox=_xywh(det),
+                               score=float(det[4]),
+                               category_id=int(self.cat_ids[cls]))
+                    det_json.append(rec)
+                    if segm_results is not None:
+                        segm_json.append(dict(
+                            rec, segmentation=segm_results[idx][cls][j]))
         out = {'bbox': f'{outfile_prefix}.bbox.json'}
         with open(out['bbox'], 'w') as f:
             json.dump(det_json, f)
+        if segm_results is not None:
+            out['segm'] = f'{outfile_prefix}.segm.json'
+            with open(out['segm'], 'w') as f:
+                json.dump(segm_json, f)
         return out
 
     def __getitem__(self, idx: int) -> Dict:

@@ -11,8 +11,10 @@ rank-strided over a per-epoch-seeded order (``process_index`` /
 ``process_count``).
 
 A batch's ``img`` is a float32 tensor on the device the pipeline put the
-images on; boxes, labels, the validity mask, ``scale_factor`` and the
-metas are host arrays, as in tpudet. tpudet's ``num_workers``, which its
+images on, and so are its ``gt_frame_masks`` (B, max_gts, S, S), where the
+pipeline made masks (``LoadAnnotations(with_mask=True)``); boxes, labels,
+the validity mask, ``scale_factor`` and the metas are host arrays, as in
+tpudet. tpudet's ``num_workers``, which its
 loader stores and never reads, is left out.
 
 Batches are made in one prefetch thread. Its image ops go to the same CUDA
@@ -103,6 +105,14 @@ class DetDataLoader:
         gt_labels = np.zeros((b, self.max_gts), np.int32)
         gt_valid = np.zeros((b, self.max_gts), bool)
         scale_factor = np.ones((b, 4), np.float32)
+        masks = [s['gt_frame_masks'] for s in samples
+                 if 'gt_frame_masks' in s]
+        gt_frame_masks = None
+        if masks:
+            ms = masks[0].shape[-1]
+            gt_frame_masks = torch.zeros((b, self.max_gts, ms, ms),
+                                         dtype=torch.float32,
+                                         device=masks[0].device)
         meta = []
         for i, (s, t) in enumerate(zip(samples, imgs)):
             img[i, :t.shape[0], :t.shape[1]] = t
@@ -112,6 +122,8 @@ class DetDataLoader:
                 gt_bboxes[i, :n] = boxes[:n]
                 gt_labels[i, :n] = s['gt_labels'][:n]
                 gt_valid[i, :n] = True
+                if gt_frame_masks is not None and 'gt_frame_masks' in s:
+                    gt_frame_masks[i, :n] = s['gt_frame_masks'][:n]
             scale_factor[i] = s.get('scale_factor', np.ones(4, np.float32))
             meta.append({
                 'ori_shape': s.get('ori_shape'),
@@ -121,9 +133,12 @@ class DetDataLoader:
                 'filename': s.get('filename'),
                 '_idx': s.get('_idx'),
             })
-        return dict(img=img, gt_bboxes=gt_bboxes, gt_labels=gt_labels,
-                    gt_valid=gt_valid, scale_factor=scale_factor,
-                    img_metas=meta)
+        out = dict(img=img, gt_bboxes=gt_bboxes, gt_labels=gt_labels,
+                   gt_valid=gt_valid, scale_factor=scale_factor,
+                   img_metas=meta)
+        if gt_frame_masks is not None:
+            out['gt_frame_masks'] = gt_frame_masks
+        return out
 
     def _prefetch_iter(self, load_batch) -> Iterator[Dict]:
         """Threaded prefetch. A worker exception is forwarded through the

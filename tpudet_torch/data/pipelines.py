@@ -2,11 +2,13 @@
 (``Compose``, ``LoadImageFromFile``, ``LoadAnnotations``, ``rescale_size``,
 ``Resize``, ``RandomFlip``, ``Pad``, ``Normalize``, ``MultiScaleFlipAug``,
 and the train-only ``MosaicPipeline``, ``RandomAffineChain``,
-``HueSaturationValueJitter`` and ``GtBBoxesFilter``).
+``HueSaturationValueJitter`` and ``GtBBoxesFilter``; ``InstaBoost``
+raises).
 
 A transform maps a ``results`` dict to a dict, with tpudet's keys: ``img``,
 ``gt_bboxes`` (N, 4 xyxy float32 numpy), ``gt_labels``, ``img_shape``,
-``ori_shape``, ``pad_shape``, ``scale_factor`` (float32 numpy).
+``ori_shape``, ``pad_shape``, ``scale_factor`` (float32 numpy), and
+``gt_frame_masks`` (N, S, S float32, a tensor on the pipeline's device).
 
 The image ops (``Resize``, ``Pad``, ``Normalize``, the mosaic paste, the
 affine chain, the HSV jitter) are torch ops on the transform's ``device``,
@@ -39,6 +41,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..core.mask import gt_frame_masks
 from ..registry import PIPELINES, build_from_cfg
 from ..utils.device import resolve_device, to_device
 
@@ -177,16 +180,24 @@ class LoadImageFromFile:
 
 @PIPELINES.register_module()
 class LoadAnnotations:
-    """ann_info -> gt_bboxes/gt_labels (boxes and labels only; masks come
-    with the mask slice)."""
+    """ann_info -> gt_bboxes/gt_labels (host numpy), and with ``with_mask``
+    each gt's polygons rasterized in its own box frame at
+    ``mask_frame_size`` (``tpudet/data/pipelines.py:104-152``): a (G, S, S)
+    float32 ``gt_frame_masks`` tensor on ``device``, the fill equal to
+    ``cv2.fillPoly`` (``core/mask.py``); a gt without polygons (missing or
+    an RLE) gets a full-box mask. Transforms that move boxes leave the
+    frame masks as they are; flips mirror them and filters drop them with
+    their boxes."""
+
+    on_device = True
 
     def __init__(self, with_bbox=True, with_label=True, with_mask=False,
-                 **kwargs):
-        if with_mask:
-            raise NotImplementedError('LoadAnnotations(with_mask=True) '
-                                      'comes with the mask slice')
+                 mask_frame_size=28, device='cuda', **kwargs):
         self.with_bbox = with_bbox
         self.with_label = with_label
+        self.with_mask = with_mask
+        self.mask_frame_size = mask_frame_size
+        self.device = resolve_device(device) if with_mask else None
 
     def __call__(self, results):
         ann = results['ann_info']
@@ -196,6 +207,10 @@ class LoadAnnotations:
                                                  []) + ['gt_bboxes']
         if self.with_label:
             results['gt_labels'] = ann['labels'].copy()
+        if self.with_mask:
+            segs = ann.get('masks') or [None] * len(ann['bboxes'])
+            results['gt_frame_masks'] = gt_frame_masks(
+                segs, ann['bboxes'], self.mask_frame_size, self.device)
         return results
 
 
@@ -335,7 +350,8 @@ class Resize:
 @PIPELINES.register_module()
 class RandomFlip:
     """Horizontal flip with probability ``flip_ratio``; ``None`` never
-    flips, whatever ``MultiScaleFlipAug`` set."""
+    flips, whatever ``MultiScaleFlipAug`` set. The gt-frame masks are
+    mirrored with their boxes."""
 
     def __init__(self, flip_ratio=None, direction='horizontal'):
         self.flip_ratio = flip_ratio
@@ -354,6 +370,8 @@ class RandomFlip:
                 b[:, 0] = w - results[key][:, 2]
                 b[:, 2] = w - results[key][:, 0]
                 results[key] = b
+            if 'gt_frame_masks' in results:
+                results['gt_frame_masks'] = results['gt_frame_masks'].flip(2)
         return results
 
 
@@ -603,10 +621,20 @@ class HueSaturationValueJitter:
         return results
 
 
+def _keep_masks(results, keep: np.ndarray) -> None:
+    """Keep the gt-frame masks (a tensor on any device) of the gts that
+    ``keep`` (host bool) keeps."""
+    if 'gt_frame_masks' in results:
+        masks = results['gt_frame_masks']
+        results['gt_frame_masks'] = masks[torch.as_tensor(
+            keep, dtype=torch.bool).to(masks.device)]
+
+
 @PIPELINES.register_module()
 class GtBBoxesFilter:
     """Drop degenerate boxes after augmentation
-    (``tpudet/data/pipelines.py:369-390``); boxes stay host numpy."""
+    (``tpudet/data/pipelines.py:369-390``), and their gt-frame masks;
+    boxes stay host numpy."""
 
     def __init__(self, min_size=2, max_aspect_ratio=20):
         assert max_aspect_ratio > 1
@@ -622,6 +650,7 @@ class GtBBoxesFilter:
                 (ar < self.max_aspect_ratio)
         results['gt_bboxes'] = bboxes[valid]
         results['gt_labels'] = results['gt_labels'][valid]
+        _keep_masks(results, valid)
         return results
 
 
@@ -631,7 +660,7 @@ class RandomAffineChain:
     393-491``): center-pad to ``pad_to``, random-crop ``crop``, random
     scale by 1 +/- ``scale_limit``, center-crop ``out``, horizontal flip;
     boxes (host float64) filtered by ``min_area`` and ``min_visibility``
-    as albumentations' BboxParams.
+    as albumentations' BboxParams, their gt-frame masks with them.
 
     The image ops are integer torch ops on ``device`` with tpudet's draws,
     so the result equals tpudet's byte for byte. The scale step resizes
@@ -724,6 +753,19 @@ class RandomAffineChain:
         results['img'] = img
         results['gt_bboxes'] = clipped[keep].astype(np.float32)
         results['gt_labels'] = labels[keep]
+        _keep_masks(results, keep)
         results['img_shape'] = tuple(img.shape)
         results['pad_shape'] = tuple(img.shape)
         return results
+
+
+@PIPELINES.register_module()
+class InstaBoost:
+    """tpudet's instance copy-paste augmentation
+    (``tpudet/data/pipelines.py:546-613``) is not ported: building it
+    raises."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            'InstaBoost is not ported; it comes with ROADMAP.md\'s "rest of '
+            'the zoo" item (Corrupt and InstaBoost)')

@@ -1,5 +1,5 @@
-"""Fast flexible COCO-protocol mAP evaluator, bbox path: the port's own copy
-of ``tpudet/evaluation/mean_ap.py:30-446`` (numpy, no torch).
+"""Fast flexible COCO-protocol mAP evaluator: the port's own copy of
+``tpudet/evaluation/mean_ap.py:30-483`` (numpy on the host).
 
 Rebuild of the reference's pycocotools-free evaluator
 (mmdet/core/evaluation/mean_ap_flexible.py:98-302) and its Cython kernels
@@ -17,9 +17,10 @@ Rebuild of the reference's pycocotools-free evaluator
 
 ``coco_fast_bbox_eval`` mirrors the 'fast-bbox' metric wiring
 (mmdet/datasets/coco.py:465-496): IoU .50:.95, S/M/L scale breakdowns,
-map/map50/map75/s/m/l report. tpudet's optional C++ matchers are host
-code with the same results and are not carried; the mask-IoU ('segm')
-path comes with the mask slice.
+map/map50/map75/s/m/l report; ``coco_fast_segm_eval`` the same with
+mask IoUs (``core/mask.py`` ``mask_iou_matrix``, from the RLEs' runs; the
+gts rasterized by the port's cv2-equal fill). tpudet's optional C++
+matchers are host code with the same results and are not carried.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from collections import OrderedDict
 from typing import Dict, List
 
 import numpy as np
+
+from ..core.mask import mask_iou_matrix, segmentation_to_bitmap
 
 
 def average_precision(recalls, precisions, mode='area'):
@@ -234,7 +237,12 @@ class FlexibleStatisticsEval:
             self.breakdown.append(BREAKDOWNS[cls_name](classes=classes,
                                                        **bkd))
 
-    def statistics_single(self, det: List[np.ndarray], anno: Dict):
+    def statistics_single(self, det: List[np.ndarray], anno: Dict,
+                          det_segms=None):
+        """``det_segms`` (per-class lists of RLE dicts, parallel to
+        ``det``) switches the matching to mask IoU, the 'segm' metric; it
+        needs ``anno['gt_masks']`` (COCO segmentations) and
+        ``anno['img_shape']`` (h, w)."""
         tp_score_info = []
         num_cls = len(det)
         # A head may predict more classes than the dataset defines (e.g.
@@ -248,6 +256,11 @@ class FlexibleStatisticsEval:
         gt_bboxes = anno['gt_bboxes']
         gt_labels = anno['gt_labels']
         gt_attrs = anno['gt_attrs']
+        gt_bitmaps = None
+        if det_segms is not None:
+            h, w = anno['img_shape'][:2]
+            gt_bitmaps = [segmentation_to_bitmap(s, h, w)
+                          for s in anno['gt_masks']]
 
         for cls in range(num_cls):
             cls_name = self.classes[cls] if self.classes is not None else cls
@@ -285,7 +298,13 @@ class FlexibleStatisticsEval:
                          tp, np.repeat(det_bkd[i:i + 1], num_thr, axis=0)))
                 continue
 
-            ious = iou_coco(cls_det_bboxes, cls_gt_bboxes, crowd_msk)
+            if det_segms is not None:
+                cls_segms = [det_segms[cls][i] for i in sort_ind]
+                cls_gt_masks = [m for m, keep in zip(gt_bitmaps, msk)
+                                if keep]
+                ious = mask_iou_matrix(cls_segms, cls_gt_masks, crowd_msk)
+            else:
+                ious = iou_coco(cls_det_bboxes, cls_gt_bboxes, crowd_msk)
             for i in range(num_bkd):
                 gt_in_bkd = gt_bkd[i]
                 matched = match_coco(ious, self.iou_thrs, ~gt_in_bkd,
@@ -318,10 +337,12 @@ class FlexibleStatisticsEval:
             out.append((key, val))
         return out
 
-    def statistics_eval(self, det_results, annotations):
+    def statistics_eval(self, det_results, annotations, det_segms=None):
+        if det_segms is None:
+            det_segms = [None] * len(det_results)
         tp_score_infos = [
-            self.statistics_single(d, a)
-            for d, a in zip(det_results, annotations)
+            self.statistics_single(d, a, s)
+            for d, a, s in zip(det_results, annotations, det_segms)
         ]
         merged = []
         for items in zip(*tp_score_infos):
@@ -351,6 +372,7 @@ def eval_map_flexible(det_results,
                       iou_thrs=(0.5,),
                       breakdown=(),
                       classes=None,
+                      det_segms=None,
                       report_config=(('map',
                                       lambda x: x['breakdown'] == 'All'),)):
     """Reference eval_map_flexible (mean_ap_flexible.py:279-302).
@@ -362,7 +384,7 @@ def eval_map_flexible(det_results,
     """
     assert len(det_results) == len(annotations)
     fse = FlexibleStatisticsEval(classes, iou_thrs, breakdown)
-    results = fse.statistics_eval(det_results, annotations)
+    results = fse.statistics_eval(det_results, annotations, det_segms)
     return fse.report(results, report_config)
 
 
@@ -387,5 +409,41 @@ def coco_fast_bbox_eval(det_results, annotations, classes=None):
             ('s_map', lambda x: x['breakdown'] == 'Scale_S'),
             ('m_map', lambda x: x['breakdown'] == 'Scale_M'),
             ('l_map', lambda x: x['breakdown'] == 'Scale_L'),
+        ],
+        classes=classes)
+
+
+def coco_fast_segm_eval(det_results, det_segms, annotations, classes=None):
+    """'fast-segm' metric: instance-mask mAP with COCO ious and the S/M/L
+    breakdowns (``tpudet/evaluation/mean_ap.py:449-483``): the flexible
+    evaluator on mask IoUs.
+
+    Args:
+        det_results: per image, per class (n, 5) bbox arrays (the scores
+            rank; the scale breakdown uses the boxes).
+        det_segms: per image, per class lists of RLE dicts aligned with
+            det_results' rows.
+        annotations: per image dicts with gt_bboxes/gt_labels/gt_attrs,
+            gt_masks (COCO segmentations) and img_shape (h, w).
+    """
+    return eval_map_flexible(
+        det_results,
+        annotations,
+        iou_thrs=[0.5 + 0.05 * x for x in range(10)],
+        breakdown=[
+            dict(type='ScaleBreakdown',
+                 scale_ranges=dict(Scale_S=(0, 32), Scale_M=(32, 96),
+                                   Scale_L=(96, 10000)))
+        ],
+        det_segms=det_segms,
+        report_config=[
+            ('segm_map', lambda x: x['breakdown'] == 'All'),
+            ('segm_map50', lambda x: x['iou_threshold'] == 0.5 and
+             x['breakdown'] == 'All'),
+            ('segm_map75', lambda x: x['iou_threshold'] == 0.75 and
+             x['breakdown'] == 'All'),
+            ('segm_s_map', lambda x: x['breakdown'] == 'Scale_S'),
+            ('segm_m_map', lambda x: x['breakdown'] == 'Scale_M'),
+            ('segm_l_map', lambda x: x['breakdown'] == 'Scale_L'),
         ],
         classes=classes)

@@ -3,7 +3,8 @@
 
 - ``forward(img)``: features -> RPN -> proposals by ``test_cfg.rpn``
   (clipped to the padded canvas, as tpudet's) -> RoI head: ``(proposals,
-  valid, cls_logits, deltas)``, all that ``get_bboxes`` reads;
+  valid, cls_logits, deltas)``, all that ``get_bboxes`` reads; ``detect``
+  is the same on features the caller has;
 - ``forward_train(img, gt_bboxes, gt_labels, gt_valid)``: the RPN loss,
   proposals by ``train_cfg.rpn_proposal`` (detached, as tpudet stops their
   gradient), roi sampling and the RoI losses: the loss dict, with
@@ -51,12 +52,15 @@ class TwoStageDetector(BaseDetector):
     def forward(self, img):
         """img (B, H, W, 3), normalized -> ``(proposals (B, P, 4), valid
         (B, P), cls_logits (B, P, C + 1), deltas (B, P, 4C))``."""
-        feats = self.extract_feat(img)
+        return self.detect(self.extract_feat(img), tuple(img.shape[1:3]))
+
+    def detect(self, feats, img_shape):
+        """``forward`` on the features of an image batch of ``img_shape``
+        (h, w)."""
         rpn_preds = self.rpn_head(feats)
         cfg = dict(self.test_cfg or {}).get('rpn', {})
         proposals, _, prop_valid = self.rpn_head.get_proposals(
-            rpn_preds, img_shape=tuple(img.shape[1:3]),
-            **proposal_kwargs(cfg, 1000))
+            rpn_preds, img_shape=img_shape, **proposal_kwargs(cfg, 1000))
         proposals = proposals.detach()
         cls_logits, deltas = self.roi_head(feats, proposals, prop_valid)
         return proposals, prop_valid, cls_logits, deltas
@@ -64,7 +68,15 @@ class TwoStageDetector(BaseDetector):
     def forward_train(self, img, gt_bboxes, gt_labels, gt_valid
                       ) -> Dict[str, torch.Tensor]:
         """The RPN and RoI losses of a batch (padded gts, xyxy)."""
-        feats = self.extract_feat(img)
+        losses, _ = self.two_stage_losses(self.extract_feat(img), img,
+                                          gt_bboxes, gt_labels, gt_valid)
+        losses['num_gts'] = gt_valid.float().sum(dim=1).mean()
+        return losses
+
+    def two_stage_losses(self, feats, img, gt_bboxes, gt_labels, gt_valid):
+        """The RPN and RoI losses on the features of ``img``, and the
+        sampled rois they came from: ``(losses, (rois, sampled, labels,
+        pos))``."""
         rpn_preds = self.rpn_head(feats)
         losses = self.rpn_head.loss(rpn_preds, gt_bboxes, gt_labels,
                                     gt_valid)
@@ -78,8 +90,7 @@ class TwoStageDetector(BaseDetector):
         cls_logits, deltas = self.roi_head(feats, rois, sampled)
         losses.update(self.roi_head.loss(cls_logits, deltas, labels,
                                          targets, pos, sampled, rois=rois))
-        losses['num_gts'] = gt_valid.float().sum(dim=1).mean()
-        return losses
+        return losses, (rois, sampled, labels, pos)
 
     def get_bboxes(self, outputs, scale_factors=None, **kwargs):
         """Detections of ``forward``'s outputs (``test_cfg.rcnn``);

@@ -1,5 +1,6 @@
 """Shared conv/norm/act building blocks, port of ``tpudet/models/layers.py``,
-and the dense layer of the RoI heads (flax's ``nn.Dense``).
+the dense layer of the RoI heads (flax's ``nn.Dense``) and the mask head's
+transposed conv (flax's ``nn.ConvTranspose``).
 
 Modules run NCHW (``channels_last`` memory on the card); the detector
 takes and returns tpudet's NHWC layout at its surface. Attribute names
@@ -100,11 +101,35 @@ class Dense(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+class ConvTranspose(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in its input's dtype, as ``Conv``:
+    flax's ``nn.ConvTranspose`` with padding 0, which gives the same
+    output size as flax's ``'SAME'`` where the kernel equals the stride
+    (the 2x2 stride-2 upsample of ``FCNMaskHead``). flax correlates the
+    dilated input with its kernel unflipped (``transpose_kernel=False``),
+    torch with the kernel flipped: ``utils/flax_import`` flips both
+    spatial axes on the way in and out. ``kernel_init`` and ``bias_init``
+    name tpudet's initializers, as ``Conv``'s."""
+
+    def __init__(self, *args, kernel_init='he_normal', bias_init=0.,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
+
+
 def cast_weights(model: nn.Module, dtype: torch.dtype) -> None:
     """Store every conv's and dense layer's parameters in ``dtype``, the
     inference compute dtype (BatchNorm keeps fp32)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             m.to(dtype)
 
 

@@ -2,22 +2,24 @@
 ``tools/test.py``, on one device.
 
     python -m tpudet_torch.tools.test CONFIG [CHECKPOINT] [--batch-size 8]
-        [--img-size 640] [--metrics bbox] [--out FILE]
-        [--format-out PREFIX] [--device cuda|cpu]
+        [--img-size 640] [--metrics|--eval bbox [segm]] [--mask-thr 0.5]
+        [--out FILE] [--format-out PREFIX] [--device cuda|cpu]
 
 CHECKPOINT is a ``*.msgpack`` weights file (``train_detector``'s
 ``best_ema.msgpack`` / ``latest_ema.msgpack``, or tpudet's); without it
 the model takes tpudet's init from numpy seed 0. The detector computes in
-fp32, as tpudet's test CLI does. Prints the fast-bbox report as JSON and
-returns it. The device is ``cuda`` unless ``--device cpu`` asks for the
-CPU; with no GPU the default raises.
+fp32, as tpudet's test CLI does. Prints the report as JSON and returns
+it: the fast-bbox keys for ``bbox``, the ``segm_*`` keys of the mask mAP
+for ``segm`` (a detector with a mask branch; masks binarized at
+``--mask-thr``). ``--format-out`` writes ``<prefix>.bbox.json`` and, with
+``segm``, ``<prefix>.segm.json``. The device is ``cuda`` unless
+``--device cpu`` asks for the CPU; with no GPU the default raises.
 
-Test-time augmentation, the ``segm`` and ``proposal_fast`` metrics (and
-``--mask-thr``, which only masks read) and multi-process evaluation
-(``--coordinator``/``--num-processes``/``--process-id``) are parsed as
-tpudet parses them and raise
-``NotImplementedError``: ROADMAP.md's "rest of the eval flow" and
-"distributed training" items port them.
+Test-time augmentation, the ``proposal_fast`` metric and multi-process
+evaluation (``--coordinator``/``--num-processes``/``--process-id``) are
+parsed as tpudet parses them and raise ``NotImplementedError``:
+ROADMAP.md's "rest of the eval flow" and "distributed training" items
+port them.
 """
 import argparse
 import json
@@ -30,10 +32,11 @@ def parse_args(argv=None):
                    help='msgpack weights (EMA) saved by training')
     p.add_argument('--batch-size', type=int, default=8)
     p.add_argument('--img-size', type=int, default=640)
-    p.add_argument('--metrics', nargs='+', default=['bbox'],
-                   choices=['bbox', 'segm', 'proposal_fast'])
-    p.add_argument('--mask-thr', type=float, default=None,
-                   help='mask binarisation threshold (not ported yet)')
+    p.add_argument('--metrics', '--eval', nargs='+', default=['bbox'],
+                   choices=['bbox', 'segm', 'proposal_fast'],
+                   help="'bbox', 'segm' (a detector with a mask branch)")
+    p.add_argument('--mask-thr', type=float, default=0.5,
+                   help='mask binarisation threshold')
     p.add_argument('--tta', action='store_true',
                    help='flip test-time augmentation (not ported yet)')
     p.add_argument('--coordinator', default=None,
@@ -43,7 +46,7 @@ def parse_args(argv=None):
     p.add_argument('--out', help='dump the report as json')
     p.add_argument('--format-out',
                    help='dump detections in the COCO result format to '
-                        '<prefix>.bbox.json')
+                        '<prefix>.bbox.json / <prefix>.segm.json')
     p.add_argument('--device', default='cuda', help="'cuda' or 'cpu'")
     return p.parse_args(argv)
 
@@ -52,11 +55,8 @@ def _refuse_unported(args):
     eval_item = 'comes with ROADMAP.md\'s "rest of the eval flow" item'
     if args.tta:
         raise NotImplementedError(f'--tta {eval_item}')
-    for metric in args.metrics:
-        if metric != 'bbox':
-            raise NotImplementedError(f'--metrics {metric} {eval_item}')
-    if args.mask_thr is not None:
-        raise NotImplementedError(f'--mask-thr (masks, with segm) {eval_item}')
+    if 'proposal_fast' in args.metrics:
+        raise NotImplementedError(f'--metrics proposal_fast {eval_item}')
     if (args.coordinator is not None or args.num_processes is not None
             or args.process_id is not None):
         raise NotImplementedError(
@@ -73,26 +73,40 @@ def main(argv=None):
     from tpudet_torch.apis import init_detector, single_device_test
     from tpudet_torch.config import Config
     from tpudet_torch.data import build_dataset
-    from tpudet_torch.evaluation import coco_fast_bbox_eval
+    from tpudet_torch.evaluation import (coco_fast_bbox_eval,
+                                         coco_fast_segm_eval)
 
     cfg = Config.fromfile(args.config)
     det = init_detector(cfg, args.checkpoint, device=args.device,
                         dtype=torch.float32)
     dataset = build_dataset({**cfg['data']['test'], 'test_mode': True},
                             dict(device=det.device))
+    with_masks = 'segm' in args.metrics
     results = single_device_test(det.model, dataset,
                                  batch_size=args.batch_size,
-                                 img_size=args.img_size)
+                                 img_size=args.img_size,
+                                 with_masks=with_masks,
+                                 mask_thr=args.mask_thr)
+    segm_results = None
+    if with_masks:
+        results, segm_results = results
     annotations = [dataset.get_ann_info_test(i) for i in range(len(dataset))]
-    report = coco_fast_bbox_eval(results, annotations,
-                                 classes=dataset.CLASSES)
+    report = {}
+    if 'bbox' in args.metrics:
+        report.update(coco_fast_bbox_eval(results, annotations,
+                                          classes=dataset.CLASSES))
+    if with_masks:
+        report.update(coco_fast_segm_eval(results, segm_results,
+                                          annotations,
+                                          classes=dataset.CLASSES))
     print(json.dumps(report, indent=2))
     if args.out:
         with open(args.out, 'w') as f:
             json.dump(report, f)
     if args.format_out:
-        for metric, path in dataset.results2json(results,
-                                                 args.format_out).items():
+        paths = dataset.results2json(results, args.format_out,
+                                     segm_results=segm_results)
+        for metric, path in paths.items():
             print(f'wrote {metric} results to {path}')
     return report
 

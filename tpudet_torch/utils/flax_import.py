@@ -9,7 +9,12 @@ path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
 - a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW); a conv ``bias`` is
   carried as it is;
 - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), and its
-  ``bias`` is carried as it is. The layer's type tells the two kernels
+  ``bias`` is carried as it is;
+- a ConvTranspose ``kernel`` (H, W, in, out) becomes ``weight`` (in, out,
+  H, W) with both spatial axes flipped: flax correlates the dilated input
+  with the kernel as it is (``transpose_kernel=False``), torch's
+  transposed conv with the kernel flipped. The writer back to flax flips
+  them again. The layer's type tells the two kernels
   apart, not their rank: an Adam buffer stacks (m, v) on a leading axis,
   so a Dense kernel there is 3-D. The port flattens a pooled RoI in
   tpudet's HWC order (``Shared2FCBBoxHead``), so the rows of
@@ -35,19 +40,20 @@ from torch import nn
 Path = Tuple[str, ...]
 
 
-CONV, DENSE = 'conv', 'dense'
+CONV, DENSE, DECONV = 'conv', 'dense', 'deconv'
 
 
 def leaf_table(model: nn.Module) -> Dict[Path, Tuple[str, str]]:
     """``(collection, *module path, leaf)`` -> ``(state_dict key, kernel
     kind)`` for every tensor of ``model`` that tpudet holds; the kind is
-    ``CONV`` or ``DENSE`` for a kernel and ``''`` (false) for any other
-    leaf."""
+    ``CONV``, ``DENSE`` or ``DECONV`` for a kernel and ``''`` (false) for
+    any other leaf."""
     table: Dict[Path, Tuple[str, str]] = {}
     for name, m in model.named_modules():
         path = tuple(name.split('.')) if name else ()
         prefix = f'{name}.' if name else ''
         kind = (CONV if isinstance(m, nn.Conv2d) else
+                DECONV if isinstance(m, nn.ConvTranspose2d) else
                 DENSE if isinstance(m, nn.Linear) else '')
         if kind:
             table[('params', *path, 'kernel')] = (prefix + 'weight', kind)
@@ -88,30 +94,51 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
     return model
 
 
-KERNEL_RANK = {CONV: 4, DENSE: 2}
+KERNEL_RANK = {CONV: 4, DENSE: 2, DECONV: 4}
+
+
+def flax_shape(shape, kind: str) -> Tuple[int, ...]:
+    """The flax shape of a tensor of torch ``shape`` with ``leaf_table``'s
+    ``kind``."""
+    shape = tuple(shape)
+    if kind == CONV:
+        return shape[2:] + shape[1::-1]
+    if kind == DECONV:
+        return shape[2:] + shape[:2]
+    if kind == DENSE:
+        return shape[::-1]
+    return shape
 
 
 def _from_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
     """HWIO -> OIHW on the last four axes of a conv kernel leaf, (in, out)
-    -> (out, in) on the last two of a Dense one (a leading axis, as in
-    Adam's stacked (m, v) buffers, is kept)."""
+    -> (out, in) on the last two of a Dense one, (H, W, in, out) -> (in,
+    out, H, W) spatially flipped for a ConvTranspose one (a leading axis,
+    as in Adam's stacked (m, v) buffers, is kept)."""
     if not kind:
         return value
     n = value.ndim
     lead = tuple(range(n - KERNEL_RANK[kind]))
     if kind == DENSE:
         return np.transpose(value, lead + (n - 1, n - 2))
+    if kind == DECONV:
+        return np.flip(np.transpose(value, lead + (n - 2, n - 1, n - 4,
+                                                   n - 3)), (-2, -1))
     return np.transpose(value, lead + (n - 1, n - 2, n - 4, n - 3))
 
 
 def _to_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
-    """OIHW -> HWIO, (out, in) -> (in, out) (inverse of the above)."""
+    """OIHW -> HWIO, (out, in) -> (in, out), flipped (in, out, H, W) ->
+    (H, W, in, out) (inverse of the above)."""
     if not kind:
         return value
     n = value.ndim
     lead = tuple(range(n - KERNEL_RANK[kind]))
     if kind == DENSE:
         return np.transpose(value, lead + (n - 1, n - 2))
+    if kind == DECONV:
+        return np.transpose(np.flip(value, (-2, -1)),
+                            lead + (n - 2, n - 1, n - 4, n - 3))
     return np.transpose(value, lead + (n - 2, n - 1, n - 3, n - 4))
 
 
@@ -132,7 +159,8 @@ def _tree(table, tensors: Dict[str, torch.Tensor], collection: str) -> Dict:
 
 def state_dict_to_flax(model: nn.Module) -> Dict:
     """``model``'s weights as a tpudet ``{'params', 'batch_stats'}`` tree of
-    fp32 numpy arrays (conv kernels HWIO, Dense kernels (in, out))."""
+    fp32 numpy arrays (conv kernels HWIO, Dense kernels (in, out),
+    ConvTranspose kernels (H, W, in, out))."""
     table = leaf_table(model)
     sd = model.state_dict()
     return {'params': _tree(table, sd, 'params'),
@@ -245,10 +273,11 @@ def _draw_kernel(rng: np.random.RandomState, init, hwio) -> np.ndarray:
 def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
     """A tpudet variables tree for ``model`` drawn with tpudet's init from a
     numpy seed: each conv's and Dense layer's kernel and bias by the
-    initializers it names (``layers.Conv``/``layers.Dense``
-    ``kernel_init``, ``bias_init``; a plain ``nn.Conv2d`` takes
-    ``he_normal`` and a zero bias), BatchNorm scale 1, bias 0, mean 0, var
-    1. A Dense kernel (in, out) is drawn as a 1 x 1 conv's. Kernels are
+    initializers it names (``layers.Conv``/``layers.Dense``/
+    ``layers.ConvTranspose`` ``kernel_init``, ``bias_init``; a plain
+    ``nn.Conv2d`` takes ``he_normal`` and a zero bias), BatchNorm scale 1,
+    bias 0, mean 0, var 1. A Dense kernel (in, out) is drawn as a 1 x 1
+    conv's, a ConvTranspose kernel in its flax shape (H, W, in, out). Kernels are
     drawn in the order of their sorted flax paths."""
     rng = np.random.RandomState(seed)
     modules = dict(model.named_modules())
@@ -262,10 +291,15 @@ def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
             value = _draw_kernel(
                 rng, getattr(module, 'kernel_init', 'he_normal'),
                 (shape[2], shape[3], shape[1], shape[0]))
+        elif kind == DECONV:
+            # flax's fan-in of a ConvTranspose kernel is H * W * in
+            value = _draw_kernel(rng, module.kernel_init,
+                                 flax_shape(shape, kind))
         elif kind == DENSE:
             value = _draw_kernel(
                 rng, module.kernel_init, (1, 1, shape[1], shape[0]))[0, 0]
-        elif isinstance(module, (nn.Conv2d, nn.Linear)):  # a bias
+        elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d,
+                                 nn.Linear)):  # a bias
             value = np.broadcast_to(np.asarray(
                 getattr(module, 'bias_init', 0.), np.float32), shape).copy()
         elif leaf in ('scale', 'var'):
