@@ -122,7 +122,23 @@ Phases, in order; any failure exits non-zero:
    with ``gt_frame_masks`` made by ``LoadAnnotations(with_mask=True)`` on
    the card, one fp32 step at 320 card against CPU; ``train_detector`` for
    2 steps and a resumed 3rd;
-13. output: a ``kernels`` JSON line (with each kernel's share of its
+13. data-parallel training (``tpudet_torch/parallel``): (a) one fp32 step
+   (TF32 off) of YOLOv4-l 640 on phase 6's first 72 images without a
+   process group, then inside a one-rank NCCL group that the script
+   opens, so that the synced path runs (SyncBN, the global loss
+   counts, the flat gradient all-reduce): within phase 6's tolerance,
+   the all-reduces counted; (b) two ranks on the one card, each a
+   process, over gloo with CUDA tensors (6 images a micro-batch each,
+   accumulation 6: the same micro-batches): the fp32 step within the
+   same tolerance of (a)'s unsynced step, equal checksums, 648 launches
+   of each mish kernel a rank, then bf16 steps timed ("gloo through the
+   host on one card": step ms, the share in collectives, peak memory a
+   rank); (c) ``python -m tpudet_torch.tools.train`` with
+   ``--num-processes 2`` for 3 steps of the shapes recipe on the
+   committed shapes set (only rank 0 writes ``latest_ema.msgpack``,
+   equal checksums), then ``tpudet_torch.tools.test`` on those weights
+   with 2 processes against 1 (equal reports);
+14. output: a ``kernels`` JSON line (with each kernel's share of its
    bound and its launches on every path), the whole run's seconds, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -1433,55 +1449,79 @@ def run_training(torch, tree, config=CONFIG, name='YOLOv4-l',
     return per_step[-1]['launches'], sites[:mish_sites]
 
 
+def fp32_step(torch, tree, cfg, batch, device='cuda'):
+    """One fp32 optimizer step through ``init_trainer`` from ``tree``:
+    ``(metrics, mish launches, state before, state after)``, states as
+    tpudet's numpy trees."""
+    from tpudet_torch.apis import init_trainer
+    from tpudet_torch.ops import mish
+    from tpudet_torch.utils.flax_import import train_state_to_flax
+    trainer = init_trainer(cfg, variables=tree, device=device, max_steps=1)
+    init = train_state_to_flax(trainer.state, trainer.model)
+    torch.cuda.synchronize()
+    mish.mish_cuda.launches = 0
+    mish.mish_backward_cuda.launches = 0
+    t0 = time.perf_counter()
+    metrics = {k: float(v) for k, v in trainer.step(batch).items()}
+    torch.cuda.synchronize()
+    metrics['step_ms'] = (time.perf_counter() - t0) * 1e3
+    launches = {'mish_fwd': mish.mish_cuda.launches,
+                'mish_bwd': mish.mish_backward_cuda.launches}
+    state = train_state_to_flax(trainer.state, trainer.model)
+    del trainer
+    torch.cuda.empty_cache()
+    return metrics, launches, init, state
+
+
+STATE_PARTS = ('params', 'batch_stats', 'ema_params', 'ema_batch_stats',
+               'momentum_buf')
+
+
+def _part(state, name):
+    return state.opt_state.momentum_buf if name == 'momentum_buf' \
+        else getattr(state, name)
+
+
+def check_step_against(label, metrics, state, ref_metrics, ref_state, init):
+    """Phase 6's card tolerance: the loss to STEP_LOSS_RTOL, every part
+    of the state within STEP_TREE_TOL of the update the reference step
+    made to it."""
+    rel = abs(metrics['loss'] - ref_metrics['loss']) / abs(
+        ref_metrics['loss'])
+    log(f'{label}: loss {metrics["loss"]:.6f} vs {ref_metrics["loss"]:.6f} '
+        f'(rel {rel:.3e}, tolerance {STEP_LOSS_RTOL}), grad_norm '
+        f'{metrics["grad_norm"]:.6f} vs {ref_metrics["grad_norm"]:.6f}, '
+        f'step ms {metrics["step_ms"]:.1f} vs {ref_metrics["step_ms"]:.1f}')
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f'{label}: the loss differs')
+    gaps = {}
+    for name in STATE_PARTS:
+        got, ref, start = (_part(s, name) for s in (state, ref_state, init))
+        diff, upd = tree_gap(got, ref), tree_gap(ref, start)
+        gaps[name] = diff / upd
+        if not (upd > 0 and diff <= STEP_TREE_TOL * upd):
+            raise AssertionError(f'{label} {name}: max |delta| {diff:.3e}, '
+                                 f'update {upd:.3e}')
+    log(f'{label}: state within ' + json.dumps(
+        {k: f'{v:.2e}' for k, v in gaps.items()}) + f' of the update '
+        f'(tolerance {STEP_TREE_TOL})')
+
+
 def check_train_step_cpu(torch, tree, config=CONFIG):
     """One fp32 optimizer step (micro-batch 2, accumulation 2) of
     ``config`` at 640 through ``init_trainer`` on the card (TF32 off) and
     on the CPU, from the same variables and batch."""
-    from tpudet_torch.apis import init_trainer
     from tpudet_torch.config import Config
-    from tpudet_torch.utils.flax_import import train_state_to_flax
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = Config.fromfile(config)
     cfg['data'] = dict(cfg['data'], samples_per_gpu=CHECK_MICRO)
     cfg['nominal_batch_size'] = CHECK_MICRO * CHECK_ACCUM
     batch = train_batch(CHECK_MICRO * CHECK_ACCUM, SEED + 200)
-    out = {}
-    for device in ('cuda', 'cpu'):
-        trainer = init_trainer(cfg, variables=tree, device=device,
-                               max_steps=1)
-        init = train_state_to_flax(trainer.state, trainer.model)
-        t0 = time.perf_counter()
-        metrics = {k: float(v) for k, v in trainer.step(batch).items()}
-        if device == 'cuda':
-            torch.cuda.synchronize()
-        log(f'fp32 step on {device}: {time.perf_counter() - t0:.1f} s, '
-            + json.dumps(metrics))
-        out[device] = (metrics, train_state_to_flax(trainer.state,
-                                                    trainer.model))
-        del trainer
-        torch.cuda.empty_cache()
-    (mc, sc), (mr, sr) = out['cuda'], out['cpu']
-    rel = abs(mc['loss'] - mr['loss']) / abs(mr['loss'])
-    log(f'fp32 step, card vs CPU: loss rel diff {rel:.3e} (tolerance '
-        f'{STEP_LOSS_RTOL}), grad_norm {mc["grad_norm"]:.6f} vs '
-        f'{mr["grad_norm"]:.6f}')
-    if not rel <= STEP_LOSS_RTOL:
-        raise AssertionError('fp32 card loss differs from the CPU')
-    for name, got, ref, start in (
-            ('params', sc.params, sr.params, init.params),
-            ('batch_stats', sc.batch_stats, sr.batch_stats,
-             init.batch_stats),
-            ('ema_params', sc.ema_params, sr.ema_params, init.ema_params),
-            ('ema_batch_stats', sc.ema_batch_stats, sr.ema_batch_stats,
-             init.ema_batch_stats),
-            ('momentum_buf', sc.opt_state.momentum_buf,
-             sr.opt_state.momentum_buf, init.opt_state.momentum_buf)):
-        diff, upd = tree_gap(got, ref), tree_gap(ref, start)
-        log(f'fp32 step, card vs CPU {name}: max |delta| {diff:.3e}, '
-            f'update {upd:.3e} (tolerance {STEP_TREE_TOL} x update)')
-        if not (upd > 0 and diff <= STEP_TREE_TOL * upd):
-            raise AssertionError(f'fp32 card {name} differ from the CPU')
+    mc, _, init, sc = fp32_step(torch, tree, cfg, batch, 'cuda')
+    mr, _, _, sr = fp32_step(torch, tree, cfg, batch, 'cpu')
+    log('fp32 step on the card: ' + json.dumps(mc))
+    check_step_against('fp32 step, card vs CPU', mc, sc, mr, sr, init)
 
 
 def draw_strided(torch, gen, shape, stride):
@@ -4458,6 +4498,355 @@ def run_files_flow(torch, detector, fixtures):
     return {k: v // batches for k, v in launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: data-parallel training (tpudet_torch/parallel/mesh.py)
+
+DIST_MICRO = 6  # per rank: 2 ranks x 6 = phase 6's micro-batch of 12
+DIST_BF16_STEPS = 2  # timed, after one untimed bf16 step
+DIST_TIMEOUT_S = 300  # a rank's wait for the other at each collective
+# the shapes recipe on the committed shapes set (paths from ROOT)
+CONFIG_SHAPES = os.path.join(
+    ROOT, 'docs/torch_train_runs/yolov4s_shapes_320_fixture.py')
+DIST_CLI_STEPS = 3
+DIST_CLI_TIMEOUT_S = 300
+
+
+class AllReduceProbe:
+    """``torch.distributed.all_reduce`` wrapped while the probe is open:
+    the calls, their bytes and the host seconds each takes from a
+    synchronized device to its result on the device (the card is
+    synchronized before and after every call, so the time is the
+    collective's alone; gloo synchronizes at each call anyway)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = 0
+        self.bytes = 0
+        self.seconds = 0.0
+        self.largest = 0
+
+    def __enter__(self):
+        dist = self.torch.distributed
+        self.real = dist.all_reduce
+
+        def counted(tensor, *args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(tensor, *args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            n = tensor.numel() * tensor.element_size()
+            self.bytes += n
+            self.largest = max(self.largest, n)
+            return out
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.distributed.all_reduce = self.real
+
+    def summary(self):
+        return dict(all_reduces=self.calls, all_reduce_mb=self.bytes / 1e6,
+                    largest_mb=self.largest / 1e6,
+                    collective_ms=self.seconds * 1e3)
+
+
+def rank_shard(batch, rank, world, micro):
+    """Rank ``rank``'s loader batch whose micro-batch ``i`` is its slice
+    of the single-process micro-batch ``i`` (``world * micro`` rows): the
+    ranks together take the single-process step's micro-batches."""
+    import numpy as np
+    step = world * micro
+    n = len(batch['img']) // step
+    return {k: np.concatenate([v[i * step + rank * micro:
+                                 i * step + (rank + 1) * micro]
+                               for i in range(n)]) for k, v in batch.items()}
+
+
+def dist_rank(rank, root, tree_path):
+    """One of two ranks on the one card (gloo with CUDA tensors): the fp32
+    step on this rank's shard of phase 6's first 72 images, then
+    1 + DIST_BF16_STEPS bf16 steps, timed. Writes its results to
+    ``root/rank<r>.pkl``; a failure is written there too, and raised."""
+    import datetime
+    import pickle
+    import traceback
+    out = os.path.join(root, f'rank{rank}.pkl')
+    try:
+        import torch
+        sys.path.insert(0, ROOT)
+        from tpudet_torch.apis import init_trainer
+        from tpudet_torch.config import Config
+        from tpudet_torch.ops import mish
+        from tpudet_torch.parallel import (close_distributed,
+                                           init_distributed)
+        from tpudet_torch.utils.checkpoint import load_variables
+        from tpudet_torch.utils.flax_import import train_state_to_flax
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        device = init_distributed(
+            f'file://{os.path.join(root, "rendezvous")}', 2, rank,
+            backend='gloo', device='cuda',
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        tree, _ = load_variables(tree_path)
+        cfg = Config.fromfile(CONFIG)
+        cfg['data'] = dict(cfg['data'], samples_per_gpu=DIST_MICRO)
+        trainer = init_trainer(cfg, variables=tree, device=device,
+                               max_steps=2 + DIST_BF16_STEPS)
+        if trainer.accumulation != ACCUMULATION:
+            raise AssertionError(f'accumulation {trainer.accumulation}')
+        batch = rank_shard(train_batch(ACCUMULATION * MICRO_BATCH,
+                                       SEED + 100), rank, 2, DIST_MICRO)
+        torch.cuda.synchronize()
+        mish.mish_cuda.launches = 0
+        mish.mish_backward_cuda.launches = 0
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in trainer.step(batch).items()}
+        torch.cuda.synchronize()
+        metrics['step_ms'] = (time.perf_counter() - t0) * 1e3
+        launches = {'mish_fwd': mish.mish_cuda.launches,
+                    'mish_bwd': mish.mish_backward_cuda.launches}
+        state = train_state_to_flax(trainer.state, trainer.model)
+        checksum = sum(float(p.detach().double().abs().sum())
+                       for p in trainer.state.params.values())
+        trainer.model.dtype = torch.bfloat16
+        timed = []
+        for step in range(1 + DIST_BF16_STEPS):
+            batch = rank_shard(train_batch(ACCUMULATION * MICRO_BATCH,
+                                           SEED + 300 + step), rank, 2,
+                               DIST_MICRO)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with AllReduceProbe(torch) as probe:
+                t0 = time.perf_counter()
+                m = trainer.step(batch)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3
+            timed.append(dict(step_ms=step_ms, **probe.summary(),
+                              loss=float(m['loss']),
+                              peak_mem_gib=torch.cuda.max_memory_allocated()
+                              / 2**30))
+        close_distributed()
+        result = dict(metrics=metrics, launches=launches, state=state,
+                      checksum=checksum, bf16=timed, device=str(device))
+    except BaseException:
+        result = dict(error=traceback.format_exc())
+    with open(out, 'wb') as f:
+        pickle.dump(result, f, protocol=pickle.HIGHEST_PROTOCOL)
+    if 'error' in result:
+        raise SystemExit(1)
+
+
+def run_dist_ranks(torch, tree, ref):
+    """(b): two ranks on the one card over gloo, each a process of its
+    own; their fp32 step against the single-process step ``ref`` on the
+    same micro-batches, equal checksums, 648/648 launches a rank, then
+    the bf16 step's ms, collective share and peak memory per rank."""
+    import multiprocessing
+    import pickle
+    import tempfile
+    from tpudet_torch.utils.checkpoint import save_variables
+    ref_metrics, ref_state, init = ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        tree_path = os.path.join(root, 'tree.msgpack')
+        save_variables(tree_path, tree)
+        ctx = multiprocessing.get_context('spawn')
+        procs = [ctx.Process(target=dist_rank, args=(r, root, tree_path))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(DIST_TIMEOUT_S + 120)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks = []
+        for r, p in enumerate(procs):
+            path = os.path.join(root, f'rank{r}.pkl')
+            res = {}
+            if os.path.exists(path):
+                with open(path, 'rb') as f:
+                    res = pickle.load(f)
+            if 'error' in res:
+                raise AssertionError(f'rank {r} failed:\n{res["error"]}')
+            if p.exitcode != 0 or 'state' not in res:
+                raise AssertionError(f'rank {r} exited with {p.exitcode}')
+            ranks.append(res)
+    log(f'two ranks on one card (gloo through the host): '
+        f'{time.perf_counter() - t0:.1f} s with start-up')
+    want = {'mish_fwd': ACCUMULATION * MISH_PER_FORWARD,
+            'mish_bwd': ACCUMULATION * MISH_PER_FORWARD}
+    for r, res in enumerate(ranks):
+        if res['device'] != 'cuda:0':
+            raise AssertionError(f'rank {r} ran on {res["device"]}')
+        if res['launches'] != want:
+            raise AssertionError(f'rank {r}: launches {res["launches"]}, '
+                                 f'not {want}')
+        check_step_against(f'gloo rank {r} fp32 step vs one process',
+                           res['metrics'], res['state'], ref_metrics,
+                           ref_state, init)
+        for row in res['bf16']:
+            row['collective_share'] = row['collective_ms'] / row['step_ms']
+        log(f'gloo through the host on one card, rank {r} bf16 steps '
+            f'(first untimed): ' + json.dumps(res['bf16']))
+    if ranks[0]['checksum'] != ranks[1]['checksum']:
+        raise AssertionError(f'checksums differ: {ranks[0]["checksum"]} vs '
+                             f'{ranks[1]["checksum"]}')
+    log(f'gloo ranks: final param checksum {ranks[0]["checksum"]:.9e} on '
+        f'both')
+    return [res['launches'] for res in ranks]
+
+
+def run_dist_one_rank(torch, tree):
+    """(a): one fp32 step (TF32 off) of YOLOv4-l 640 on phase 6's first
+    72 images without a process group, then the same step inside a
+    one-rank NCCL group opened here, so that the synced path runs
+    (SyncBN's function, ``global_sum``, the flat gradient all-reduce);
+    the two within phase 6's card tolerance. Returns the unsynced step
+    (the reference of (b)) and the synced step's launches."""
+    import tempfile
+    from tpudet_torch.config import Config
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.fromfile(CONFIG)
+    batch = train_batch(ACCUMULATION * MICRO_BATCH, SEED + 100)
+    ref_metrics, _, init, ref_state = fp32_step(torch, tree, cfg, batch)
+    with tempfile.TemporaryDirectory() as root:
+        store = torch.distributed.FileStore(os.path.join(root, 'store'), 1)
+        torch.distributed.init_process_group('nccl', store=store, rank=0,
+                                             world_size=1)
+        try:
+            with AllReduceProbe(torch) as probe:
+                metrics, launches, _, state = fp32_step(torch, tree, cfg,
+                                                        batch)
+        finally:
+            torch.distributed.destroy_process_group()
+    summary = probe.summary()
+    log('NCCL one-rank step: ' + json.dumps(dict(launches=launches,
+                                                  **summary)))
+    n_params = sum(v.size for v in _leaves(init.params))
+    if probe.largest != 4 * n_params:
+        raise AssertionError(f'no flat fp32 gradient all-reduce of '
+                             f'{n_params} params (largest '
+                             f'{probe.largest} bytes)')
+    want = ACCUMULATION * MISH_PER_FORWARD
+    if launches != {'mish_fwd': want, 'mish_bwd': want}:
+        raise AssertionError(f'synced step: launches {launches}')
+    check_step_against('NCCL one-rank step vs no group', metrics, state,
+                       ref_metrics, ref_state, init)
+    return (ref_metrics, ref_state, init), launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def run_dist_clis(torch):
+    """(c): the train CLI with two processes on the one card (gloo) for
+    DIST_CLI_STEPS steps of the shapes recipe on the committed shapes set
+    (CONFIG_SHAPES), 4 images a rank; only rank 0 writes
+    ``latest_ema.msgpack``, equal checksums; then the test CLI on those
+    weights with two processes against one: equal reports."""
+    import subprocess
+    import tempfile
+
+    def run(cmds):
+        procs = [subprocess.Popen([sys.executable, '-m'] + c, cwd=ROOT,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT) for c in cmds]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DIST_CLI_TIMEOUT_S)[0]
+                            .decode(errors='replace'))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for c, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f'{" ".join(c)} exited with '
+                                     f'{p.returncode}:\n{out[-4000:]}')
+        return outs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist = ['--num-processes', '2', '--dist-backend', 'gloo',
+                '--dist-timeout', str(DIST_TIMEOUT_S)]
+        run([['tpudet_torch.tools.train', CONFIG_SHAPES, '--work-dir',
+              f'{tmp}/w{r}', '--max-steps', str(DIST_CLI_STEPS),
+              '--no-resume', '--coordinator', f'file://{tmp}/rdzv_train',
+              '--process-id', str(r)] + dist +
+             ['--cfg-options', 'data.samples_per_gpu=4'] for r in range(2)])
+        train_s = time.perf_counter() - t0
+        checksums = []
+        for r in range(2):
+            with open(f'{tmp}/w{r}/train.log') as f:
+                log_lines = f.read().splitlines()
+            if not any(f'devices 2 global / 1 local, process {r}/2' in ln
+                       for ln in log_lines):
+                raise AssertionError(f'rank {r} did not join: {log_lines}')
+            checksums.append([ln.split('checksum')[1] for ln in log_lines
+                              if 'final param checksum' in ln])
+        if checksums[0] != checksums[1] or len(checksums[0]) != 1:
+            raise AssertionError(f'train CLI checksums {checksums}')
+        if not os.path.exists(f'{tmp}/w0/latest_ema.msgpack') or \
+                sorted(os.listdir(f'{tmp}/w1')) != ['train.log']:
+            raise AssertionError(f'rank 1 wrote {os.listdir(f"{tmp}/w1")}')
+        weights = f'{tmp}/w0/latest_ema.msgpack'
+        t0 = time.perf_counter()
+        test = ['tpudet_torch.tools.test', CONFIG_SHAPES, weights,
+                '--img-size', '320']
+        outs = run([test + ['--out', f'{tmp}/two{r}.json', '--coordinator',
+                            f'file://{tmp}/rdzv_test', '--process-id',
+                            str(r)] + dist for r in range(2)] +
+                   [test + ['--out', f'{tmp}/one.json']])
+        test_s = time.perf_counter() - t0
+        with open(f'{tmp}/two0.json') as f:
+            two = json.load(f)
+        with open(f'{tmp}/one.json') as f:
+            one = json.load(f)
+        if os.path.exists(f'{tmp}/two1.json') or '"map"' in outs[1]:
+            raise AssertionError('rank 1 of the test CLI wrote or printed')
+        delta = max((abs(two[k] - one[k]) for k in one
+                     if math.isfinite(one[k])), default=0.0)
+        log(f'CLIs: train 2 x {DIST_CLI_STEPS} steps {train_s:.1f} s, '
+            f'checksum {checksums[0][0].strip()} on both; test 2 + 1 '
+            f'processes {test_s:.1f} s, report max delta {delta} ' +
+            json.dumps(one))
+        # equal, NaN (no gt of a size) where NaN
+        if json.dumps(two, sort_keys=True) != json.dumps(one,
+                                                         sort_keys=True):
+            raise AssertionError(f'2-process report {two} != {one}')
+
+
+def run_data_parallel(torch, tree):
+    """Phase 13: (a) NCCL at world size 1, (b) two ranks on the card over
+    gloo, (c) the CLIs' multi-process flags. Returns the mish launches of
+    the synced steps by path."""
+    t0 = time.perf_counter()
+    ref, nccl_launches = run_dist_one_rank(torch, tree)
+    log(f'(a) NCCL one rank: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    rank_launches = run_dist_ranks(torch, tree, ref)
+    del ref
+    log(f'(b) two gloo ranks: {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    run_dist_clis(torch)
+    log(f'(c) CLIs: {time.perf_counter() - t0:.1f} s')
+    return {name: {'nccl_one_rank_step': nccl_launches[name],
+                   'gloo_rank0_step': rank_launches[0][name],
+                   'gloo_rank1_step': rank_launches[1][name]}
+            for name in ('mish_fwd', 'mish_bwd')}
+
+
 def main():
     try:
         import torch
@@ -4549,7 +4938,13 @@ def main():
     mask_launches, _ = run_mask_rcnn(torch)
     log(f'Mask R-CNN phases: {time.perf_counter() - t0:.1f} s')
 
-    # 13. output
+    # 13. data-parallel training; each synced step with counts at 0 just
+    # before
+    t0 = time.perf_counter()
+    dist_launches = run_data_parallel(torch, tree)
+    log(f'data-parallel phases: {time.perf_counter() - t0:.1f} s')
+
+    # 14. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -4586,6 +4981,7 @@ def main():
             paths.update(retina_launches[k['name']])
             paths.update(two_stage_launches[k['name']])
             paths.update(mask_launches[k['name']])
+            paths.update(dist_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all')

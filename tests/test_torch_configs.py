@@ -22,7 +22,8 @@ tree from ``init`` through ``forward_train`` (its mask head's params exist
 only there). The other 11 configs that name ``MaskRCNN``/``MaskRoIHead``
 or a Mask R-CNN-based head (GN, GN+WS, DCN, GCB, HTC, SCNet, MS R-CNN,
 PointRend) raise ``NotImplementedError`` naming ROADMAP.md's "rest of the
-zoo" item.
+zoo" item, and so do the 2 Libra R-CNN configs (a list ``neck`` builds
+as tpudet's chain of necks; its ``BFP`` is not ported).
 """
 import glob
 import os
@@ -79,6 +80,12 @@ REFUSED_MASK_CONFIGS = sorted(
                     'configs/htc/*.py', 'configs/scnet/*.py',
                     'configs/ms_rcnn/*.py', 'configs/point_rend/*.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
+
+# Libra R-CNN: FPN -> BFP chained necks, BFP and the IoU-balanced sampling
+# not ported
+LIBRA_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for p in glob.glob(os.path.join(ROOT, 'configs/libra_rcnn/*.py')))
 
 
 def _flat_shapes(tree, prefix=()):
@@ -160,3 +167,52 @@ def test_mask_config_refuses_what_is_not_ported(config):
                        match='ROADMAP.md\'s "rest of the zoo" item'):
         with torch.device('meta'):
             build_detector(cfg)
+
+
+def test_the_libra_sweep_holds_two_configs():
+    assert len(LIBRA_CONFIGS) == 2
+
+
+@pytest.mark.parametrize('config', LIBRA_CONFIGS)
+def test_libra_config_refuses_what_is_not_ported(config):
+    cfg = Config.fromfile(os.path.join(ROOT, config))['model']
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.md\'s "rest of the zoo" item'):
+        with torch.device('meta'):
+            build_detector(cfg)
+
+
+def test_a_neck_list_builds_as_tpudets_chain():
+    """A list ``neck`` (here the RetinaNet config's FPN alone) builds as
+    tpudet's ``ChainedNeck``: the same param tree, ``neck/necks_0/...``,
+    and on the same variables the same outputs."""
+    import numpy as np
+
+    from tpudet_torch.utils.flax_import import (load_flax_variables,
+                                                random_flax_variables)
+    path = os.path.join(ROOT, 'configs/retinanet/retinanet_r50_fpn_1x_coco.py')
+    jcfg = JaxConfig.fromfile(path)['model']
+    jcfg = dict(jcfg, backbone=dict(jcfg['backbone'], depth=18),
+                neck=[dict(jcfg['neck'], in_channels=[64, 128, 256, 512],
+                           out_channels=16)],
+                bbox_head=dict(jcfg['bbox_head'], in_channels=16,
+                               feat_channels=16, stacked_convs=1))
+    jmodel = jax_build_detector(jcfg)
+    img = np.random.RandomState(0).uniform(-1, 1, (1, 64, 64, 3)).astype(
+        np.float32)
+    ref = _flat_shapes(jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                                      jnp.asarray(img)))
+    assert any(p[:3] == ('params', 'neck', 'necks_0') for p in ref)
+    model = build_detector(jcfg)
+    sd = model.state_dict()
+    got = {p: flax_shape(sd[key].shape, kind)
+           for p, (key, kind) in leaf_table(model).items()}
+    assert got == ref
+    variables = random_flax_variables(model, seed=1)
+    load_flax_variables(model, variables)
+    want = jmodel.apply(variables, jnp.asarray(img))
+    with torch.no_grad():
+        out = model.eval()(torch.from_numpy(img))
+    for w, o in zip(jax.tree.leaves(want), jax.tree.leaves(
+            jax.tree.map(lambda t: t.numpy(), out))):
+        np.testing.assert_allclose(o, np.asarray(w), rtol=1e-4, atol=1e-4)

@@ -1,7 +1,7 @@
 """Batched COCO-val testing: counterpart of ``single_device_test`` in
-``tpudet/apis/test.py:132-293`` on one process, without test-time
-augmentation, and of its mask path (``_mask_mode``,
-``masks_to_segm_results``).
+``tpudet/apis/test.py:132-293`` without test-time augmentation, of its
+mask path (``_mask_mode``, ``masks_to_segm_results``) and of its sharding
+over processes (``merge_sharded_results``, ``_gather_object_shards``).
 
 The model's forward, decode and NMS run on the model's device; the split
 into per-class arrays runs on the host. With masks, the paste and the
@@ -18,6 +18,9 @@ import torch
 
 from ..core.mask import encode_rle_batch, paste_masks
 from ..data.loader import DetDataLoader
+from ..parallel.mesh import all_gather_object, is_distributed
+from ..parallel.mesh import process_count as group_size
+from ..parallel.mesh import process_index as group_rank
 from .inference import nms_result_to_per_class
 
 MASK_ITEM = 'comes with ROADMAP.md\'s "rest of the zoo" item'
@@ -79,10 +82,35 @@ def masks_to_segm_results(mask_probs, res, metas, num_classes,
     return out
 
 
+def _gather_object_shards(local: list, process_count: int) -> list:
+    """Every rank's sparse result list, in rank order
+    (``tpudet/apis/test.py:95-118``, there over padded uint8 arrays; here
+    ``all_gather_object``, which pickles through the group)."""
+    shards = all_gather_object(local)
+    if len(shards) != process_count:
+        raise ValueError(f'{len(shards)} ranks gathered, not the '
+                         f'{process_count} the shards were cut for')
+    return shards
+
+
+def merge_sharded_results(shards, total: int) -> list:
+    """Merge per-rank sparse result lists (``[(idx, obj), ...]``) into a
+    dense dataset-ordered list; duplicate pad indices keep the first
+    (``tpudet/apis/test.py:121-130``)."""
+    out = [None] * total
+    for shard in shards:
+        for idx, obj in shard:
+            if out[idx] is None:
+                out[idx] = obj
+    return out
+
+
 def single_device_test(model, dataset, batch_size: int = 8,
                        img_size: int = 640, progress: bool = True,
                        with_masks: bool = False, mask_thr: float = 0.5,
-                       infer_fn=None):
+                       infer_fn=None, process_index: Optional[int] = None,
+                       process_count: Optional[int] = None,
+                       gather: bool = True):
     """Run detection over a test-mode dataset (its pipeline on the model's
     device); returns per-image per-class (n, 5) arrays in dataset order,
     and with ``with_masks`` (a detector with a mask branch) the two-tuple
@@ -91,7 +119,17 @@ def single_device_test(model, dataset, batch_size: int = 8,
     Batches are padded to at least ``img_size`` squares. ``infer_fn(img,
     scale_factor, img_hw) -> NMSResult`` replaces the model's forward,
     decode and NMS on the plain path, as in tpudet (which also passes its
-    variables)."""
+    variables).
+
+    Sharding, as tpudet's: each of ``process_count`` processes (the open
+    process group's size and this rank by default) tests a disjoint
+    rank-strided shard of the set, padded to equal lengths. With
+    ``gather`` and a process group open, the shards are all-gathered and
+    every rank returns the full dataset-ordered results; without a group
+    (shards cut by explicit ``process_index``/``process_count``) or with
+    ``gather=False``, a shard returns its sparse ``[(idx, result), ...]``
+    list (``(idx, (bbox, segm))`` with masks) for
+    ``merge_sharded_results``."""
     # single-stage heads, two-stage RoI heads, or the proposal-only RPN
     if hasattr(model, 'bbox_head'):
         num_classes = model.bbox_head.num_classes
@@ -105,6 +143,12 @@ def single_device_test(model, dataset, batch_size: int = 8,
     if infer_fn is not None and with_masks:
         raise ValueError('infer_fn override only supports the plain path')
     device = next(model.parameters()).device
+    if process_count is None:
+        process_count = group_size()
+        if process_index is None:
+            process_index = group_rank()
+    if process_index is None:
+        process_index = 0
 
     def infer(img, scale_factor, img_hw):
         pred_maps = model(img)
@@ -115,7 +159,8 @@ def single_device_test(model, dataset, batch_size: int = 8,
 
     loader = DetDataLoader(dataset, batch_size=batch_size, max_gts=1,
                            img_size=img_size, shuffle=False,
-                           drop_last=False)
+                           drop_last=False, process_index=process_index,
+                           process_count=process_count)
     results: List[Optional[list]] = [None] * len(dataset)
     segms: List[Optional[list]] = [None] * len(dataset)
     done = 0
@@ -145,7 +190,18 @@ def single_device_test(model, dataset, batch_size: int = 8,
                     results[meta['_idx']] = out
             done += len(batch['img_metas'])
             if progress and done % (batch_size * 20) == 0:
-                print(f'tested {done}/{len(dataset)}')
+                print(f'tested {done}/{len(dataset)} (shard '
+                      f'{process_index}/{process_count})')
+    if process_count > 1:
+        local = [(i, r if mode is None else (r, segms[i]))
+                 for i, r in enumerate(results) if r is not None]
+        if not gather or not is_distributed():
+            return local
+        merged = merge_sharded_results(
+            _gather_object_shards(local, process_count), len(dataset))
+        if mode is None:
+            return merged
+        return [m[0] for m in merged], [m[1] for m in merged]
     bbox_results = [r for r in results if r is not None]
     if mode is None:
         return bbox_results

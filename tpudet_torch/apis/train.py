@@ -10,8 +10,18 @@ epoch length that sets the cosine horizon, ``compute_dtype``, the NaN
 guard with its dump, tpudet's log line, a train-state checkpoint every
 ``checkpoint_config.interval`` epochs, resume from the latest one, the
 EMA evaluation with ``best_ema.msgpack``, and ``latest_ema.msgpack`` with
-the param checksum line at the end. One device: the global batch is
-``samples_per_gpu``, accumulation ``ceil(nominal_batch_size / global)``.
+the param checksum line at the end. The global batch is ``samples_per_gpu``
+times the number of processes, accumulation ``ceil(nominal_batch_size /
+global)``.
+
+Several processes (``parallel.init_distributed`` before the call, one
+device each) train one model as tpudet's SPMD program does
+(``tpudet/apis/train.py:72-327``): each loads its rank-strided shard of
+every batch, the train step syncs BatchNorm, the loss denominators and
+the gradients, rank 0's train state (its resumed checkpoint, if any) is
+broadcast at the start, only rank 0 writes checkpoints and weights (a
+barrier follows each write), every rank logs the final param checksum,
+and the EMA evaluation runs sharded over the ranks.
 
 A detector with ``forward_train`` (the two-stage family, ``FastRCNN``)
 trains through it (``tpudet/apis/train.py:167-196``): its arguments are
@@ -19,8 +29,7 @@ taken from the batch by name, a required name missing from the batch
 raises, and the total is the sum of the keys that contain ``loss``.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
-with no GPU they raise rather than run on the CPU. Multi-process training
-comes with a later slice (ROADMAP.md).
+with no GPU they raise rather than run on the CPU.
 """
 from __future__ import annotations
 
@@ -41,6 +50,8 @@ from ..data.device_aug import DeviceAug
 from ..data.loader import DetDataLoader, MosaicTileLoader
 from ..evaluation.mean_ap import coco_fast_bbox_eval
 from ..models.builder import build_detector
+from ..parallel.mesh import (barrier, broadcast_, process_count,
+                             process_index)
 from ..train.optim import YoloSGDConfig
 from ..train.train_state import (TrainState, create_train_state,
                                   make_train_step, model_losses)
@@ -99,7 +110,8 @@ def opt_config_from_cfg(cfg: Config, total_steps: int,
 
 
 class Trainer:
-    """A model, its train state and its train step on one device."""
+    """A model, its train state and its train step on one device (one
+    rank's, under a process group)."""
 
     def __init__(self, model, state: TrainState, train_step,
                  opt_cfg: YoloSGDConfig, accumulation: int, max_steps: int,
@@ -182,7 +194,9 @@ def forward_train_loss(model):
 
 
 def _accumulation(cfg: Config) -> int:
-    global_batch = cfg['data'].get('samples_per_gpu', 8)
+    """Micro-batches per optimizer step: the nominal batch over the
+    global batch, ``samples_per_gpu`` on every process."""
+    global_batch = cfg['data'].get('samples_per_gpu', 8) * process_count()
     nominal = cfg.get('nominal_batch_size', global_batch)
     return max(1, -(-nominal // global_batch))
 
@@ -247,12 +261,14 @@ def init_trainer(config: Union[str, Config],
     ``variables`` (``{'params', 'batch_stats'}`` numpy tree) or, without
     them, tpudet's init drawn from numpy seed ``cfg.seed``, on ``device``.
 
-    One device: the global batch is ``samples_per_gpu`` and the step
-    accumulates ``ceil(nominal_batch_size / samples_per_gpu)``
-    micro-batches. ``max_steps`` is the schedule's horizon (the cosine
-    runs per step over it); ``train_detector`` takes it from its loader
-    instead. ``compute_dtype='bfloat16'`` computes the forward in bf16 with
-    fp32 master weights and an fp32 loss.
+    The global batch is ``samples_per_gpu`` on each process (one, or the
+    ranks of an open process group) and the step accumulates
+    ``ceil(nominal_batch_size / global batch)`` micro-batches; the
+    caller gives each rank its own shard of a step's batch.
+    ``max_steps`` is the schedule's horizon (the cosine runs per step over
+    it); ``train_detector`` takes it from its loader instead.
+    ``compute_dtype='bfloat16'`` computes the forward in bf16 with fp32
+    master weights and an fp32 loss.
     """
     device = resolve_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
@@ -287,7 +303,8 @@ def ema_swapped_in(state: TrainState):
 def evaluate_ema(cfg: Config, trainer: Trainer, logger) -> Dict:
     """Evaluate the EMA weights on ``data.val``
     (``tpudet/apis/train.py:334-348``): ``single_device_test`` at batch
-    ``samples_per_gpu`` on the trainer's device, then
+    ``samples_per_gpu`` on the trainer's device, each rank on its shard of
+    the set and every rank with the gathered results, then
     ``coco_fast_bbox_eval``."""
     val_dataset = build_dataset({**cfg['data']['val'], 'test_mode': True},
                                 dict(device=trainer.device))
@@ -295,7 +312,8 @@ def evaluate_ema(cfg: Config, trainer: Trainer, logger) -> Dict:
         results = single_device_test(
             trainer.model, val_dataset,
             batch_size=cfg['data'].get('samples_per_gpu', 8),
-            progress=False)
+            progress=False, process_index=process_index(),
+            process_count=process_count())
     annotations = [
         val_dataset.get_ann_info_test(i) for i in range(len(val_dataset))
     ]
@@ -311,6 +329,16 @@ def ema_variables(trainer: Trainer) -> Dict:
     return {'params': flax.ema_params, 'batch_stats': flax.ema_batch_stats}
 
 
+def train_state_tensors(state: TrainState):
+    """Every tensor of a train state: the step, params, BN statistics,
+    their EMA copies and the optimizer's buffers."""
+    return ([state.step] + list(state.params.values()) +
+            list(state.batch_stats.values()) +
+            list(state.ema_params.values()) +
+            list(state.ema_batch_stats.values()) +
+            list(state.opt_state.momentum_buf.values()))
+
+
 def train_detector(cfg: Config,
                    work_dir: str,
                    max_steps: Optional[int] = None,
@@ -320,11 +348,14 @@ def train_detector(cfg: Config,
                    variables: Optional[Dict] = None) -> Dict[str, float]:
     """Config-driven training on ``device`` (``tpudet/apis/train.py:
     72-327``); ``variables`` (a tpudet ``{'params', 'batch_stats'}`` tree)
-    replace tpudet's init from ``cfg.seed``. Writes ``train.log``,
-    ``ckpts/<step>/``, ``best_ema.msgpack`` and ``latest_ema.msgpack`` into
-    ``work_dir``. Returns the last step's metrics."""
+    replace tpudet's init from ``cfg.seed``. Writes ``train.log`` into
+    ``work_dir`` and, on rank 0, ``ckpts/<step>/``, ``best_ema.msgpack``
+    and ``latest_ema.msgpack``. Under a process group each rank calls it
+    with its own device; rank 0's ``work_dir`` holds the checkpoints, and
+    a resume reads them there. Returns the last step's metrics."""
     device = resolve_device(device)
-    os.makedirs(work_dir, exist_ok=True)
+    rank, n_proc = process_index(), process_count()
+    os.makedirs(work_dir, exist_ok=True)  # every rank logs locally
     logger = get_root_logger(osp.join(work_dir, 'train.log'))
 
     dataset = build_dataset(cfg['data']['train'], dict(device=device))
@@ -333,21 +364,23 @@ def train_detector(cfg: Config,
             'training dataset is empty after filtering — check ann_file '
             'paths and that the dataset `classes` match the annotation '
             'category names (unknown categories are silently dropped)')
-    global_batch = cfg['data'].get('samples_per_gpu', 8)
+    global_batch = cfg['data'].get('samples_per_gpu', 8) * n_proc
     max_epochs = cfg.get('runner', {}).get('max_epochs', 300)
     accumulation = _accumulation(cfg)
-    loader_batch = global_batch * accumulation
+    # each rank loads its rank-strided shard of every step's batch
+    loader_batch = global_batch * accumulation // n_proc
+    shard = dict(process_index=rank, process_count=n_proc)
 
     if cfg['data'].get('device_aug') is not None:
         loader = MosaicTileLoader(
             dataset, batch_size=loader_batch,
             tile_size=cfg['data'].get('train_img_size', 640),
-            max_gts_per_tile=cfg['data'].get('max_gts', 120) // 4)
+            max_gts_per_tile=cfg['data'].get('max_gts', 120) // 4, **shard)
     else:
         loader = DetDataLoader(
             dataset, batch_size=loader_batch,
             max_gts=cfg['data'].get('max_gts', 120),
-            img_size=cfg['data'].get('train_img_size', 640))
+            img_size=cfg['data'].get('train_img_size', 640), **shard)
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         # a silently-empty loader would spin the epoch loop doing
@@ -355,13 +388,14 @@ def train_detector(cfg: Config,
         raise ValueError(
             f'training loader yields 0 steps/epoch: dataset has '
             f'{len(dataset)} samples but the global batch is '
-            f'{loader_batch} (samples_per_gpu x accumulation). Shrink the '
-            f'batch/accumulation or check that `classes` matches the '
-            f'annotation categories.')
+            f'{global_batch * accumulation} (samples_per_gpu x processes x '
+            f'accumulation). Shrink the batch/accumulation or check that '
+            f'`classes` matches the annotation categories.')
     total_steps = steps_per_epoch * max_epochs
     if max_steps is not None:
         total_steps = min(total_steps, max_steps)
     logger.info(
+        f'devices {n_proc} global / 1 local, process {rank}/{n_proc}, '
         f'device {device}'
         + (f' ({torch.cuda.get_device_name(device)})'
            if device.type == 'cuda' else '')
@@ -370,14 +404,16 @@ def train_detector(cfg: Config,
     trainer = _build_trainer(cfg, variables, device, total_steps,
                              steps_per_epoch)
     ckpt_dir = osp.join(work_dir, 'ckpts')
-    start_step = 0
-    if resume:
-        last = latest_step(ckpt_dir)
-        if last is not None:
-            trainer.state = load_train_state(ckpt_dir, trainer.model,
-                                             trainer.opt_cfg, last)
-            trainer.steps = start_step = last
-            logger.info(f'resumed from step {last}')
+    last = latest_step(ckpt_dir) if resume and rank == 0 else None
+    if last is not None:
+        trainer.state = load_train_state(ckpt_dir, trainer.model,
+                                         trainer.opt_cfg, last)
+    # every rank starts from rank 0's state: its init, or its checkpoint
+    broadcast_(train_state_tensors(trainer.state))
+    start_step = int(trainer.state.step)
+    if start_step:
+        trainer.steps = start_step
+        logger.info(f'resumed from step {start_step}')
 
     ckpt_interval_epochs = cfg.get('checkpoint_config', {}).get('interval', 5)
     eval_interval = eval_interval if eval_interval is not None else cfg.get(
@@ -398,12 +434,14 @@ def train_detector(cfg: Config,
                 try:
                     metrics = trainer.step(batch)
                 except FloatingPointError as e:
-                    # NaN guard: dump the state and stop, rather than train
-                    # on poisoned gradients
+                    # NaN guard (on the metrics summed over the ranks, so
+                    # every rank trips at once): dump the state and stop,
+                    # rather than train on poisoned gradients
                     logger.error(f'NaN guard tripped: {e}')
-                    save_train_state(osp.join(work_dir, 'nan_dump'),
-                                     trainer.state, trainer.model,
-                                     trainer.steps)
+                    if rank == 0:
+                        save_train_state(osp.join(work_dir, 'nan_dump'),
+                                         trainer.state, trainer.model,
+                                         trainer.steps)
                     raise FloatingPointError(
                         f'{e}; state dumped to {work_dir}/nan_dump') from e
                 step += 1
@@ -424,29 +462,37 @@ def train_detector(cfg: Config,
                 if max_steps is not None and step >= max_steps:
                     break
         if (epoch + 1) % ckpt_interval_epochs == 0:
-            save_train_state(ckpt_dir, trainer.state, trainer.model, step)
+            if rank == 0:
+                save_train_state(ckpt_dir, trainer.state, trainer.model,
+                                 step)
+            barrier()
         if eval_interval and (epoch + 1) % eval_interval == 0 and \
                 'val' in cfg.get('data', {}):
             report = evaluate_ema(cfg, trainer, logger)
-            # best-checkpoint tracking (reference eval_hooks.py:160)
+            # best-checkpoint tracking (reference eval_hooks.py:160); the
+            # gathered report is equal on every rank
             cur = report.get('map', float('nan'))
             if np.isfinite(cur) and cur > best_map:
                 best_map = cur
-                save_variables(osp.join(work_dir, 'best_ema.msgpack'),
-                               ema_variables(trainer),
-                               meta=dict(step=step, map=cur,
-                                         CLASSES=list(dataset.CLASSES)))
+                if rank == 0:
+                    save_variables(osp.join(work_dir, 'best_ema.msgpack'),
+                                   ema_variables(trainer),
+                                   meta=dict(step=step, map=cur,
+                                             CLASSES=list(dataset.CLASSES)))
+                barrier()
                 logger.info(f'new best map {cur:.4f} at step {step}')
         if max_steps is not None and step >= max_steps:
             break
 
-    # a checksum over the final params, as tpudet logs it (equal
-    # checksums across runs show equal states)
+    # every rank logs a checksum over its final params: equal checksums
+    # show equal states, across the ranks of a run and across runs
     checksum = sum(float(p.detach().double().abs().sum())
                    for p in trainer.state.params.values())
     logger.info(f'final param checksum {checksum:.9e} at step {step}')
     # publish EMA weights for inference
-    save_variables(osp.join(work_dir, 'latest_ema.msgpack'),
-                   ema_variables(trainer),
-                   meta=dict(step=step, CLASSES=list(dataset.CLASSES)))
+    if rank == 0:
+        save_variables(osp.join(work_dir, 'latest_ema.msgpack'),
+                       ema_variables(trainer),
+                       meta=dict(step=step, CLASSES=list(dataset.CLASSES)))
+    barrier()
     return {k: float(v) for k, v in metrics.items()}

@@ -7,6 +7,7 @@ import copy
 from typing import Dict, Optional
 
 import torch
+from torch import nn
 
 from ..registry import MODELS, build_from_cfg
 
@@ -14,10 +15,41 @@ from ..registry import MODELS, build_from_cfg
 # tpudet's Mask R-CNN-based detectors that the port does not build yet
 ZOO_DETECTORS = ('HybridTaskCascade', 'SCNet', 'MaskScoringRCNN',
                  'PointRend')
+# tpudet's necks that the port does not build yet
+ZOO_NECKS = ('BFP',)
 
 
 def _build(cfg: Dict):
     return build_from_cfg(copy.deepcopy(dict(cfg)), MODELS)
+
+
+class ChainedNeck(nn.Module):
+    """A sequence of necks, each fed the last one's outputs
+    (``tpudet/models/necks/fpn.py:135-145``; Libra R-CNN's FPN -> BFP).
+    The necks are ``necks_0``, ``necks_1``, ..., as flax names them."""
+
+    def __init__(self, necks):
+        super().__init__()
+        self.num_necks = len(necks)
+        for i, neck in enumerate(necks):
+            self.add_module(f'necks_{i}', neck)
+
+    def forward(self, x):
+        for i in range(self.num_necks):
+            x = getattr(self, f'necks_{i}')(x)
+        return x
+
+
+def _build_neck(cfg):
+    """A neck, or a chain of them for a list (``tpudet/models/
+    builder.py:48-53``)."""
+    if isinstance(cfg, (list, tuple)):
+        return ChainedNeck([_build_neck(c) for c in cfg])
+    if cfg['type'] in ZOO_NECKS:
+        raise NotImplementedError(
+            f'{cfg["type"]} is not ported; it comes with ROADMAP.md\'s "rest '
+            f'of the zoo" item')
+    return _build(cfg)
 
 
 def build_detector(cfg, train_cfg: Optional[Dict] = None,
@@ -47,7 +79,7 @@ def build_detector(cfg, train_cfg: Optional[Dict] = None,
         heads['bbox_head'] = _build(cfg.pop('bbox_head'))
     model = det_cls(
         backbone=_build(cfg.pop('backbone')),
-        neck=None if neck_cfg is None else _build(neck_cfg),
+        neck=None if neck_cfg is None else _build_neck(neck_cfg),
         train_cfg=dict(train_cfg) if train_cfg else None,
         test_cfg=dict(test_cfg) if test_cfg else None,
         **heads, **cfg)

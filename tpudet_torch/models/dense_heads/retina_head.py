@@ -30,6 +30,7 @@ from ...core.anchors import AnchorGenerator
 from ...core.assigners import NEGATIVE, max_iou_assign_batch
 from ...core.bbox import DeltaXYWHBBoxCoder
 from ...core.nms import batched_nms, topk_scores
+from ...parallel.mesh import global_count, global_sum
 from ...registry import HEADS
 from .. import losses as L
 from ..layers import Conv
@@ -147,7 +148,7 @@ class RetinaHead(nn.Module):
             self.neg_iou_thr, self.min_pos_iou, True)  # (B, A)
         pos = assigned >= 0
         neg = assigned == NEGATIVE
-        num_pos = torch.clamp_min(pos.float().sum(), 1.0)
+        num_pos = torch.clamp_min(global_sum(pos.float().sum()), 1.0)
         gt_idx = assigned.clamp_min(0)
         matched_labels = torch.gather(gt_labels.long(), 1, gt_idx)
         # one-hot with zero rows for labels out of range, as jax.nn.one_hot
@@ -168,8 +169,9 @@ class RetinaHead(nn.Module):
                               weight=pos[..., None].float(),
                               avg_factor=num_pos,
                               loss_weight=self.loss_bbox_weight)
-        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox,
-                    num_gts=gt_valid.float().sum(dim=1).mean())
+        num_gts = gt_valid.float().sum() / global_count(gt_valid.shape[0],
+                                                        gt_valid.device)
+        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox, num_gts=num_gts)
 
     def get_bboxes(self, preds, scale_factors=None, score_thr: float = 0.05,
                    iou_thr: float = 0.5, max_per_img: int = 100,

@@ -31,6 +31,7 @@ from ...core.anchors import AnchorGenerator
 from ...core.assigners import NEGATIVE, max_iou_assign_batch, priority_rank
 from ...core.bbox import DeltaXYWHBBoxCoder
 from ...core.nms import _gather_rows, nms_padded, topk_scores
+from ...parallel.mesh import global_sum
 from ...registry import HEADS
 from .. import losses as L
 from ..layers import Conv
@@ -135,7 +136,7 @@ class RPNHead(nn.Module):
         neg_keep = neg & (priority_rank(neg, priority) <
                           self.num_samples - n_pos_kept)
         sampled = pos_keep | neg_keep
-        num_total = torch.clamp_min(sampled.float().sum(), 1.0)
+        num_total = torch.clamp_min(global_sum(sampled.float().sum()), 1.0)
 
         loss_cls = L.bce_loss(cls_flat, pos_keep.float(),
                               weight=sampled.float(), avg_factor=num_total)

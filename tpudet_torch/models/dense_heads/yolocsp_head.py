@@ -21,6 +21,7 @@ from ...core.bbox import YOLOV4BBoxCoder
 from ...core.nms import (batched_class_lane_nms, batched_class_sorted_nms,
                          batched_dense_class_nms, batched_nms, topk_scores)
 from ...core.targets import responsible_matches
+from ...parallel.mesh import global_count, global_sum
 from ...registry import HEADS
 from .. import losses as L
 from ..layers import Conv
@@ -246,7 +247,10 @@ class YOLOCSPHead(nn.Module):
 
         Returns:
             dict with loss_cls / loss_conf / loss_bbox scalars (weighted and
-            level-balanced, ready to sum) and num_gts.
+            level-balanced, ready to sum) and num_gts. While a process
+            group is open, each is this rank's share: its sums over the
+            counts of every rank's batch (``parallel.global_sum``), so the
+            ranks' shares add up to tpudet's value on the whole batch.
         """
         levels, _, _ = self._grid(pred_maps)
         anchor_whs = self.anchor_generator.base_anchor_wh()
@@ -278,7 +282,11 @@ class YOLOCSPHead(nn.Module):
             tlabel = gt_labels.repeat_interleave(slots_per_gt, dim=1)
 
             giou_l = L.giou_loss(pbox, tbox, reduction='none')  # (B, M)
-            num_pos = torch.clamp_min(mask.sum(), 1.0)
+            # the positives and the conf terms of every rank's batch
+            num_pos, num_conf = global_sum(torch.stack([
+                mask.sum(), mask.new_tensor(float(pred.shape[0] *
+                                                  pred.shape[1]))]))
+            num_pos = torch.clamp_min(num_pos, 1.0)
             total_bbox = total_bbox + ((giou_l * mask).sum() / num_pos *
                                        self.loss_bbox_weight)
 
@@ -304,10 +312,11 @@ class YOLOCSPHead(nn.Module):
                 1, idx, conf_t, 'amax', include_self=True)
             conf_bce = L.binary_cross_entropy_with_logits(pred[..., 4],
                                                           target_conf)
-            total_conf = total_conf + (conf_bce.mean() *
+            total_conf = total_conf + (conf_bce.sum() / num_conf *
                                        self.loss_conf_weight *
                                        self.conf_level_balance[lvl])
 
-        num_gts = gt_valid.float().sum(dim=1).mean()
+        num_gts = gt_valid.float().sum() / global_count(gt_valid.shape[0],
+                                                        gt_valid.device)
         return dict(loss_cls=total_cls, loss_conf=total_conf,
                     loss_bbox=total_bbox, num_gts=num_gts)

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ...core.nms import NMSResult
+from ...parallel.mesh import global_count
 from ...registry import DETECTORS
 from .base import BaseDetector
 from .two_stage import proposal_kwargs, rcnn_kwargs
@@ -82,7 +83,8 @@ class FastRCNN(BaseDetector):
         cls_logits, deltas = self.roi_head(feats, rois, sampled)
         losses = self.roi_head.loss(cls_logits, deltas, labels, targets,
                                     pos, sampled, rois=rois)
-        losses['num_gts'] = gt_valid.float().sum(dim=1).mean()
+        losses['num_gts'] = (gt_valid.float().sum() / global_count(
+            gt_valid.shape[0], gt_valid.device))
         return losses
 
     def get_bboxes(self, outputs, scale_factors=None, **kwargs):

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ...parallel.mesh import global_count
 from ...registry import DETECTORS
 from .base import BaseDetector
 
@@ -70,7 +71,8 @@ class TwoStageDetector(BaseDetector):
         """The RPN and RoI losses of a batch (padded gts, xyxy)."""
         losses, _ = self.two_stage_losses(self.extract_feat(img), img,
                                           gt_bboxes, gt_labels, gt_valid)
-        losses['num_gts'] = gt_valid.float().sum(dim=1).mean()
+        losses['num_gts'] = (gt_valid.float().sum() / global_count(
+            gt_valid.shape[0], gt_valid.device))
         return losses
 
     def two_stage_losses(self, feats, img, gt_bboxes, gt_labels, gt_valid):

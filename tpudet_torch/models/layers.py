@@ -23,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mish import mish_cuda
+from ..parallel.mesh import (global_sum, is_distributed, process_count,
+                             process_index)
 
 # the CSP family's BN convention (tpudet/models/layers.py:33, DARKNET_BN:
 # eps 1e-3, flax decay 0.97 == torch momentum 0.03)
@@ -133,8 +135,66 @@ def cast_weights(model: nn.Module, dtype: torch.dtype) -> None:
             m.to(dtype)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """BatchNorm's training forward and backward over the batch of every
+    rank (tpudet's global statistics, ``tpudet/models/layers.py:95-100``
+    under a sharded batch axis): one all-reduce of the statistics in the
+    forward, one of two channel sums in the backward.
+
+    The forward all-reduces a (ranks, 2C+1) buffer in which each rank
+    fills its own row with its pixel count per channel, its mean and the
+    sum of squared deviations about that mean (one fused ``var_mean``
+    pass, fp32 or wider), so every rank holds every rank's statistics;
+    Chan's formula merges them: ``M2 = sum M2_r + sum n_r (mean_r -
+    mean)^2``. No ``E[x^2] - E[x]^2``, which cancels in low precision.
+    The output is normalized with the global mean and the biased global
+    variance in one ``F.batch_norm`` pass.
+
+    The backward all-reduces ``(sum dy, sum dy x_hat)`` per channel and
+    gives ``dx = w invstd (dy - sum dy / N - x_hat sum dy x_hat / N)``;
+    the gradients of the scale and bias are this rank's sums, which the
+    step's gradient all-reduce adds up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        stat_dtype = torch.promote_types(x.dtype, torch.float32)
+        c = x.shape[1]
+        var, mean = torch.var_mean(x.to(stat_dtype), (0, 2, 3),
+                                   correction=0)
+        n = x.numel() // c
+        rows = x.new_zeros((process_count(), 2 * c + 1), dtype=stat_dtype)
+        rows[process_index()] = torch.cat([mean.new_full((1,), n), mean,
+                                           var * n])
+        rows = global_sum(rows)
+        counts = rows[:, :1]
+        total = counts.sum()
+        means = rows[:, 1:c + 1]
+        mean = (counts * means).sum(0) / total
+        var = (rows[:, c + 1:].sum(0) +
+               (counts * (means - mean) ** 2).sum(0)) / total
+        y = F.batch_norm(x, mean, var, weight, bias, False, 0., eps)
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.total = total
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean_grad, _var_grad):
+        x, weight, mean, invstd = ctx.saved_tensors
+        col = (1, -1, 1, 1)
+        dy = dy.to(mean.dtype)
+        x_hat = (x.to(mean.dtype) - mean.view(col)) * invstd.view(col)
+        local = torch.stack([dy.sum((0, 2, 3)),
+                             (dy * x_hat).sum((0, 2, 3))])
+        sums = global_sum(local) / ctx.total
+        dx = (weight.to(mean.dtype) * invstd).view(col) * (
+            dy - sums[0].view(col) - x_hat * sums[1].view(col))
+        return dx.to(x.dtype), local[1], local[0], None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` with flax's running-variance rule in train mode.
+    """``nn.BatchNorm2d`` with flax's running-variance rule in train mode,
+    and SyncBN while a process group is open.
 
     Both normalize with the batch mean and the biased batch variance, but
     torch moves ``running_var`` toward the *unbiased* variance
@@ -150,6 +210,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     the activations. (The copy, not ``running_var`` itself, goes to
     ``F.batch_norm``: autograd keeps its input and refuses a later
     in-place change to it.)
+
+    While a process group is open (``parallel/mesh.py``, of any size) a
+    training forward runs ``_SyncBatchNorm``: the statistics, the
+    normalization and the running update are those of every rank's batch
+    together, as tpudet's are over its sharded batch axis, and the
+    running variance moves toward the biased global variance. Not
+    ``nn.SyncBatchNorm``, which moves it toward the unbiased one.
     """
 
     def forward(self, x):
@@ -158,6 +225,13 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
         m = (self.momentum if self.momentum is not None
              else 1.0 / float(self.num_batches_tracked))
+        if is_distributed():
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps)
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var, alpha=m)
+            return y
         var = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
                          True, m, self.eps)

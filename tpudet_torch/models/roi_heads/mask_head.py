@@ -28,6 +28,7 @@ from torch import nn
 
 from ...core.assigners import max_iou_assign_batch
 from ...core.mask import mask_targets_from_gt_frame
+from ...parallel.mesh import global_count, global_sum
 from ...registry import DETECTORS, HEADS
 from .. import losses as L
 from ..detectors.two_stage import TwoStageDetector
@@ -114,7 +115,8 @@ class MaskRoIHead(StandardRoIHead):
         bce = L.binary_cross_entropy_with_logits(per_roi,
                                                  targets.clamp(0., 1.))
         pos = pos.to(dtype)
-        denom = torch.clamp_min(pos.sum(), 1.0) * self.mask_size ** 2
+        denom = torch.clamp_min(global_sum(pos.sum()), 1.0) * \
+            self.mask_size ** 2
         return dict(loss_mask=(bce * pos[:, :, None, None]).sum() / denom)
 
 
@@ -136,7 +138,8 @@ class MaskRCNN(TwoStageDetector):
         losses.update(self.roi_head.mask_loss(
             mask_logits, rois, pos, gt_idx, gt_bboxes, gt_frame_masks,
             labels))
-        losses['num_gts'] = gt_valid.float().sum(dim=1).mean()
+        losses['num_gts'] = (gt_valid.float().sum() / global_count(
+            gt_valid.shape[0], gt_valid.device))
         return losses
 
     def predict_masks(self, img, det_bboxes, det_valid,

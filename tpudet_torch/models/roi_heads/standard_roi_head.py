@@ -34,6 +34,7 @@ from ...core.assigners import max_iou_assign_batch, priority_rank
 from ...core.bbox import DeltaXYWHBBoxCoder
 from ...core.nms import (NEG_INF, NMSResult, _class_offsets, _gather_rows,
                          nms_padded, topk_scores)
+from ...parallel.mesh import global_sum
 from ...ops.roi_align import batched_multilevel_roi_align
 from ...registry import HEADS
 from .. import losses as L
@@ -179,7 +180,7 @@ class StandardRoIHead(nn.Module):
         """Softmax cross-entropy and the class-specific L1 (or smooth L1,
         beta 1) of the deltas, in fp32 (``standard_roi_head.py:222-255``).
         """
-        num_total = torch.clamp_min(sampled.float().sum(), 1.0)
+        num_total = torch.clamp_min(global_sum(sampled.float().sum()), 1.0)
         logp = F.log_softmax(cls_logits.float(), dim=-1)
         ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
         loss_cls = (ce * sampled).sum() / num_total

@@ -1,9 +1,11 @@
 """Evaluate a detector on a config's test set with the port: counterpart of
-``tools/test.py``, on one device.
+``tools/test.py``.
 
     python -m tpudet_torch.tools.test CONFIG [CHECKPOINT] [--batch-size 8]
         [--img-size 640] [--metrics|--eval bbox [segm]] [--mask-thr 0.5]
         [--out FILE] [--format-out PREFIX] [--device cuda|cpu]
+        [--coordinator HOST:PORT --num-processes N --process-id I
+         [--dist-backend nccl|gloo] [--dist-timeout SECONDS]]
 
 CHECKPOINT is a ``*.msgpack`` weights file (``train_detector``'s
 ``best_ema.msgpack`` / ``latest_ema.msgpack``, or tpudet's); without it
@@ -15,14 +17,19 @@ for ``segm`` (a detector with a mask branch; masks binarized at
 ``segm``, ``<prefix>.segm.json``. The device is ``cuda`` unless
 ``--device cpu`` asks for the CPU; with no GPU the default raises.
 
-Test-time augmentation, the ``proposal_fast`` metric and multi-process
-evaluation (``--coordinator``/``--num-processes``/``--process-id``) are
-parsed as tpudet parses them and raise ``NotImplementedError``:
-ROADMAP.md's "rest of the eval flow" and "distributed training" items
-port them.
+With several processes (the flags of ``tools/train.py``, started once
+per process), each tests a rank-strided shard of the set, the results
+are all-gathered, and only process 0 prints and writes, as tpudet's
+``tools/test.py:78-95``; the report is the one process's.
+
+Test-time augmentation and the ``proposal_fast`` metric are parsed as
+tpudet parses them and raise ``NotImplementedError``: ROADMAP.md's "rest
+of the eval flow" item ports them.
 """
 import argparse
 import json
+
+from tpudet_torch.tools.train import add_dist_args, init_from_args
 
 
 def parse_args(argv=None):
@@ -39,15 +46,12 @@ def parse_args(argv=None):
                    help='mask binarisation threshold')
     p.add_argument('--tta', action='store_true',
                    help='flip test-time augmentation (not ported yet)')
-    p.add_argument('--coordinator', default=None,
-                   help='multi-process evaluation (not ported yet)')
-    p.add_argument('--num-processes', type=int, default=None)
-    p.add_argument('--process-id', type=int, default=None)
     p.add_argument('--out', help='dump the report as json')
     p.add_argument('--format-out',
                    help='dump detections in the COCO result format to '
                         '<prefix>.bbox.json / <prefix>.segm.json')
     p.add_argument('--device', default='cuda', help="'cuda' or 'cpu'")
+    add_dist_args(p)
     return p.parse_args(argv)
 
 
@@ -57,17 +61,22 @@ def _refuse_unported(args):
         raise NotImplementedError(f'--tta {eval_item}')
     if 'proposal_fast' in args.metrics:
         raise NotImplementedError(f'--metrics proposal_fast {eval_item}')
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            '--coordinator/--num-processes/--process-id come with '
-            'ROADMAP.md\'s "distributed training" item')
 
 
 def main(argv=None):
     args = parse_args(argv)
     _refuse_unported(args)
 
+    from tpudet_torch.parallel import close_distributed, process_index
+
+    device = init_from_args(args)
+    try:
+        return _evaluate(args, device, process_index())
+    finally:
+        close_distributed()
+
+
+def _evaluate(args, device, rank):
     import torch
 
     from tpudet_torch.apis import init_detector, single_device_test
@@ -77,7 +86,7 @@ def main(argv=None):
                                          coco_fast_segm_eval)
 
     cfg = Config.fromfile(args.config)
-    det = init_detector(cfg, args.checkpoint, device=args.device,
+    det = init_detector(cfg, args.checkpoint, device=device,
                         dtype=torch.float32)
     dataset = build_dataset({**cfg['data']['test'], 'test_mode': True},
                             dict(device=det.device))
@@ -99,6 +108,10 @@ def main(argv=None):
         report.update(coco_fast_segm_eval(results, segm_results,
                                           annotations,
                                           classes=dataset.CLASSES))
+    # every rank holds the gathered report; only rank 0 prints and
+    # writes, since ranks racing on one path corrupt it
+    if rank != 0:
+        return report
     print(json.dumps(report, indent=2))
     if args.out:
         with open(args.out, 'w') as f:

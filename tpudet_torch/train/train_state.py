@@ -9,6 +9,15 @@ warm-up schedules, and the EMA fold over params and BN statistics.
 PyTorch idiom in place of the pure function: the state holds the model's
 own parameter and buffer tensors, and the step updates them in place, so
 the model always computes with the state it is given.
+
+Under a process group (``parallel/mesh.py``) each rank runs this step on
+its own shard of the batch: its losses are its shares of the global
+losses (their denominators count every rank's batch), BatchNorm syncs its
+statistics, and the gradients are summed over the ranks in one
+all-reduce after the micro-batch loop, before the clip sees them, so
+every rank takes tpudet's step on the global batch and keeps an equal
+state. Rank ``r``'s micro-batch ``i`` is its own ``i``-th slice; the
+global micro-batch ``i`` is those slices of every rank together.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import all_reduce_grads, global_sum
 from .ema import ema_momentum, ema_update
 from .optim import SGDState, YoloSGDConfig, make_yolo_sgd, param_labels
 
@@ -91,7 +101,9 @@ def make_train_step(model: nn.Module,
     ``metrics``: ``loss`` (the summed losses, mean over micro-batches),
     ``loss_cls``, ``loss_conf``, ``loss_bbox``, ``num_gts`` (means over
     micro-batches), ``grad_norm`` (before clipping), ``lr`` (the weight
-    group's) and ``momentum``; 0-d tensors on the device.
+    group's) and ``momentum``; 0-d tensors on the device. Under a process
+    group every entry of a loss dict is a rank's share, and the metrics
+    are the shares summed over the ranks: equal on every rank.
     """
     _, opt_update = make_yolo_sgd(opt_cfg, param_labels(model))
     compute_losses = loss_fn or (lambda mb: model_losses(model, mb))
@@ -110,6 +122,7 @@ def make_train_step(model: nn.Module,
             total.backward()
             totals.append(total.detach())
             seq.append({k: v.detach() for k, v in losses.items()})
+        all_reduce_grads(state.params.values())
         grads = {n: p.grad for n, p in state.params.items()}
         _, _, opt_metrics = opt_update(grads, state.opt_state, state.params,
                                        state.step)
@@ -120,10 +133,11 @@ def make_train_step(model: nn.Module,
         ema_update(state.ema_params, state.params, m_t)
         ema_update(state.ema_batch_stats, state.batch_stats, m_t)
         state.step += 1
-        metrics = dict(loss=torch.stack(totals).mean(),
-                       **{k: torch.stack([s[k] for s in seq]).mean()
-                          for k in seq[0]},
-                       **opt_metrics)
+        shares = dict(loss=torch.stack(totals).mean(),
+                      **{k: torch.stack([s[k] for s in seq]).mean()
+                         for k in seq[0]})
+        summed = global_sum(torch.stack(list(shares.values())))
+        metrics = dict(zip(shares, summed.unbind()), **opt_metrics)
         return state, metrics
 
     return train_step
