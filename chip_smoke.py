@@ -138,13 +138,29 @@ Phases, in order; any failure exits non-zero:
    committed shapes set (only rank 0 writes ``latest_ema.msgpack``,
    equal checksums), then ``tpudet_torch.tools.test`` on those weights
    with 2 processes against 1 (equal reports);
-14. output: a ``kernels`` JSON line (with each kernel's share of its
+14. the other datasets, flip TTA, the image demo and the garbage
+   recipe, YOLOv4-l 640 (phase 4's draw, BN statistics measured on the
+   set as in phase 5): (a) the committed shapes val set written as VOC
+   XML, a ``GarbageDataset`` json, a ``.circle`` folder and an LVIS json,
+   every image through each dataset on the card bit-equal to
+   ``CocoDataset``'s (and the same eval annotations), ``single_device_test``
+   through ``VOCDataset`` equal to the one through ``CocoDataset``, then
+   ``XMLDataset.evaluate`` mAP and recall; (b) flip TTA bf16 at batch 8
+   (216 / 0 launches a batch), timed against the plain flow in turns,
+   device busy, the merge NMS against the plain path's; fp32 card vs CPU
+   on 2 images; the test CLI with ``--tta --metrics bbox proposal_fast``
+   against the API; (c) ``python -m tpudet_torch.demo.image_demo`` in a
+   subprocess, its lines and its PNG against the in-process call (108 /
+   0); (d) ``train_detector`` on ``configs/garbage/yolov4l_garbage_mosaic.py``
+   over the shapes train set as a ``GarbageDataset`` json, 2 bf16 steps of
+   6 x 10 images (648 / 648 launches a step), step ms and loader wait;
+15. output: a ``kernels`` JSON line (with each kernel's share of its
    bound and its launches on every path), the whole run's seconds, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Phase 1 also prints which JPEG decoders (libjpeg, nvJPEG) the machine
 holds. The script reads the fixtures from ``tests/torch_fixtures/jpeg``
-of the checkout.
+and (phase 14) ``tests/torch_fixtures/shapes`` of the checkout.
 
 Times come from CUDA events: warm-up, then the median of the timed runs.
 Kernel times (and their plain and library counterparts) replay a CUDA
@@ -4847,6 +4863,542 @@ def run_data_parallel(torch, tree):
             for name in ('mish_fwd', 'mish_bwd')}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the other datasets, flip TTA, the image demo, the garbage
+# recipe (tpudet_torch/data/custom.py, apis/test.py, visualization.py,
+# demo/image_demo.py)
+
+SHAPES = os.path.join(ROOT, 'tests/torch_fixtures/shapes')
+SHAPES_CLASSES = ('rect', 'circle', 'triangle')
+TTA_FP32_IMAGES = 2  # fp32 TTA card vs CPU: two forwards of YOLOv4-l
+DEMO_IMAGE = os.path.join(SHAPES, 'val/images/000000.jpg')
+DEMO_DRAWN = 20  # the demo's threshold: the 20th score of the image
+CONFIG_GARBAGE = os.path.join(ROOT,
+                              'configs/garbage/yolov4l_garbage_mosaic.py')
+GARBAGE_MICRO = 10  # x ACCUMULATION = 60 images a step; the set holds 64
+GARBAGE_STEPS = 2
+
+
+def shapes_sets(tmp, pipeline):
+    """The committed shapes val set (32 JPEGs, 3 classes) in every
+    layout, each read by its dataset on the card in test mode: COCO,
+    VOC XML, a ``GarbageDataset`` json, a ``.circle`` folder, LVIS."""
+    from tpudet_torch.data import (CocoDataset, GarbageDataset, LVISDataset,
+                                   TrafficSignDataset, VOCDataset)
+    from tpudet_torch.tools import dataset_formats as formats
+    ann = os.path.join(SHAPES, 'val.json')
+    with open(ann) as f:
+        coco = json.load(f)
+    img_dir = os.path.join(SHAPES, 'val', 'images')
+    common = dict(pipeline=pipeline, test_mode=True, device='cuda')
+    voc = formats.write_voc(coco, img_dir, os.path.join(tmp, 'voc'))
+    circle = formats.write_circle(coco, img_dir, os.path.join(tmp, 'circle'))
+    return coco, {
+        'coco': CocoDataset(ann_file=ann, img_prefix=img_dir,
+                            classes=SHAPES_CLASSES, **common),
+        'voc': VOCDataset(ann_file=voc, img_prefix=os.path.join(tmp, 'voc'),
+                          classes=SHAPES_CLASSES, **common),
+        'garbage': GarbageDataset(
+            ann_file=formats.write_custom(coco, os.path.join(tmp, 'custom')),
+            img_prefix=img_dir, classes=SHAPES_CLASSES, **common),
+        'circle': TrafficSignDataset(ann_file=circle, img_prefix=circle,
+                                     **common),
+        'lvis': LVISDataset(
+            ann_file=formats.write_lvis(coco, os.path.join(tmp, 'lvis')),
+            img_prefix=img_dir, **common)}
+
+
+def check_shapes_sets(torch, sets):
+    """(a) Every image through every dataset: the pipeline's output on the
+    card bit-equal to ``CocoDataset``'s (image, ``scale_factor``,
+    ``img_shape``), the eval annotations equal (the boxes only for the
+    one-class ``.circle`` layout)."""
+    import numpy as np
+    ref_ds = sets['coco']
+    n = len(ref_ds)
+    if any(len(ds) != n for ds in sets.values()) or n != 32:
+        raise AssertionError(f'set lengths {[len(d) for d in sets.values()]}')
+    t0 = time.perf_counter()
+    for i in range(n):
+        ref = ref_ds[i]
+        ref_ann = ref_ds.get_ann_info_test(i)
+        if ref['img'].device.type != 'cuda':
+            raise AssertionError('the pipeline did not run on the card')
+        for name, ds in sets.items():
+            if name == 'coco':
+                continue
+            out = ds[i]
+            if not torch.equal(out['img'], ref['img']) or \
+                    out['img_shape'] != ref['img_shape'] or \
+                    not np.array_equal(out['scale_factor'],
+                                       ref['scale_factor']):
+                raise AssertionError(f'{name} image {i}: the pipeline '
+                                     f'output differs from CocoDataset\'s')
+            ann = ds.get_ann_info_test(i)
+            keys = ['gt_bboxes'] if name == 'circle' else ['gt_bboxes',
+                                                           'gt_labels']
+            same = all(np.array_equal(ann[k], ref_ann[k]) for k in keys)
+            if name != 'circle':
+                same = same and all(
+                    np.array_equal(ann['gt_attrs'][k], ref_ann['gt_attrs'][k])
+                    for k in ('ignore', 'iscrowd', 'area'))
+            if not same:
+                raise AssertionError(f'{name} image {i}: eval annotations '
+                                     f'differ from CocoDataset\'s')
+    log(f'datasets on the card, {n} images each, pipeline output and eval '
+        f'annotations equal to CocoDataset\'s: {sorted(sets)} '
+        f'({time.perf_counter() - t0:.1f} s)')
+
+
+def same_results(a, b):
+    import numpy as np
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.array_equal(u, v) for u, v in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def match_with_ties(ref, got, iou_thr):
+    """Per image and class, greedy one-to-one pairs at IoU >= MATCH_IOU and
+    scores within DET_ATOL; an unpaired detection is explained by the other
+    side's NMS when a detection there overlaps it by more than ``iou_thr``
+    and scores no lower than it less DET_ATOL (near-tied mirrored
+    candidates of flip TTA, ordered either way by the two devices' fp32
+    rounding). Returns (paired, n_ref, n_got, unpaired, unexplained)."""
+    import numpy as np
+    paired = n_ref = n_got = unpaired = unexplained = 0
+    for r_img, g_img in zip(ref, got):
+        for r, g in zip(r_img, g_img):
+            n_ref, n_got = n_ref + len(r), n_got + len(g)
+            if not (len(r) and len(g)):
+                unpaired += len(r) + len(g)
+                unexplained += len(r) + len(g)
+                continue
+            iou = _iou(r[:, :4], g[:, :4])
+            close = np.abs(r[:, None, 4] - g[None, :, 4]) <= DET_ATOL
+            ok = (iou >= MATCH_IOU) & close
+            used = np.zeros(len(g), bool)
+            lost = []
+            for i in range(len(r)):
+                cand = np.nonzero(ok[i] & ~used)[0]
+                if len(cand):
+                    used[cand[0]] = True
+                    paired += 1
+                else:
+                    lost.append(i)
+            over = iou > iou_thr
+            unexplained += sum(
+                not (over[i] & (g[:, 4] >= r[i, 4] - DET_ATOL)).any()
+                for i in lost)
+            unexplained += sum(
+                not (over[:, j] & (r[:, 4] >= g[j, 4] - DET_ATOL)).any()
+                for j in np.nonzero(~used)[0])
+            unpaired += len(lost) + int((~used).sum())
+    return paired, n_ref, n_got, unpaired, unexplained
+
+
+def tta_nms_ms(torch, det, batch):
+    """ms of the two NMS calls on one batch's candidates: TTA's merge (one
+    ``batched_nms``, ``nms_pre=4096``, over both passes' candidates) and
+    the plain path's ``batched_class_lane_nms`` over one pass's."""
+    from tpudet_torch.core.nms import batched_class_lane_nms, batched_nms
+    model, cfg_t = det.model, dict(det.model.test_cfg)
+    img = batch['img'].cuda()
+    sf = torch.as_tensor(batch['scale_factor'], device='cuda')
+    with torch.inference_mode():
+        boxes, scores = [], []
+        for x in (img, img.flip(2)):
+            b, s = model.bbox_head.get_bboxes(model(x), with_nms=False)
+            boxes.append(b / sf[:, None, :])
+            scores.append(s)
+        cat_b, cat_s = torch.cat(boxes, 1), torch.cat(scores, 1)
+        return dict(
+            tta_candidates=int(cat_s.shape[1] * cat_s.shape[2]),
+            tta_nms_ms=cuda_ms(lambda: batched_nms(
+                cat_b, cat_s, 0.001, 0.65, 300, nms_pre=4096), runs=10),
+            plain_nms_ms=cuda_ms(lambda: batched_class_lane_nms(
+                boxes[0], scores[0], cfg_t['score_thr'],
+                cfg_t['nms']['iou_threshold'], cfg_t['max_per_img'],
+                lane_pre=cfg_t['lane_pre'], class_pre=cfg_t['class_pre']),
+                runs=10))
+
+
+def check_tta_fp32(torch, cfg, tree, coco, tmp):
+    """(b) fp32 (TF32 off, PyTorch's defaults again after it) flip TTA on
+    the set's first TTA_FP32_IMAGES images, decoded on the card with
+    nvJPEG and fed as arrays to the card and the CPU. The merge's inputs
+    (both passes' candidates, recorded at ``batched_nms``): each image's
+    scores, sorted, within DET_ATOL. The merge on the CPU's candidates,
+    run on both: one-to-one at IoU >= MATCH_IOU. The detections:
+    ``match_with_ties``, none unexplained."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _tta_fp32(torch, cfg, tree, coco, tmp)
+    finally:  # as a new process has them (the image demo's)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _tta_fp32(torch, cfg, tree, coco, tmp):
+    import numpy as np
+    from tpudet_torch.apis import (init_detector, nms_result_to_per_class,
+                                   single_device_test)
+    from tpudet_torch.apis import test as api_test
+    from tpudet_torch.ops import jpeg
+    first = dict(coco, images=coco['images'][:TTA_FP32_IMAGES])
+    arrays = {}
+    for im in first['images']:
+        with open(os.path.join(SHAPES, 'val/images', im['file_name']),
+                  'rb') as f:
+            arrays[im['id']] = jpeg.decode_image(f.read(),
+                                                 'cuda').cpu().numpy()
+    out, merged_in = {}, {}
+    nms = api_test.batched_nms
+    for device in ('cuda', 'cpu'):
+        det = init_detector(cfg, variables=tree, device=device,
+                            dtype=torch.float32)
+        ds = array_dataset(cfg, arrays, first, device, tmp,
+                           classes=SHAPES_CLASSES)
+        calls = []
+
+        def recorded(bbox, scores, *args, **kwargs):
+            calls.append((bbox, scores, args, kwargs))
+            return nms(bbox, scores, *args, **kwargs)
+
+        api_test.batched_nms = recorded
+        try:
+            t0 = time.perf_counter()
+            out[device] = single_device_test(det.model, ds,
+                                             batch_size=TTA_FP32_IMAGES,
+                                             img_size=IMG, progress=False,
+                                             tta=True)
+        finally:
+            api_test.batched_nms = nms
+        log(f'fp32 TTA on {device}, {TTA_FP32_IMAGES} images: '
+            f'{time.perf_counter() - t0:.1f} s')
+        merged_in[device] = calls[0]
+        del det
+        torch.cuda.empty_cache()
+    card, cpu = merged_in['cuda'], merged_in['cpu']
+    score_gap = max(float(np.abs(
+        np.sort(card[1][i].float().cpu().numpy().ravel()) -
+        np.sort(cpu[1][i].numpy().ravel())).max())
+        for i in range(TTA_FP32_IMAGES))
+    same_in = [nms(cpu[0].to(device), cpu[1].to(device), *cpu[2], **cpu[3])
+               for device in ('cuda', 'cpu')]
+    nms_pairs = [match_per_class(r, g, MATCH_IOU) for r, g in zip(*(
+        nms_result_to_per_class(res, 80) for res in same_in[::-1]))]
+    nms_total = [sum(m[k] for m in nms_pairs) for k in range(3)]
+    m = match_with_ties(out['cpu'], out['cuda'], 0.65)
+    log(f'fp32 TTA, card vs CPU: the merge\'s {card[1].shape[1]} x '
+        f'{card[1].shape[2]} candidate scores an image, sorted, within '
+        f'{score_gap:.3e} (tolerance {DET_ATOL}); the merge on the CPU\'s '
+        f'candidates, card vs CPU: {nms_total[0]} paired of {nms_total[1]} '
+        f'/ {nms_total[2]}; the detections: {m[0]} paired of {m[1]} / '
+        f'{m[2]} (per class, IoU >= {MATCH_IOU}, scores within {DET_ATOL}),'
+        f' {m[3]} unpaired, all but {m[4]} near-tied swaps')
+    if not score_gap <= DET_ATOL or not \
+            nms_total[0] == nms_total[1] == nms_total[2] > 0 or \
+            m[1] == 0 or m[4]:
+        raise AssertionError('fp32 TTA on the card differs from the CPU')
+    return dict(score_gap=score_gap, merge_on_same_candidates=nms_total,
+                detections=m)
+
+
+def run_tta(torch, cfg, tree, coco, ds, tmp):
+    """(b) flip TTA, bf16, the set at batch 8 through
+    ``single_device_test(tta=True)`` once with every count at 0 just
+    before (216 / 0 launches a batch), the plain and the TTA flow timed in
+    turns, each profiled once; the two NMS calls timed; fp32 card vs CPU;
+    then the test CLI with ``--tta --metrics bbox proposal_fast`` against
+    the API. Returns the launches a batch and the numbers."""
+    import numpy as np
+    from tpudet_torch.apis import init_detector, single_device_test
+    from tpudet_torch.data import DetDataLoader, build_dataset
+    from tpudet_torch.evaluation import (coco_fast_bbox_eval,
+                                         coco_proposal_fast_eval)
+    from tpudet_torch.ops import mish
+    from tpudet_torch.tools import test as cli
+    from tpudet_torch.utils.checkpoint import save_variables
+    batches = -(-len(ds) // BATCH)
+    det = init_detector(cfg, variables=tree, device='cuda',
+                        dtype=torch.bfloat16)
+    kw = dict(batch_size=BATCH, img_size=IMG, progress=False)
+    torch.cuda.synchronize()
+    mish.mish_cuda.launches = 0
+    mish.mish_backward_cuda.launches = 0
+    results = single_device_test(det.model, ds, tta=True, **kw)
+    torch.cuda.synchronize()
+    launches = {'mish_fwd': mish.mish_cuda.launches,
+                'mish_bwd': mish.mish_backward_cuda.launches}
+    log(f'TTA eval flow launches over {batches} batches: '
+        f'{json.dumps(launches)}')
+    if launches != {'mish_fwd': 2 * MISH_PER_FORWARD * batches,
+                    'mish_bwd': 0}:
+        raise AssertionError(f'TTA launches {launches}, not '
+                             f'{2 * MISH_PER_FORWARD} forward per batch')
+    n_det = sum(len(a) for r in results for a in r)
+    if len(results) != len(ds) or any(
+            len(r) != 80 or any(a.ndim != 2 or a.shape[1] != 5 or
+                                not np.isfinite(a).all() for a in r)
+            for r in results) or not n_det:
+        raise AssertionError('a missing, malformed or non-finite TTA result')
+
+    walls = {'plain': [], 'tta': []}
+    for mode in ('plain', 'tta', 'tta', 'plain', 'plain', 'tta'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single_device_test(det.model, ds, tta=mode == 'tta', **kw)
+        torch.cuda.synchronize()
+        walls[mode].append((time.perf_counter() - t0) * 1e3 / batches)
+    numbers = dict(detections=n_det,
+                   plain_ms_per_batch=walls['plain'],
+                   tta_ms_per_batch=walls['tta'],
+                   tta_over_plain=statistics.median(walls['tta']) /
+                   statistics.median(walls['plain']))
+    for mode in ('plain', 'tta'):
+        prof = profile_device(
+            torch, lambda: single_device_test(det.model, ds,
+                                              tta=mode == 'tta', **kw),
+            f'{mode} eval run', calls=1, top=12)
+        if prof:
+            numbers[f'{mode}_busy_ms_per_batch'] = prof[1] / batches
+            numbers[f'{mode}_busy_share'] = prof[1] / prof[0]
+    loader = DetDataLoader(ds, batch_size=BATCH, max_gts=1, img_size=IMG,
+                           shuffle=False, drop_last=False)
+    numbers.update(tta_nms_ms(torch, det, loader._collate(
+        [ds[i] for i in range(BATCH)])))
+    log('flip TTA against the plain eval flow, bf16 batch 8: '
+        + json.dumps(numbers))
+    del det
+    torch.cuda.empty_cache()
+
+    numbers['fp32_card_vs_cpu'] = check_tta_fp32(torch, cfg, tree, coco,
+                                                 tmp)
+
+    # the test CLI with both flags against the API, fp32
+    ckpt = os.path.join(tmp, 'weights.msgpack')
+    save_variables(ckpt, tree)
+    cfg_file = os.path.join(tmp, 'tta_config.py')
+    with open(cfg_file, 'w') as f:
+        f.write(f'_base_ = {CONFIG!r}\n'
+                f"data = dict(test=dict(type='CocoDataset', "
+                f'ann_file={os.path.join(SHAPES, "val.json")!r}, '
+                f'img_prefix={os.path.join(SHAPES, "val", "images")!r}, '
+                f'classes={SHAPES_CLASSES!r}, '
+                f'pipeline={cfg["data"]["test"]["pipeline"]!r}))\n')
+    t0 = time.perf_counter()
+    report = cli.main([cfg_file, ckpt, '--batch-size', str(BATCH),
+                       '--img-size', str(IMG), '--tta', '--metrics', 'bbox',
+                       'proposal_fast'])
+    cli_s = time.perf_counter() - t0
+    api_det = init_detector(cfg_file, ckpt, device='cuda',
+                            dtype=torch.float32)
+    api_ds = build_dataset({**api_det.cfg['data']['test'],
+                            'test_mode': True}, dict(device='cuda'))
+    api = single_device_test(api_det.model, api_ds, tta=True, **kw)
+    annos = [api_ds.get_ann_info_test(i) for i in range(len(api_ds))]
+    ref = dict(coco_fast_bbox_eval(api, annos, classes=api_ds.CLASSES),
+               **coco_proposal_fast_eval(api, annos))
+    gap = max(abs(report[k] - v) for k, v in ref.items()
+              if not (math.isnan(v) and math.isnan(report[k])))
+    log(f'test CLI --tta --metrics bbox proposal_fast ({cli_s:.1f} s): '
+        f'{json.dumps(report)}; the API: {json.dumps(ref)}; max |delta| '
+        f'{gap:.3e} (tolerance {REPORT_ATOL})')
+    if list(report) != list(ref) or not gap <= REPORT_ATOL or \
+            'AR@1000' not in report:
+        raise AssertionError('the test CLI --tta report differs from the '
+                             'API\'s')
+    numbers['cli_s'] = cli_s
+    del api_det
+    torch.cuda.empty_cache()
+    return {k: v // batches for k, v in launches.items()}, ckpt, numbers
+
+
+def run_image_demo(torch, ckpt, tmp):
+    """(c) ``python -m tpudet_torch.demo.image_demo`` on one shapes JPEG
+    with ``--out-file x.png``, in a subprocess: its lines equal to the
+    in-process ``inference_detector`` call's (108 / 0 launches, counted
+    from 0 just before it), its PNG read back equal to the array that
+    ``imshow_det_bboxes`` returns in-process."""
+    # TF32 as a new process has it (PyTorch's defaults: on for cuDNN's
+    # convolutions, off for matmuls); earlier phases turned it off
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _image_demo(torch, ckpt, tmp)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _image_demo(torch, ckpt, tmp):
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    from tpudet_torch.apis import inference_detector, init_detector
+    from tpudet_torch.ops import mish
+    from tpudet_torch.visualization import imshow_det_bboxes, read_png
+    det = init_detector(CONFIG, ckpt, device='cuda', dtype=torch.float32)
+    torch.cuda.synchronize()
+    mish.mish_cuda.launches = 0
+    mish.mish_backward_cuda.launches = 0
+    t0 = time.perf_counter()
+    result = inference_detector(det, DEMO_IMAGE)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = {'mish_fwd': mish.mish_cuda.launches,
+                'mish_bwd': mish.mish_backward_cuda.launches}
+    if launches != {'mish_fwd': MISH_PER_FORWARD, 'mish_bwd': 0}:
+        raise AssertionError(f'image demo call launches {launches}')
+    scores = sorted((float(b[4]) for a in result for b in a), reverse=True)
+    thr = float(f'{scores[min(DEMO_DRAWN, len(scores)) - 1]:.4f}') \
+        if scores else 0.3
+    lines = io.StringIO()
+    with redirect_stdout(lines):
+        kept = 0
+        for cls, arr in enumerate(result):
+            for box in arr:
+                if box[4] >= thr:
+                    print(f'{det.CLASSES[cls]}: score={box[4]:.3f} '
+                          f'box=({box[0]:.1f},{box[1]:.1f},{box[2]:.1f},'
+                          f'{box[3]:.1f})')
+                    kept += 1
+        print(f'{kept} detections above {thr}')
+    png = os.path.join(tmp, 'demo.png')
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'tpudet_torch.demo.image_demo', DEMO_IMAGE,
+         CONFIG, ckpt, '--score-thr', str(thr), '--out-file', png],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    demo_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f'image_demo exited {proc.returncode}: '
+                             f'{proc.stderr[-3000:]}')
+    if proc.stdout != lines.getvalue():
+        raise AssertionError(f'image_demo printed other lines:\n'
+                             f'{proc.stdout[-2000:]}\nnot\n'
+                             f'{lines.getvalue()[-2000:]}')
+    drawn = imshow_det_bboxes(DEMO_IMAGE, result, det.CLASSES,
+                              score_thr=thr, device='cuda')
+    written = read_png(png)
+    if not np.array_equal(written, drawn):
+        raise AssertionError('the demo\'s PNG differs from '
+                             'imshow_det_bboxes\' array')
+    numbers = dict(detections_drawn=kept, score_thr=thr, call_ms=call_ms,
+                   subprocess_s=demo_s, png_bytes=os.path.getsize(png))
+    log(f'image_demo in a subprocess: {kept} lines equal to the in-process '
+        f'call, its PNG {written.shape} equal to imshow_det_bboxes\' array; '
+        + json.dumps(numbers))
+    del det
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def run_garbage_recipe(torch, tmp):
+    """(d) ``train_detector`` on the garbage recipe (YOLOv4-l 640, 44
+    classes, tpudet's init from the config's seed), its train and val sets
+    the committed shapes sets written as ``GarbageDataset`` jsons, bf16,
+    micro-batches of GARBAGE_MICRO x ACCUMULATION: GARBAGE_STEPS steps,
+    each with the counts at 0 just before (``LoopProbe``)."""
+    from tpudet_torch.apis import train_detector
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import GarbageDataset, build_dataset
+    from tpudet_torch.tools import dataset_formats as formats
+    cfg = Config.fromfile(CONFIG_GARBAGE)
+    data = dict(cfg['data'], samples_per_gpu=GARBAGE_MICRO)
+    for split, name in (('train', 'train'), ('val', 'val'), ('test', 'val')):
+        with open(os.path.join(SHAPES, f'{name}.json')) as f:
+            coco = json.load(f)
+        ann = formats.write_custom(coco, os.path.join(tmp, f'garbage_{name}'))
+        data[split] = dict(data[split], ann_file=ann, img_prefix=os.path.join(
+            SHAPES, name, 'images'))
+    cfg['data'] = data
+    cfg['nominal_batch_size'] = GARBAGE_MICRO * ACCUMULATION
+    cfg['compute_dtype'] = 'bfloat16'
+    cfg['log_config'] = dict(interval=1)
+    train_set = build_dataset(data['train'], dict(device='cuda'))
+    if type(train_set) is not GarbageDataset or len(train_set) != 64:
+        raise AssertionError(f'the recipe built {type(train_set).__name__} '
+                             f'of {len(train_set)} images')
+    del train_set
+    with LoopProbe(torch) as probe:
+        t0 = time.perf_counter()
+        train_detector(cfg, os.path.join(tmp, 'garbage'),
+                       max_steps=GARBAGE_STEPS, device='cuda')
+        wall = time.perf_counter() - t0
+    check_loop_rows(probe.rows, list(range(1, GARBAGE_STEPS + 1)))
+    if probe.trainers[0].accumulation != ACCUMULATION:
+        raise AssertionError('not 6 micro-batches a step')
+    del probe.trainers[:]
+    torch.cuda.empty_cache()
+    numbers = dict(loop_summary(probe.rows, GARBAGE_MICRO * ACCUMULATION),
+                   train_detector_s=wall)
+    log('train_detector, garbage recipe: ' + json.dumps(numbers))
+    return probe.rows[-1]['launches'], numbers
+
+
+def run_other_datasets(torch):
+    """Phase 14: (a) the datasets, (b) flip TTA, (c) the image demo, (d)
+    the garbage recipe. The YOLOv4-l weights are phase 5's draw: phase
+    4's from numpy seed 0, BN statistics measured on this set's first
+    batch at EVAL_BN_SCALE. Returns the launches of each path."""
+    import tempfile
+
+    from tpudet_torch.apis import init_detector, single_device_test
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import DetDataLoader
+    cfg = Config.fromfile(CONFIG)
+    launches, numbers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        coco, sets = shapes_sets(tmp, cfg['data']['test']['pipeline'])
+        check_shapes_sets(torch, sets)
+        first = DetDataLoader(sets['coco'], batch_size=BATCH,
+                              img_size=IMG)._collate(
+            [sets['coco'][i] for i in range(BATCH)])['img'].cpu().numpy()
+        tree = make_variables(torch, cfg, first, bn_scale=EVAL_BN_SCALE)
+        det = init_detector(cfg, variables=tree, device='cuda',
+                            dtype=torch.bfloat16)
+        kw = dict(batch_size=BATCH, img_size=IMG, progress=False)
+        by_coco = single_device_test(det.model, sets['coco'], **kw)
+        by_voc = single_device_test(det.model, sets['voc'], **kw)
+        if not same_results(by_voc, by_coco):
+            raise AssertionError('single_device_test through VOCDataset '
+                                 'differs from CocoDataset')
+        numbers['voc'] = dict(sets['voc'].evaluate(by_voc, metric='mAP'),
+                              **sets['voc'].evaluate(by_voc,
+                                                     metric='recall'))
+        log(f'single_device_test through VOCDataset equals CocoDataset\'s '
+            f'(0 delta, {sum(len(a) for r in by_voc for a in r)} '
+            f'detections); XMLDataset.evaluate mAP and recall (random '
+            f'weights): {json.dumps(numbers["voc"])}')
+        del det
+        torch.cuda.empty_cache()
+        numbers['datasets_s'] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        launches['tta_eval_batch'], ckpt, numbers['tta'] = run_tta(
+            torch, cfg, tree, coco, sets['coco'], tmp)
+        numbers['tta_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches['image_demo_call'], numbers['image_demo'] = \
+            run_image_demo(torch, ckpt, tmp)
+        numbers['image_demo_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches['garbage_train_step'], numbers['garbage'] = \
+            run_garbage_recipe(torch, tmp)
+        numbers['garbage_s'] = time.perf_counter() - t0
+    log('other datasets, TTA, demo, garbage recipe: ' + json.dumps(numbers))
+    return {k: {path: v[k] for path, v in launches.items()}
+            for k in ('mish_fwd', 'mish_bwd')}
+
+
 def main():
     try:
         import torch
@@ -4944,7 +5496,13 @@ def main():
     dist_launches = run_data_parallel(torch, tree)
     log(f'data-parallel phases: {time.perf_counter() - t0:.1f} s')
 
-    # 14. output
+    # 14. the other datasets, flip TTA, the image demo, the garbage
+    # recipe; each path with counts at 0 just before
+    t0 = time.perf_counter()
+    other_launches = run_other_datasets(torch)
+    log(f'other datasets phases: {time.perf_counter() - t0:.1f} s')
+
+    # 15. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -4982,6 +5540,7 @@ def main():
             paths.update(two_stage_launches[k['name']])
             paths.update(mask_launches[k['name']])
             paths.update(dist_launches[k['name']])
+            paths.update(other_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all')

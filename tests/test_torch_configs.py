@@ -7,7 +7,8 @@ The configs under ``configs/yolov4/``, ``configs/yolov5/`` and
 the 13 RetinaNet configs (``configs/retinanet/``, the fp16, Pascal VOC and
 shapes variants: ResNet-50/101, ResNeXt-101 32x4d and 64x4d), and the 11
 two-stage configs (``configs/faster_rcnn/``, the fp16, Pascal VOC and
-Cityscapes Faster R-CNN, ``rpn/`` and ``fast_rcnn/``), each read by
+Cityscapes Faster R-CNN, ``rpn/`` and ``fast_rcnn/``), and the fork's
+two recipes and the from-scratch Faster R-CNN (3), each read by
 both packages' ``Config``: the port's model is built on the meta
 device (no weights drawn), tpudet's tree comes from ``jax.eval_shape`` of
 its ``init`` (no weights computed either; ``FastRCNN`` also takes padded
@@ -24,6 +25,11 @@ or a Mask R-CNN-based head (GN, GN+WS, DCN, GCB, HTC, SCNet, MS R-CNN,
 PointRend) raise ``NotImplementedError`` naming ROADMAP.md's "rest of the
 zoo" item, and so do the 2 Libra R-CNN configs (a list ``neck`` builds
 as tpudet's chain of necks; its ``BFP`` is not ported).
+
+Every config whose ``data.train/val/test`` name a dataset other than
+``CocoDataset`` (9, wrappers' inner datasets included) has each of those
+types registered in the port, as the class of the same name ported from
+tpudet's module of the same name, with tpudet's class names.
 """
 import glob
 import os
@@ -62,6 +68,13 @@ TWO_STAGE_CONFIGS = sorted(
                     'configs/rpn/rpn_r50_fpn_1x_coco.py',
                     'configs/fast_rcnn/fast_rcnn_r50_fpn_1x_coco.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
+
+# configs that build but sit outside the families above: the fork's two
+# recipes and training from scratch
+OTHER_CONFIGS = sorted([
+    'configs/garbage/yolov4l_garbage_mosaic.py',
+    'configs/tencent/yolov4l_traffic_sign.py',
+    'configs/scratch/faster_rcnn_r50_fpn_gn-all_scratch_6x_coco.py'])
 
 MASK_CONFIGS = sorted(
     os.path.relpath(p, ROOT)
@@ -110,8 +123,14 @@ def test_the_two_stage_sweep_holds_eleven_configs():
     assert len(TWO_STAGE_CONFIGS) == 11
 
 
+def test_the_other_sweep_holds_three_configs():
+    assert all(os.path.exists(os.path.join(ROOT, c)) for c in OTHER_CONFIGS)
+    assert not set(OTHER_CONFIGS) & set(CONFIGS + RETINA_CONFIGS +
+                                        TWO_STAGE_CONFIGS)
+
+
 @pytest.mark.parametrize('config', CONFIGS + RETINA_CONFIGS +
-                         TWO_STAGE_CONFIGS)
+                         TWO_STAGE_CONFIGS + OTHER_CONFIGS)
 def test_config_builds_with_tpudets_param_tree(config):
     path = os.path.join(ROOT, config)
     model_cfg = JaxConfig.fromfile(path)['model']
@@ -216,3 +235,66 @@ def test_a_neck_list_builds_as_tpudets_chain():
     for w, o in zip(jax.tree.leaves(want), jax.tree.leaves(
             jax.tree.map(lambda t: t.numpy(), out))):
         np.testing.assert_allclose(o, np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+def _dataset_types(data_cfg):
+    """The dataset types a ``data.train/val/test`` dict names, wrappers'
+    inner datasets included."""
+    out = set()
+    if isinstance(data_cfg, (list, tuple)):
+        for d in data_cfg:
+            out |= _dataset_types(d)
+    elif isinstance(data_cfg, dict):
+        if 'type' in data_cfg:
+            out.add(data_cfg['type'])
+        for key in ('dataset', 'datasets'):
+            out |= _dataset_types(data_cfg.get(key))
+    return out
+
+
+def _configs_with_other_datasets():
+    out = []
+    for p in sorted(glob.glob(os.path.join(ROOT, 'configs/**/*.py'),
+                              recursive=True)):
+        data = JaxConfig.fromfile(p).get('data') or {}
+        types = set().union(*(_dataset_types(data.get(k))
+                              for k in ('train', 'val', 'test')))
+        if types - {'CocoDataset'}:
+            out.append(os.path.relpath(p, ROOT))
+    return out
+
+
+DATASET_CONFIGS = [
+    'configs/cityscapes/faster_rcnn_r50_fpn_1x_cityscapes.py',
+    'configs/deepfashion/mask_rcnn_r50_fpn_15e_deepfashion.py',
+    'configs/garbage/yolov4l_garbage_mosaic.py',
+    'configs/lvis/mask_rcnn_r50_fpn_sample1e-3_mstrain_1x_lvis_v1.py',
+    'configs/pascal_voc/faster_rcnn_r50_fpn_1x_voc0712.py',
+    'configs/pascal_voc/retinanet_r50_fpn_1x_voc0712.py',
+    'configs/pascal_voc/ssd300_voc0712.py',
+    'configs/tencent/yolov4l_traffic_sign.py',
+    'configs/wider_face/ssd300_wider_face.py']
+
+
+def test_the_dataset_sweep_holds_every_config_with_other_datasets():
+    assert _configs_with_other_datasets() == DATASET_CONFIGS
+
+
+@pytest.mark.parametrize('config', DATASET_CONFIGS)
+def test_config_dataset_types_resolve_to_the_ported_classes(config):
+    import tpudet.data  # noqa: F401  (registers the datasets)
+    import tpudet_torch.data  # noqa: F401
+    from tpudet.registry import DATASETS as JDATASETS
+    from tpudet_torch.registry import DATASETS
+    data = Config.fromfile(os.path.join(ROOT, config))['data']
+    types = set().union(*(_dataset_types(data[k])
+                          for k in ('train', 'val', 'test')))
+    assert types - {'CocoDataset'}
+    for t in types:
+        cls, ref = DATASETS.get(t), JDATASETS.get(t)
+        assert cls is not None, t
+        assert cls.__name__ == ref.__name__ == t
+        assert cls.__module__ == ref.__module__.replace('tpudet.',
+                                                        'tpudet_torch.')
+        assert getattr(cls, 'CLASSES', None) == getattr(ref, 'CLASSES',
+                                                        None)

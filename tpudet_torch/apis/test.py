@@ -1,7 +1,8 @@
-"""Batched COCO-val testing: counterpart of ``single_device_test`` in
-``tpudet/apis/test.py:132-293`` without test-time augmentation, of its
-mask path (``_mask_mode``, ``masks_to_segm_results``) and of its sharding
-over processes (``merge_sharded_results``, ``_gather_object_shards``).
+"""Batched COCO-val testing: counterpart of ``tpudet/apis/test.py``
+(``single_device_test`` with its flip test-time augmentation
+``tta_get_bboxes``, its mask path ``_mask_mode`` and
+``masks_to_segm_results``, and its sharding over processes
+``merge_sharded_results`` and ``_gather_object_shards``).
 
 The model's forward, decode and NMS run on the model's device; the split
 into per-class arrays runs on the host. With masks, the paste and the
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.mask import encode_rle_batch, paste_masks
+from ..core.nms import batched_nms
 from ..data.loader import DetDataLoader
 from ..parallel.mesh import all_gather_object, is_distributed
 from ..parallel.mesh import process_count as group_size
@@ -24,6 +26,42 @@ from ..parallel.mesh import process_index as group_rank
 from .inference import nms_result_to_per_class
 
 MASK_ITEM = 'comes with ROADMAP.md\'s "rest of the zoo" item'
+
+
+def tta_get_bboxes(model, aug_imgs, aug_scale_factors, aug_flips,
+                   score_thr=0.001, iou_thr=0.65, max_per_img=300,
+                   nms_pre=4096):
+    """Test-time augmentation (``tpudet/apis/test.py:20-54``): each
+    augmented batch through the model and the head's decode without NMS
+    (``bbox_head.get_bboxes(..., with_nms=False)``, so a head without that
+    argument raises), its boxes mapped back to the original images
+    (divided by the scale factors; a flipped batch's x mirrored about
+    ``w = canvas_w / sf_x``, the canvas's width in the original frame),
+    the candidate sets concatenated, then one ``batched_nms`` of the top
+    ``nms_pre`` (box, class) pairs.
+
+    Args:
+        aug_imgs: list of (B, H, W, 3) tensors, one per augmentation.
+        aug_scale_factors: list of (B, 4) letterbox scale factors.
+        aug_flips: list of bool (horizontal flip applied?).
+    """
+    all_boxes, all_scores = [], []
+    for img, sf, flip in zip(aug_imgs, aug_scale_factors, aug_flips):
+        out = model.bbox_head.get_bboxes(model(img), with_nms=False)
+        bbox, scores = out[0], out[1]
+        if flip:
+            w = img.shape[2] / sf[:, None, 0]  # original-space width
+            x1 = w - bbox[..., 2] / sf[:, None, 0]
+            x2 = w - bbox[..., 0] / sf[:, None, 0]
+            bbox = torch.stack([x1, bbox[..., 1] / sf[:, None, 1], x2,
+                                bbox[..., 3] / sf[:, None, 3]], dim=-1)
+        else:
+            bbox = bbox / sf[:, None, :]
+        all_boxes.append(bbox)
+        all_scores.append(scores)
+    return batched_nms(torch.cat(all_boxes, dim=1),
+                       torch.cat(all_scores, dim=1), score_thr, iou_thr,
+                       max_per_img, nms_pre=nms_pre)
 
 
 def _mask_mode(model):
@@ -110,7 +148,10 @@ def single_device_test(model, dataset, batch_size: int = 8,
                        with_masks: bool = False, mask_thr: float = 0.5,
                        infer_fn=None, process_index: Optional[int] = None,
                        process_count: Optional[int] = None,
-                       gather: bool = True):
+                       gather: bool = True, tta: bool = False,
+                       tta_score_thr: float = 0.001,
+                       tta_iou_thr: float = 0.65,
+                       tta_max_per_img: int = 300):
     """Run detection over a test-mode dataset (its pipeline on the model's
     device); returns per-image per-class (n, 5) arrays in dataset order,
     and with ``with_masks`` (a detector with a mask branch) the two-tuple
@@ -120,6 +161,11 @@ def single_device_test(model, dataset, batch_size: int = 8,
     scale_factor, img_hw) -> NMSResult`` replaces the model's forward,
     decode and NMS on the plain path, as in tpudet (which also passes its
     variables).
+
+    With ``tta``, each batch runs twice, as it is and flipped along W on
+    the device, and ``tta_get_bboxes`` merges the two candidate sets
+    (``tta_score_thr``, ``tta_iou_thr``, ``tta_max_per_img``); it refuses
+    masks and ``infer_fn``, as tpudet does.
 
     Sharding, as tpudet's: each of ``process_count`` processes (the open
     process group's size and this rank by default) tests a disjoint
@@ -140,7 +186,9 @@ def single_device_test(model, dataset, batch_size: int = 8,
     mode = _mask_mode(model) if with_masks else None
     if with_masks and mode is None:
         raise ValueError(f'{type(model).__name__} has no mask branch')
-    if infer_fn is not None and with_masks:
+    if tta and mode is not None:
+        raise ValueError('TTA with masks is not supported')
+    if infer_fn is not None and (tta or with_masks):
         raise ValueError('infer_fn override only supports the plain path')
     device = next(model.parameters()).device
     if process_count is None:
@@ -170,7 +218,12 @@ def single_device_test(model, dataset, batch_size: int = 8,
             img = batch['img'].to(device)
             scale_factor = torch.as_tensor(batch['scale_factor'],
                                            device=device)
-            if mode is None:
+            if tta:
+                res = tta_get_bboxes(
+                    model, [img, img.flip(2)], [scale_factor] * 2,
+                    [False, True], score_thr=tta_score_thr,
+                    iou_thr=tta_iou_thr, max_per_img=tta_max_per_img)
+            elif mode is None:
                 img_hw = torch.as_tensor(
                     np.array([m['img_shape'][:2] if m.get('img_shape')
                               else img.shape[1:3]

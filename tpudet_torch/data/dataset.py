@@ -1,13 +1,15 @@
 """CocoDataset: COCO index + pipeline driver. Counterpart of
-``tpudet/data/dataset.py:37-250`` (``build_dataset``, ``CocoDataset``):
+``tpudet/data/dataset.py`` (``build_dataset``, ``CocoDataset`` and its
+subclasses ``CityscapesDataset``, ``WIDERFaceDataset``,
+``DeepFashionDataset`` and ``LVISDataset``):
 annotation loading, empty-image filtering, aspect-ratio group flags, the
 ``batch_rand_others`` partner sampling, retry-on-empty ``__getitem__``, the
 eval-annotation view with ignore/iscrowd/area attributes that the fast-bbox
 evaluator reads, and ``results2json``.
 
 The pipeline's image ops run on ``device`` (``cuda`` unless the caller
-asks for the CPU); annotations stay on the host. The subclasses
-(Cityscapes, LVIS and the rest) come with later slices.
+asks for the CPU); annotations stay on the host. The annotation-list
+datasets and the dataset wrappers are in ``custom.py``.
 
 The dataset's random draws (Mosaic partners, the retry index, and the
 random transforms, which reach it through ``results['dataset']``) come
@@ -253,3 +255,38 @@ class CocoDataset:
                 return data
             idx = self.rng.randint(0, len(self) - 1)
         return data
+
+
+@DATASETS.register_module()
+class CityscapesDataset(CocoDataset):
+    """Cityscapes in COCO format (``tpudet/data/dataset.py:252-256``)."""
+    CLASSES = ('person', 'rider', 'car', 'truck', 'bus', 'train',
+               'motorcycle', 'bicycle')
+
+
+@DATASETS.register_module()
+class WIDERFaceDataset(CocoDataset):
+    """WIDER Face in COCO format (``tpudet/data/dataset.py:259-262``)."""
+    CLASSES = ('face',)
+
+
+@DATASETS.register_module()
+class DeepFashionDataset(CocoDataset):
+    """DeepFashion in COCO format (``tpudet/data/dataset.py:265-270``)."""
+    CLASSES = ('top', 'skirt', 'leggings', 'dress', 'outer', 'pants', 'bag',
+               'neckwear', 'headwear', 'eyeglass', 'belt', 'footwear',
+               'hair', 'skin', 'face')
+
+
+@DATASETS.register_module()
+class LVISDataset(CocoDataset):
+    """LVIS v1 in COCO format (``tpudet/data/dataset.py:273-284``): the
+    class names are the annotation file's categories, in id order, unless
+    ``classes`` names them."""
+    CLASSES = ()
+
+    def __init__(self, ann_file, pipeline, **kwargs):
+        coco = COCO(ann_file)
+        names = [c['name'] for _, c in sorted(coco.cats.items())]
+        kwargs.setdefault('classes', names)
+        super().__init__(ann_file, pipeline, **kwargs)

@@ -2,8 +2,9 @@
 ``tools/test.py``.
 
     python -m tpudet_torch.tools.test CONFIG [CHECKPOINT] [--batch-size 8]
-        [--img-size 640] [--metrics|--eval bbox [segm]] [--mask-thr 0.5]
-        [--out FILE] [--format-out PREFIX] [--device cuda|cpu]
+        [--img-size 640] [--metrics|--eval bbox [segm] [proposal_fast]]
+        [--mask-thr 0.5] [--tta] [--out FILE] [--format-out PREFIX]
+        [--device cuda|cpu]
         [--coordinator HOST:PORT --num-processes N --process-id I
          [--dist-backend nccl|gloo] [--dist-timeout SECONDS]]
 
@@ -11,20 +12,21 @@ CHECKPOINT is a ``*.msgpack`` weights file (``train_detector``'s
 ``best_ema.msgpack`` / ``latest_ema.msgpack``, or tpudet's); without it
 the model takes tpudet's init from numpy seed 0. The detector computes in
 fp32, as tpudet's test CLI does. Prints the report as JSON and returns
-it: the fast-bbox keys for ``bbox``, the ``segm_*`` keys of the mask mAP
-for ``segm`` (a detector with a mask branch; masks binarized at
-``--mask-thr``). ``--format-out`` writes ``<prefix>.bbox.json`` and, with
-``segm``, ``<prefix>.segm.json``. The device is ``cuda`` unless
-``--device cpu`` asks for the CPU; with no GPU the default raises.
+it, in tpudet's order: the fast-bbox keys for ``bbox``, ``AR@100``,
+``AR@300`` and ``AR@1000`` (``coco_proposal_fast_eval``) for
+``proposal_fast``, the ``segm_*`` keys of the mask mAP for ``segm`` (a
+detector with a mask branch; masks binarized at ``--mask-thr``).
+``--tta`` evaluates with flip test-time augmentation
+(``single_device_test(tta=True)``: the batch and its mirror image, one
+merged NMS); it refuses ``segm``, as tpudet's. ``--format-out`` writes
+``<prefix>.bbox.json`` and, with ``segm``, ``<prefix>.segm.json``. The
+device is ``cuda`` unless ``--device cpu`` asks for the CPU; with no GPU
+the default raises.
 
 With several processes (the flags of ``tools/train.py``, started once
 per process), each tests a rank-strided shard of the set, the results
 are all-gathered, and only process 0 prints and writes, as tpudet's
 ``tools/test.py:78-95``; the report is the one process's.
-
-Test-time augmentation and the ``proposal_fast`` metric are parsed as
-tpudet parses them and raise ``NotImplementedError``: ROADMAP.md's "rest
-of the eval flow" item ports them.
 """
 import argparse
 import json
@@ -41,11 +43,13 @@ def parse_args(argv=None):
     p.add_argument('--img-size', type=int, default=640)
     p.add_argument('--metrics', '--eval', nargs='+', default=['bbox'],
                    choices=['bbox', 'segm', 'proposal_fast'],
-                   help="'bbox', 'segm' (a detector with a mask branch)")
+                   help="'bbox', 'segm' (a detector with a mask branch), "
+                        "'proposal_fast' (AR@100/300/1000)")
     p.add_argument('--mask-thr', type=float, default=0.5,
                    help='mask binarisation threshold')
     p.add_argument('--tta', action='store_true',
-                   help='flip test-time augmentation (not ported yet)')
+                   help='flip test-time augmentation with merged-candidate '
+                        'NMS; single-stage models')
     p.add_argument('--out', help='dump the report as json')
     p.add_argument('--format-out',
                    help='dump detections in the COCO result format to '
@@ -55,17 +59,8 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args):
-    eval_item = 'comes with ROADMAP.md\'s "rest of the eval flow" item'
-    if args.tta:
-        raise NotImplementedError(f'--tta {eval_item}')
-    if 'proposal_fast' in args.metrics:
-        raise NotImplementedError(f'--metrics proposal_fast {eval_item}')
-
-
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
 
     from tpudet_torch.parallel import close_distributed, process_index
 
@@ -83,7 +78,8 @@ def _evaluate(args, device, rank):
     from tpudet_torch.config import Config
     from tpudet_torch.data import build_dataset
     from tpudet_torch.evaluation import (coco_fast_bbox_eval,
-                                         coco_fast_segm_eval)
+                                         coco_fast_segm_eval,
+                                         coco_proposal_fast_eval)
 
     cfg = Config.fromfile(args.config)
     det = init_detector(cfg, args.checkpoint, device=device,
@@ -95,7 +91,7 @@ def _evaluate(args, device, rank):
                                  batch_size=args.batch_size,
                                  img_size=args.img_size,
                                  with_masks=with_masks,
-                                 mask_thr=args.mask_thr)
+                                 mask_thr=args.mask_thr, tta=args.tta)
     segm_results = None
     if with_masks:
         results, segm_results = results
@@ -104,6 +100,8 @@ def _evaluate(args, device, rank):
     if 'bbox' in args.metrics:
         report.update(coco_fast_bbox_eval(results, annotations,
                                           classes=dataset.CLASSES))
+    if 'proposal_fast' in args.metrics:
+        report.update(coco_proposal_fast_eval(results, annotations))
     if with_masks:
         report.update(coco_fast_segm_eval(results, segm_results,
                                           annotations,
