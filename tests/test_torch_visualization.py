@@ -17,6 +17,8 @@
   that box for every printable character.
 - The PNG writer's file reads back through ``cv2.imread`` and ``read_png``
   equal to the array; another suffix without cv2 raises ``ImportError``.
+- A file given with no ``device`` is decoded on ``cuda``: with no card
+  the drawing functions raise.
 - ``image_demo`` prints tpudet's lines on the same weights file, and its
   ``--out-file`` equals tpudet's outside the labels; ``video_demo`` reads a
   3-frame MJPG AVI that cv2 writes here; both video demos raise
@@ -44,6 +46,7 @@ from tpudet.core.mask import encode_rle as j_encode_rle
 from tpudet.models.builder import build_detector as j_build_detector
 from tpudet.utils.checkpoint import save_variables as j_save_variables
 from tpudet_torch import visualization as vis
+from tpudet_torch.data import pipelines
 from tpudet_torch.demo import image_demo, video_demo, webcam_demo
 from tpudet_torch.tools import analyze_results, browse_dataset, eval_metric
 from tpudet_torch.tools import dataset_formats as formats
@@ -265,6 +268,38 @@ def test_other_suffixes_need_cv2(tmp_path, monkeypatch):
             args = ['missing.avi'] + args
         with pytest.raises(ImportError, match='cv2'):
             demo.main(args)
+
+
+def test_a_path_is_decoded_on_the_card_by_default(tmp_path, monkeypatch):
+    """Given a file and no ``device``, both drawing functions decode it
+    on ``cuda``: with no card that raises; with one (stood in for here by
+    a loader that records the device it was asked for and reads on the
+    CPU) the drawing equals the one of the decoded array."""
+    img, dets, _ = _layout(0)
+    path = str(tmp_path / 'a.png')
+    cv2.imwrite(path, img)
+    names = ('a', 'b', 'c')
+    ann = dict(gt_bboxes=np.concatenate(dets)[:, :4],
+               gt_labels=np.repeat(np.arange(3), 2))
+    draws = ((vis.imshow_det_bboxes, (dets, names)),
+             (vis.imshow_gt_det_bboxes, (ann, dets, names)))
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, 'is_available', lambda: False)
+        for fn, args in draws:
+            with pytest.raises(RuntimeError, match='no CUDA device'):
+                fn(path, *args)
+    asked = []
+
+    class Recording(pipelines.LoadImageFromFile):
+
+        def __init__(self, *a, device, **kw):
+            asked.append(str(device))
+            super().__init__(*a, device='cpu', **kw)
+
+    monkeypatch.setattr(pipelines, 'LoadImageFromFile', Recording)
+    for fn, args in draws:
+        np.testing.assert_array_equal(fn(path, *args), fn(img.copy(), *args))
+    assert asked == ['cuda', 'cuda']
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,10 @@ As in ``CocoDataset``, the pipeline's image ops run on ``device``
 host. The random draws (Mosaic partners, the retry index, the random
 transforms) come from ``self.rng``, a ``random.Random`` that a loader
 seeds with ``set_rng_seed`` (Python's global generator until then). A
-wrapper has a generator of its own and forwards ``set_rng_seed`` to the
-datasets inside it. ``ClassBalancedDataset`` draws its partners from its
-generator, uniformly over its repeat indices, as tpudet's
-``np.random.choice`` does; the draws differ.
+wrapper forwards ``set_rng_seed`` to the datasets inside it, whose
+generators the pipelines read. ``ClassBalancedDataset`` alone draws for
+itself: its partners come from a generator of its own, uniformly over its
+repeat indices, as tpudet's ``np.random.choice`` does; the draws differ.
 
 Two of tpudet's behaviours are kept as they are:
 
@@ -321,15 +321,16 @@ def _build(dataset, device):
 
 
 class _Wrapper:
-    """A generator of its own; ``set_rng_seed`` reaches the datasets
-    inside too."""
+    """``set_rng_seed`` reaches the datasets inside, and the wrapper's
+    own generator where it draws for itself."""
 
     def _inner(self) -> list:
         return list(getattr(self, 'datasets', [])) + (
             [self.dataset] if hasattr(self, 'dataset') else [])
 
     def set_rng_seed(self, seed: int):
-        self.rng = random.Random(seed)
+        if hasattr(self, 'rng'):
+            self.rng = random.Random(seed)
         for d in self._inner():
             set_seed = getattr(d, 'set_rng_seed', None)
             if set_seed is not None:
@@ -347,7 +348,6 @@ class ConcatDataset(_Wrapper):
         self.cumulative_sizes = np.cumsum([len(d) for d in self.datasets])
         self.flag = np.concatenate([d.flag for d in self.datasets])
         self._group_indices = _group_indices(self.flag)
-        self.rng = random
 
     def __len__(self):
         return int(self.cumulative_sizes[-1])
@@ -385,7 +385,6 @@ class RepeatDataset(_Wrapper):
         self._ori_len = len(self.dataset)
         self.flag = np.tile(self.dataset.flag, times)
         self._group_indices = _group_indices(self.flag)
-        self.rng = random
 
     def __len__(self):
         return self.times * self._ori_len

@@ -1,25 +1,22 @@
-"""Write a COCO-format set (a json and its images) in the layouts of the
-other datasets, so that they can be tried on data at hand.
+"""Writers of a COCO-format set (a json, loaded, and its images) in the
+layouts of the other datasets, for the tests and ``chip_smoke.py``, and to
+try those datasets on data at hand:
 
-    python -m tpudet_torch.tools.dataset_formats ANN_JSON IMG_DIR OUT_DIR
-        --format voc|custom|circle|lvis
-
-- ``voc``: ``OUT_DIR/{Annotations,JPEGImages,ImageSets/Main/test.txt}``,
-  one XML a image, for ``XMLDataset``/``VOCDataset`` (``ann_file`` the
-  split, ``img_prefix`` OUT_DIR);
-- ``custom``: ``OUT_DIR/ann.json``, the ``CustomDataset`` list (labels
-  index the json's categories in order), for ``CustomDataset`` and
-  ``GarbageDataset`` (``img_prefix`` IMG_DIR);
-- ``circle``: ``OUT_DIR/<stem>.circle`` and ``<stem>.jpg`` beside it, for
-  ``TrafficSignDataset`` (``ann_file`` and ``img_prefix`` OUT_DIR; one
-  class, each line ``x1,y1,x2,y2,difficulty``);
-- ``lvis``: ``OUT_DIR/ann.json``, the COCO json with LVIS's category
-  fields, for ``LVISDataset`` (``img_prefix`` IMG_DIR).
+- ``write_voc(coco, img_dir, out)``: ``out/{Annotations,JPEGImages,
+  ImageSets/Main/test.txt}``, one XML a image, for ``XMLDataset``/
+  ``VOCDataset`` (``ann_file`` the split, ``img_prefix`` out);
+- ``write_custom(coco, out)``: ``out/ann.json``, the ``CustomDataset``
+  list (labels index the json's categories in order), for
+  ``CustomDataset`` and ``GarbageDataset`` (``img_prefix`` img_dir);
+- ``write_circle(coco, img_dir, out)``: ``out/<stem>.circle`` and
+  ``<stem>.jpg`` beside it, for ``TrafficSignDataset`` (``ann_file`` and
+  ``img_prefix`` out; one class, each line ``x1,y1,x2,y2,difficulty``);
+- ``write_lvis(coco, out)``: ``out/ann.json``, the COCO json with LVIS's
+  category fields, for ``LVISDataset`` (``img_prefix`` img_dir).
 
 Crowd gts are left out of every layout but ``lvis``. Pass the dataset the
 json's category names as ``classes=`` where its own class names differ.
 """
-import argparse
 import json
 import os
 import shutil
@@ -120,24 +117,3 @@ def write_lvis(coco: Dict, out: str) -> str:
         json.dump(dict(coco, categories=cats), f)
     return path
 
-
-def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    p.add_argument('ann_json')
-    p.add_argument('img_dir')
-    p.add_argument('out_dir')
-    p.add_argument('--format', required=True,
-                   choices=['voc', 'custom', 'circle', 'lvis'])
-    args = p.parse_args(argv)
-    with open(args.ann_json) as f:
-        coco = json.load(f)
-    path = {'voc': lambda: write_voc(coco, args.img_dir, args.out_dir),
-            'custom': lambda: write_custom(coco, args.out_dir),
-            'circle': lambda: write_circle(coco, args.img_dir, args.out_dir),
-            'lvis': lambda: write_lvis(coco, args.out_dir)}[args.format]()
-    print(f'wrote {args.format} annotations: {path}')
-    return path
-
-
-if __name__ == '__main__':
-    main()

@@ -248,7 +248,7 @@ def imshow_det_bboxes(img: Union[str, np.ndarray],
                       font_scale: float = 0.5,
                       mask_alpha: float = 0.45,
                       out_file: Optional[str] = None,
-                      device: Union[str, torch.device] = 'cpu'
+                      device: Union[str, torch.device] = 'cuda'
                       ) -> np.ndarray:
     """Draw per-class detection arrays (and instance masks) onto the BGR
     image, in tpudet's order: for each class and each detection at or
@@ -256,8 +256,9 @@ def imshow_det_bboxes(img: Union[str, np.ndarray],
 
     ``result`` is the bbox-only per-class list or the reference's
     two-tuple ``(bbox_results, segm_results)`` with per-class RLE/bitmap
-    lists. A path ``img`` is decoded on ``device``. Returns the drawn
-    array; ``out_file`` also writes it.
+    lists. A path ``img`` is decoded on ``device``, the card unless the
+    caller asks for the CPU. Returns the drawn array; ``out_file`` also
+    writes it.
     """
     img = _load(img, device)
     h, w = img.shape[:2]
@@ -289,12 +290,13 @@ def imshow_gt_det_bboxes(img: Union[str, np.ndarray],
                          class_names: Sequence[str],
                          score_thr: float = 0.3,
                          out_file: Optional[str] = None,
-                         device: Union[str, torch.device] = 'cpu'
+                         device: Union[str, torch.device] = 'cuda'
                          ) -> np.ndarray:
     """Ground truth (left) beside the detections (right), as tpudet's.
 
     ``annotation`` carries ``gt_bboxes`` (xyxy), ``gt_labels`` and
-    optionally ``gt_masks`` (COCO segmentations).
+    optionally ``gt_masks`` (COCO segmentations). A path ``img`` is
+    decoded on ``device``, as in ``imshow_det_bboxes``.
     """
     img = _load(img, device)
     h, w = img.shape[:2]
