@@ -157,7 +157,21 @@ Phases, in order; any failure exits non-zero:
    ``train_detector`` on ``configs/garbage/yolov4l_garbage_mosaic.py``
    over the shapes train set as a ``GarbageDataset`` json, 2 bf16 steps of
    6 x 10 images (648 / 648 launches a step), step ms and loader wait;
-15. output: a ``kernels`` JSON line (with each kernel's share of its
+15. the exported program (``tpudet_torch/tools/export_program.py``,
+   ``deployment_test.py``), YOLOv4-l 640 with phase 4's weights at batch
+   8: (a) ``export_eval_artifact`` in bf16 and fp32 (``torch.export``:
+   mish as the op ``tpudet::mish_fwd``, each NMS block walk a
+   ``while_loop``), seconds and MB; (b) each ``.pt2`` loaded back: fp32
+   (TF32 off, cuDNN deterministic) bit-equal to the live ``Detector`` on
+   phase 4's batch and through ``single_device_test`` on the committed
+   shapes val set, bf16 paired one-to-one; (c) an exported call: 108 / 0
+   launches, 108 ``mish_fwd_kernel`` and no aten mish kernel under
+   ``torch.profiler``; (d) ``python -m tpudet_torch.tools.
+   deployment_test`` in a subprocess on the fp32 artifact, its report
+   equal to the test CLI's; (e) the exported call's ms and device busy
+   against the live call's, the lane NMS's eager and ``while_loop``
+   loops on recorded candidates;
+16. output: a ``kernels`` JSON line (with each kernel's share of its
    bound and its launches on every path), the whole run's seconds, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -177,6 +191,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -4222,7 +4237,6 @@ def serve_requests(bodies, url):
     base64 JSON, from SERVE_CLIENTS client threads. Returns (answers,
     latencies in s, wall s)."""
     import base64
-    import threading
     n = SERVE_REQUESTS
     answers, latency = [None] * n, [0.0] * n
 
@@ -4318,7 +4332,6 @@ def run_serving(torch, tree, fixtures):
     batch, peak memory. Returns (the served run's launches, its batches,
     the server's ``Detector``)."""
     import tempfile
-    import threading
 
     from tpudet_torch.data import COCO_CLASSES
     from tpudet_torch.ops import letterbox as lb
@@ -4964,6 +4977,19 @@ def check_shapes_sets(torch, sets):
         f'({time.perf_counter() - t0:.1f} s)')
 
 
+def shapes_config(cfg, path):
+    """Write a config at ``path``: CONFIG with its test set the committed
+    shapes val set (its classes, CONFIG's test pipeline)."""
+    with open(path, 'w') as f:
+        f.write(f'_base_ = {CONFIG!r}\n'
+                f"data = dict(test=dict(type='CocoDataset', "
+                f'ann_file={os.path.join(SHAPES, "val.json")!r}, '
+                f'img_prefix={os.path.join(SHAPES, "val", "images")!r}, '
+                f'classes={SHAPES_CLASSES!r}, '
+                f'pipeline={cfg["data"]["test"]["pipeline"]!r}))\n')
+    return path
+
+
 def same_results(a, b):
     import numpy as np
     return len(a) == len(b) and all(
@@ -5229,14 +5255,7 @@ def run_tta(torch, cfg, tree, coco, ds, tmp):
     # the test CLI with both flags against the API, fp32
     ckpt = os.path.join(tmp, 'weights.msgpack')
     save_variables(ckpt, tree)
-    cfg_file = os.path.join(tmp, 'tta_config.py')
-    with open(cfg_file, 'w') as f:
-        f.write(f'_base_ = {CONFIG!r}\n'
-                f"data = dict(test=dict(type='CocoDataset', "
-                f'ann_file={os.path.join(SHAPES, "val.json")!r}, '
-                f'img_prefix={os.path.join(SHAPES, "val", "images")!r}, '
-                f'classes={SHAPES_CLASSES!r}, '
-                f'pipeline={cfg["data"]["test"]["pipeline"]!r}))\n')
+    cfg_file = shapes_config(cfg, os.path.join(tmp, 'tta_config.py'))
     t0 = time.perf_counter()
     report = cli.main([cfg_file, ckpt, '--batch-size', str(BATCH),
                        '--img-size', str(IMG), '--tta', '--metrics', 'bbox',
@@ -5435,6 +5454,445 @@ def run_other_datasets(torch):
             for k in ('mish_fwd', 'mish_bwd')}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the exported program (tpudet_torch/tools/export_program.py and
+# deployment_test.py; mish as the registered ops tpudet::mish_fwd /
+# mish_bwd; each NMS block walk a while_loop)
+
+DEPLOY_TIMEOUT_S = 600
+
+
+def kernel_launches_by_name(torch, fn):
+    """torch.profiler over one call of ``fn``: {device kernel name:
+    launches}, empty without device activity. The call is the active step
+    of a profiler schedule, after a warm-up step: late in a whole run on
+    the H100, a profile of the one call alone listed 100 of the 108 mish
+    launches that the launch count read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    counts = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def check_profiled_mish(torch, fn):
+    """Raise unless torch.profiler sees one call of ``fn`` launch
+    ``mish_fwd_kernel`` once a mish site and no other mish kernel; a
+    profile with no device events fails too."""
+    by_name = kernel_launches_by_name(torch, fn)
+    ours = sum(n for k, n in by_name.items() if 'mish_fwd_kernel' in k)
+    other = {k: n for k, n in by_name.items()
+             if 'mish' in k.lower() and 'mish_fwd_kernel' not in k}
+    log(f'profiler over one exported call: {ours} mish_fwd_kernel, other '
+        f'mish kernels {other}, {sum(by_name.values())} device events')
+    if not by_name:
+        raise AssertionError('the profiler saw no device events')
+    if ours != MISH_PER_FORWARD or other:
+        raise AssertionError('the profiled exported call did not run mish '
+                             'through the kernel alone, once a site')
+
+
+# where a call's host time goes: cProfile's self time, grouped by file.
+# cProfile sees no C call under OpOverload.__call__, so an exported graph's
+# ATen dispatch and launches count in graph_python and a live call's
+# (torch.conv2d and the like) in c_calls: compare a call with itself from
+# one reading to another, not the two calls' groups.
+HOST_GROUPS = (
+    ('input_checks', ('torch/export/', 'torch/_export/', 'torch/utils/_pytree')),
+    ('while_loop', ('torch/_higher_order_ops/',)),
+    ('graph_python', ('<eval_with_key', 'torch/fx/', 'torch/_ops.py',
+                      'torch/nn/modules/')),
+    ('op_dispatch', ('torch/_library/', 'torch/_dynamo/', 'torch/_compile',
+                     'tpudet_torch/ops/')),
+    ('port_python', ('tpudet_torch/',)),
+)
+
+
+def thread_ticks():
+    """{thread id: (name, user + system CPU ticks)} of this process."""
+    out = {}
+    for tid in os.listdir('/proc/self/task'):
+        try:
+            with open(f'/proc/self/task/{tid}/stat') as f:
+                stat = f.read()
+        except OSError:  # the thread ended
+            continue
+        fields = stat[stat.rindex(')') + 2:].split()
+        out[int(tid)] = (stat[stat.index('(') + 1:stat.rindex(')')],
+                         int(fields[11]) + int(fields[12]))
+    return out
+
+
+def thread_events():
+    """This thread's minor and major page faults and its voluntary and
+    involuntary context switches, from /proc."""
+    tid = threading.get_native_id()
+    with open(f'/proc/self/task/{tid}/stat') as f:
+        stat = f.read()
+    fields = stat[stat.rindex(')') + 2:].split()
+    out = {'minflt': int(fields[7]), 'majflt': int(fields[9])}
+    with open(f'/proc/self/task/{tid}/status') as f:
+        for line in f:
+            key, _, value = line.partition(':')
+            if key in ('voluntary_ctxt_switches',
+                       'nonvoluntary_ctxt_switches'):
+                out[key.split('_')[0]] = int(value)
+    return out
+
+
+def host_split(torch, fn, runs=10, top=8):
+    """cProfile over ``runs`` calls of ``fn`` after a warm-up call: ms a
+    call of self time in each of ``HOST_GROUPS``, in ``c_calls`` (ATen,
+    launches, syncs and other builtins) and in ``other``, with their sum
+    (``total``, the profiled wall); the ``top`` functions by self time;
+    a call, the caching allocator's cudaMalloc calls and retries and the
+    CPU ms of this thread and of the whole process, the garbage
+    collector's passes and ms; the device's free and the allocator's
+    reserved GB; the process's OS threads, torch's intra-op threads, the
+    objects the collector tracks, and the other threads that took CPU
+    meanwhile (name, ms a call); and, a call, this thread's page faults
+    and context switches."""
+    import cProfile
+    import gc
+    import pstats
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    collections = [0, 0.0, 0.0]  # passes, seconds, start of the current
+
+    def on_gc(phase, _info):
+        if phase == 'start':
+            collections[2] = time.perf_counter()
+        else:
+            collections[0] += 1
+            collections[1] += time.perf_counter() - collections[2]
+
+    gc.callbacks.append(on_gc)
+    ticks, events = thread_ticks(), thread_events()
+    cpu = time.thread_time(), time.process_time()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    cpu = time.thread_time() - cpu[0], time.process_time() - cpu[1]
+    events = {k: (v - events[k]) / runs for k, v in thread_events().items()}
+    tick_ms = 1e3 / os.sysconf('SC_CLK_TCK') / runs
+    others = sorted(
+        ((n - ticks.get(tid, (name, 0))[1]) * tick_ms, name, tid)
+        for tid, (name, n) in thread_ticks().items()
+        if tid != threading.get_native_id())[::-1]
+    gc.callbacks.remove(on_gc)
+    after = torch.cuda.memory_stats()
+    groups, rows = {}, []
+    for (file, line, name), (_, _, tt, _, _) in pstats.Stats(
+            prof).stats.items():
+        group = 'c_calls' if file == '~' else next(
+            (g for g, keys in HOST_GROUPS if any(k in file for k in keys)),
+            'other')
+        groups[group] = groups.get(group, 0.0) + tt * 1e3 / runs
+        rows.append((tt * 1e3 / runs, f'{os.path.basename(file)}:{line}'
+                                      f'({name})'))
+    out = {g: groups.get(g, 0.0) for g, _ in HOST_GROUPS}
+    out.update(c_calls=groups.get('c_calls', 0.0),
+               other=groups.get('other', 0.0),
+               total=sum(groups.values()),
+               top=[[name, ms] for ms, name in sorted(rows)[::-1][:top]])
+    for key in ('num_device_alloc', 'num_alloc_retries'):
+        out[key] = (after.get(key, 0) - before.get(key, 0)) / runs
+    out.update(cpu_thread_ms=cpu[0] * 1e3 / runs,
+               cpu_process_ms=cpu[1] * 1e3 / runs,
+               gc_passes=collections[0] / runs,
+               gc_ms=collections[1] * 1e3 / runs,
+               gc_objects=len(gc.get_objects()),
+               free_gb=torch.cuda.mem_get_info()[0] / 1e9,
+               reserved_gb=torch.cuda.memory_reserved() / 1e9,
+               os_threads=len(os.listdir('/proc/self/task')),
+               torch_threads=torch.get_num_threads(),
+               busy_threads=[[name, ms] for ms, name, _ in others[:5]
+                             if ms > 0], **events)
+    return out
+
+
+def export_lane_nms(torch, nms, call):
+    """The lane NMS of one recorded ``batched_class_lane_nms`` call as an
+    exported program (each block walk a ``while_loop``): ``(program,
+    candidates)``, the candidates copied out of inference mode."""
+    args, kwargs, _ = call
+    cands = tuple(t.clone() for t in args[:2])
+
+    class LaneNMS(torch.nn.Module):
+        def forward(self, bbox, scores):
+            return tuple(nms.batched_class_lane_nms(
+                bbox, scores, *args[2:], **kwargs))
+
+    return torch.export.export(LaneNMS(), cands).module(), cands
+
+
+def cpu_ops(torch, fn):
+    """{aten op: calls} of the ops that one call of ``fn`` dispatches with
+    a CPU tensor among their arguments or results (a ``while_loop`` runs
+    its body uncounted)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        supports_higher_order_operators = True
+
+        def __init__(self):
+            super().__init__()
+            self.calls = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(t, torch.Tensor) and t.device.type == 'cpu'
+                   for t in tree_leaves((args, kwargs, out))):
+                self.calls[str(func)] = self.calls.get(str(func), 0) + 1
+            return out
+
+    with Count() as count:
+        fn()
+    return count.calls
+
+
+def report_gap(a, b):
+    """max |a - b| over two reports' values (0 where both are NaN), or inf
+    if their keys differ."""
+    if list(a) != list(b):
+        return math.inf
+    return max([0.0] + [abs(a[k] - b[k]) for k in a
+                        if not (math.isnan(a[k]) and math.isnan(b[k]))])
+
+
+def run_export(torch, tree):
+    """Phase 15, YOLOv4-l 640 with phase 4's weights (written to a
+    msgpack), batch 8: (a) ``export_eval_artifact`` in bf16 and in fp32,
+    seconds and MB; (b) each ``.pt2`` loaded back and called on phase 4's
+    batch: fp32 (TF32 off, cuDNN deterministic) bit-equal to the live
+    ``Detector``, also through ``single_device_test`` on the shapes val
+    set; bf16 paired one-to-one by ``match_per_class``; (c) one exported
+    call with every count at 0 just before: 108 / 0 launches, no op on a
+    host tensor, and under ``torch.profiler`` 108 ``mish_fwd_kernel`` and
+    no aten mish kernel;
+    (d) ``python -m tpudet_torch.tools.deployment_test`` in a subprocess
+    on the fp32 artifact over the shapes val set (32 images, batch 8), its
+    report equal to the test CLI's on the same msgpack (0 delta; both with
+    PyTorch's TF32 defaults); (e) the exported call's ms and device busy
+    against the live call's, in turns, where each call's host time goes
+    (``host_split``), and the lane NMS on the candidates recorded from a
+    live call, eager (host loop) against its exported program
+    (``while_loop``). Returns the launches of an exported call."""
+    import tempfile
+
+    from tpudet_torch.apis import init_detector, single_device_test
+    from tpudet_torch.apis.inference import nms_result_to_per_class
+    from tpudet_torch.config import Config
+    from tpudet_torch.core import nms
+    from tpudet_torch.data import build_dataset
+    from tpudet_torch.models.dense_heads import yolocsp_head
+    from tpudet_torch.ops import mish
+    from tpudet_torch.tools import deployment_test
+    from tpudet_torch.tools import export_program as ex
+    from tpudet_torch.tools import test as cli
+    from tpudet_torch.utils.checkpoint import save_variables
+
+    cfg = Config.fromfile(CONFIG)
+    img = torch.from_numpy(images(BATCH, SEED + 1)).cuda()
+    sf = torch.ones(BATCH, 4, device='cuda')
+    hw = torch.full((BATCH, 2), float(IMG), device='cuda')
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'weights.msgpack')
+        save_variables(ckpt, tree)
+        cfg_file = shapes_config(cfg, os.path.join(tmp, 'export_config.py'))
+
+        # (a) export, (b) load back
+        dets, paths, programs = {}, {}, {}
+        for name, dtype in (('bf16', torch.bfloat16),
+                            ('fp32', torch.float32)):
+            dets[name] = init_detector(cfg_file, ckpt, device='cuda',
+                                       dtype=dtype)
+            paths[name] = os.path.join(tmp, f'yolov4l_{name}.pt2')
+            t0 = time.perf_counter()
+            n = ex.export_eval_artifact(dets[name], paths[name], batch=BATCH,
+                                        img_size=IMG)
+            numbers[f'export_{name}_s'] = time.perf_counter() - t0
+            numbers[f'pt2_{name}_mb'] = n / 1e6
+            t0 = time.perf_counter()
+            programs[name] = torch.export.load(paths[name]).module()
+            numbers[f'load_{name}_s'] = time.perf_counter() - t0
+        log('exported eval artifacts: ' + json.dumps(numbers))
+
+        def live(name):
+            return dets[name](img, sf)
+
+        def exported(name):
+            with torch.inference_mode():
+                return nms.NMSResult(*programs[name](img, sf, hw))
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        try:
+            ref, got = live('fp32'), exported('fp32')
+            same = {k: torch.equal(getattr(ref, k), getattr(got, k))
+                    for k in ref._fields}
+            n_valid = int(ref.valid.sum())
+            log(f'fp32 exported call against the live Detector, TF32 off, '
+                f'cuDNN deterministic: equal {json.dumps(same)}, '
+                f'{n_valid} detections')
+            if not all(same.values()) or not n_valid:
+                raise AssertionError('the fp32 exported program differs '
+                                     'from the live Detector')
+            ds = build_dataset({**Config.fromfile(cfg_file)['data']['test'],
+                                'test_mode': True}, dict(device='cuda'))
+            kw = dict(batch_size=BATCH, img_size=IMG, progress=False)
+            by_live = single_device_test(dets['fp32'].model, ds, **kw)
+            by_artifact = single_device_test(
+                dets['fp32'].model, ds, infer_fn=deployment_test.
+                load_exported_infer_fn(paths['fp32'], BATCH, IMG), **kw)
+            n_set = sum(len(a) for r in by_live for a in r)
+            log(f'fp32 shapes val set ({len(ds)} images) through '
+                f'single_device_test, the artifact against the live model: '
+                f'equal {same_results(by_live, by_artifact)}, {n_set} '
+                f'detections')
+            if not same_results(by_live, by_artifact) or not n_set:
+                raise AssertionError('the fp32 artifact\'s eval differs from '
+                                     'the live model\'s')
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic) = flags
+
+        ref16, got16 = live('bf16'), exported('bf16')
+        numbers['bf16_bit_equal'] = all(
+            torch.equal(getattr(ref16, k), getattr(got16, k))
+            for k in ref16._fields)
+        n_cls = dets['bf16'].model.bbox_head.num_classes
+        pairs = [match_per_class(r, g, MATCH_IOU) for r, g in zip(
+            nms_result_to_per_class(ref16, n_cls),
+            nms_result_to_per_class(got16, n_cls))]
+        matched, n_ref, n_got = (sum(p[i] for p in pairs) for i in range(3))
+        log(f'bf16 exported call against the live Detector: {matched} of '
+            f'{n_ref} / {n_got} detections paired (label, IoU >= '
+            f'{MATCH_IOU}); bit-equal {numbers["bf16_bit_equal"]}')
+        if not (matched == n_ref == n_got and n_ref):
+            raise AssertionError('bf16 exported detections do not pair with '
+                                 'the live Detector\'s')
+
+        # (c) the launches of one exported call, counts at 0 just before
+        torch.cuda.synchronize()
+        mish.mish_cuda.launches = 0
+        mish.mish_backward_cuda.launches = 0
+        exported('bf16')
+        torch.cuda.synchronize()
+        launches = {'mish_fwd': mish.mish_cuda.launches,
+                    'mish_bwd': mish.mish_backward_cuda.launches}
+        host_ops = cpu_ops(torch, lambda: exported('bf16'))
+        log(f'exported call launches {json.dumps(launches)}; ops on host '
+            f'tensors {json.dumps(host_ops)}')
+        if launches != {'mish_fwd': MISH_PER_FORWARD, 'mish_bwd': 0}:
+            raise AssertionError('the exported call did not run mish through '
+                                 'the kernel, once a site')
+        if host_ops:
+            raise AssertionError('the exported call runs ops on host tensors')
+        check_profiled_mish(torch, lambda: exported('bf16'))
+
+        # (d) the deployment CLI in a subprocess against the test CLI
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            out = os.path.join(tmp, 'deployed.json')
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, '-m', 'tpudet_torch.tools.deployment_test',
+                 cfg_file, paths['fp32'], '--batch-size', str(BATCH),
+                 '--img-size', str(IMG), '--out', out], cwd=ROOT,
+                capture_output=True, text=True, timeout=DEPLOY_TIMEOUT_S)
+            numbers['deployment_cli_s'] = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f'deployment_test exited '
+                                     f'{proc.returncode}: '
+                                     f'{proc.stderr[-3000:]}')
+            with open(out) as f:
+                deployed = json.load(f)
+            t0 = time.perf_counter()
+            report = cli.main([cfg_file, ckpt, '--batch-size', str(BATCH),
+                               '--img-size', str(IMG)])
+            numbers['test_cli_s'] = time.perf_counter() - t0
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags[:2]
+        gap = report_gap(deployed, report)
+        log(f'deployment_test (subprocess, {numbers["deployment_cli_s"]:.1f}'
+            f' s) report {json.dumps(deployed)}; the test CLI\'s '
+            f'{json.dumps(report)}; max |delta| {gap:.3e}')
+        if gap != 0:
+            raise AssertionError('the deployed report differs from the test '
+                                 'CLI\'s')
+
+        # (e) times: the exported call against the live one, in turns
+        calls = {'live': lambda: live('bf16'),
+                 'exported': lambda: exported('bf16')}
+        walls = {who: [] for who in calls}
+        with torch.inference_mode():
+            for who in ('live', 'exported', 'exported', 'live'):
+                walls[who].append(cuda_ms(calls[who], runs=10))
+        numbers.update(live_e2e_ms=walls['live'],
+                       exported_e2e_ms=walls['exported'])
+        for who, fn in calls.items():
+            prof = profile_device(torch, fn, f'{who} call', top=8)
+            if prof:
+                numbers[f'{who}_busy_ms'] = prof[1]
+                numbers[f'{who}_busy_share'] = prof[1] / prof[0]
+
+        # where the host time of each call goes, and the threads that
+        # could hold the GIL meanwhile
+        for who, fn in calls.items():
+            numbers[f'{who}_host'] = host_split(torch, fn)
+        numbers['threads'] = [t.name for t in threading.enumerate()]
+
+        # the lane NMS, eager and exported, on a live call's candidates
+        with recording(yolocsp_head, 'batched_class_lane_nms') as lanes:
+            live('bf16')
+        args, kwargs, want = lanes[0]
+        t0 = time.perf_counter()
+        lane_program, cands = export_lane_nms(torch, nms, lanes[0])
+        numbers['nms_export_s'] = time.perf_counter() - t0
+        nms_calls = {
+            'eager': lambda: nms.batched_class_lane_nms(*args, **kwargs),
+            'while_loop': lambda: lane_program(*cands)}
+        nms_times = {who: [] for who in nms_calls}
+        with torch.inference_mode():
+            if not all(torch.equal(a, b) for a, b in
+                       zip(nms_calls['while_loop'](), want)):
+                raise AssertionError('the exported lane NMS differs from '
+                                     'the eager one')
+            for who in ('eager', 'while_loop', 'while_loop', 'eager'):
+                nms_times[who].append(cuda_ms(nms_calls[who], runs=10))
+        numbers.update(nms_eager_ms=nms_times['eager'],
+                       nms_while_loop_ms=nms_times['while_loop'],
+                       nms_scores_shape=list(args[1].shape))
+        log('exported program, YOLOv4-l bf16 batch 8: ' + json.dumps(numbers))
+        del dets, programs, lane_program, lanes
+        torch.cuda.empty_cache()
+    return {k: {'exported_eval_call': v} for k, v in launches.items()}
+
+
 def main():
     try:
         import torch
@@ -5538,7 +5996,13 @@ def main():
     other_launches = run_other_datasets(torch)
     log(f'other datasets phases: {time.perf_counter() - t0:.1f} s')
 
-    # 15. output
+    # 15. the exported program; one exported call with counts at 0 just
+    # before
+    t0 = time.perf_counter()
+    export_launches = run_export(torch, tree)
+    log(f'exported program phases: {time.perf_counter() - t0:.1f} s')
+
+    # 16. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -5577,6 +6041,7 @@ def main():
             paths.update(mask_launches[k['name']])
             paths.update(dist_launches[k['name']])
             paths.update(other_launches[k['name']])
+            paths.update(export_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all')

@@ -167,15 +167,16 @@ def test_infinities_take_the_limits():
 
 
 def test_autograd_function_on_cpu_takes_the_plain_versions():
-    """A CPU tensor that requires grad goes through ``MishFunction``: the
-    plain forward, and the plain backward on the saved ``x``; no kernel
-    launch is counted."""
+    """A CPU tensor that requires grad goes through ``tpudet::mish_fwd``'s
+    autograd: the plain forward, and the plain backward on the saved
+    ``x``; no kernel launch is counted."""
     x, g = _inputs(3)
     xt = torch.from_numpy(x).reshape(1, -1, 1, 1).requires_grad_()
     gt = torch.from_numpy(g).reshape(xt.shape)
     before = (tmish.mish_cuda.launches, tmish.mish_backward_cuda.launches)
     y = tmish.mish_cuda(xt)
-    assert y.grad_fn is not None and 'MishFunction' in type(y.grad_fn).__name__
+    assert y.grad_fn is not None and (
+        'tpudet_mish_fwd' in type(y.grad_fn).__name__)
     y.backward(gt)
     assert torch.equal(y.detach(), tmish.mish_reference(xt.detach()))
     assert torch.equal(xt.grad, tmish.mish_backward_reference(xt.detach(), gt))
@@ -227,12 +228,13 @@ def test_gradient_rows_and_pitch(case, want):
 
 
 def test_function_gradient_against_fp64_autograd():
-    """The Function's fp32 gradient against autograd of the literal fp64
+    """The op's fp32 gradient (tpudet::mish_fwd's autograd, whose
+    backward is tpudet::mish_bwd) against autograd of the literal fp64
     chain (gradcheck-style, with an analytic reference): within 4 fp32 ulp
     of the gradient's scale."""
     x = torch.linspace(-12, 12, 2001, dtype=torch.float32)
     x32 = x.clone().requires_grad_()
-    tmish.MishFunction.apply(x32).sum().backward()
+    tmish.mish_cuda(x32).sum().backward()
     x64 = x.double().requires_grad_()
     (x64 * torch.tanh(torch.nn.functional.softplus(x64))).sum().backward()
     torch.testing.assert_close(x32.grad.double(), x64.grad,

@@ -61,17 +61,37 @@ def _iou_block(bb, ba, other_boxes, other_area, eps=1e-6):
         ba[..., :, None] + other_area[..., None, :] - inter, eps)
 
 
+def _while(cond, body, state):
+    """Run ``state = body(*state)`` while ``cond(*state)`` holds, with the
+    same ``cond`` and ``body`` run two ways. Eager code reads each
+    ``cond`` on the host (one sync an iteration, no compile). Under
+    ``torch.export`` the loop is a ``while_loop`` node of the graph: the
+    trace reads no value and the program stays shape-static (an exported
+    program's ``while_loop`` reads its ``cond`` on the host as it runs,
+    as the eager loop does)."""
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops import while_loop
+        # while_loop refuses a cond output that aliases an input
+        return tuple(while_loop(lambda *s: cond(*s).clone(), body,
+                                tuple(state)))
+    while bool(cond(*state)):
+        state = body(*state)
+    return state
+
+
 def _in_block_greedy(bb, ba, alive0, tri, iou_threshold):
     """Greedy suppression inside a score-sorted block, as the Jacobi
     fixed point of ``keep = alive0 & ~any(suppressor kept)``; the fixed
-    point is the greedy solution."""
+    point is the greedy solution (tpudet's ``in_block_greedy``, ``cond``
+    the flag that the last step changed ``keep``)."""
     mat = (_iou_block(bb, ba, bb, ba) > iou_threshold) & tri
-    keep = alive0
-    while True:
+
+    def step(keep, _changed):
         new = alive0 & ~torch.any(mat & keep[:, None, :], dim=-1)
-        if torch.equal(new, keep):
-            return keep
-        keep = new
+        return new, torch.any(new != keep)
+
+    return _while(lambda _keep, changed: changed, step,
+                  step(alive0, None))[0]
 
 
 def nms_blocked(boxes: torch.Tensor,
@@ -83,8 +103,13 @@ def nms_blocked(boxes: torch.Tensor,
                 return_dets: bool = False):
     """Greedy hard-NMS in score-sorted blocks of ``block`` candidates,
     exact. Per block: suppress by the boxes kept so far, resolve the
-    block's own chains, append its keeps; stop once ``max_out`` keeps
-    accumulated or only padding remains.
+    block's own chains, append its keeps; stop once every image holds
+    ``max_out`` keeps or only padding remains. The walk and the in-block
+    fixed point are tpudet's ``cond``/``body`` pairs (``tpudet/core/
+    nms.py:184-246``) over tensors, each image's count and active flag
+    carried as tensors (the block index too under export); :func:`_while`
+    drives them, a Python loop in eager code and a ``while_loop`` under
+    ``torch.export``.
 
     Args:
         boxes: (B, K, 4); scores: (B, K); valid: optional (B, K) bool.
@@ -104,44 +129,73 @@ def nms_blocked(boxes: torch.Tensor,
     svalid = svals > NEG_INF / 2
 
     nb = -(-k // block)
-    pad = nb * block - k
-    blocks_boxes = F.pad(sboxes, (0, 0, 0, pad)).reshape(b, nb, block, 4)
-    blocks_valid = F.pad(svalid, (0, pad)).reshape(b, nb, block)
-    blocks_idx = F.pad(order, (0, pad)).reshape(b, nb, block)
-    blocks_scores = F.pad(svals, (0, pad)).reshape(b, nb, block)
+    # one more block of padding, which the walk reads when it has passed
+    # the last one
+    pad = (nb + 1) * block - k
+    blocks_boxes = F.pad(sboxes, (0, 0, 0, pad)).reshape(b, nb + 1, block, 4)
+    blocks_valid = F.pad(svalid, (0, pad)).reshape(b, nb + 1, block)
+    blocks_idx = F.pad(order, (0, pad)).reshape(b, nb + 1, block)
+    blocks_scores = F.pad(svals, (0, pad)).reshape(b, nb + 1, block)
 
     rank = torch.arange(block, device=dev)
     tri = rank[None, :] < rank[:, None]  # suppressor j ranks before i
     out_slots = torch.arange(max_out, device=dev)
-    # one spare slot (index max_out) absorbs the writes that are dropped
-    kept_boxes = boxes.new_zeros(b, max_out + 1, 4)
-    kept_area = boxes.new_zeros(b, max_out + 1)
-    kept_scores = scores.new_zeros(b, max_out + 1)
-    kept_idx = torch.zeros(b, max_out + 1, dtype=torch.long, device=dev)
-    count = torch.zeros(b, dtype=torch.long, device=dev)
-    for bi in range(nb):
+
+    # the eager walk indexes with a host int and writes the kept buffers in
+    # place, as a Python loop over blocks would; the traced one carries the
+    # block index as a tensor and returns new buffers (a while_loop body may
+    # not write its inputs). The arithmetic is the same.
+    exporting = torch.compiler.is_exporting()
+
+    def at(blocks, bi):
+        if exporting:
+            return blocks.index_select(1, bi.reshape(1))[:, 0]
+        return blocks[:, bi]
+
+    def put(kept, wpos, src):
+        if exporting:
+            return kept.scatter(1, wpos, src)
+        return kept.scatter_(1, wpos, src)
+
+    def leads(bi, count):
         # sorted order: a block led by padding holds only padding
-        active = (count < max_out) & blocks_valid[:, bi, 0]
-        if not bool(active.any()):
-            break
-        bb = blocks_boxes[:, bi]
+        return (count < max_out) & at(blocks_valid, bi)[:, 0]
+
+    def cond(_bi, active, *_kept):
+        return torch.any(active)
+
+    def body(bi, active, count, kept_boxes, kept_area, kept_scores,
+             kept_idx):
+        bb = at(blocks_boxes, bi)
         ba = (bb[..., 2] - bb[..., 0]) * (bb[..., 3] - bb[..., 1])
         kvalid = out_slots[None, :] < count[:, None]
         iou_kept = _iou_block(bb, ba, kept_boxes[:, :max_out],
                               kept_area[:, :max_out])
         suppressed = torch.any((iou_kept > iou_threshold) & kvalid[:, None, :],
                                dim=-1)
-        alive0 = blocks_valid[:, bi] & active[:, None] & ~suppressed
+        alive0 = at(blocks_valid, bi) & active[:, None] & ~suppressed
         keep = _in_block_greedy(bb, ba, alive0, tri, iou_threshold)
 
         pos = count[:, None] + torch.cumsum(keep, dim=-1) - 1
         wpos = torch.where(keep & (pos < max_out), pos,
                            torch.full_like(pos, max_out))
-        kept_boxes.scatter_(1, wpos[..., None].expand(b, block, 4), bb)
-        kept_area.scatter_(1, wpos, ba)
-        kept_scores.scatter_(1, wpos, blocks_scores[:, bi])
-        kept_idx.scatter_(1, wpos, blocks_idx[:, bi])
         count = count + keep.sum(dim=-1)
+        return (bi + 1, leads(bi + 1, count), count,
+                put(kept_boxes, wpos[..., None].expand(b, block, 4), bb),
+                put(kept_area, wpos, ba),
+                put(kept_scores, wpos, at(blocks_scores, bi)),
+                put(kept_idx, wpos, at(blocks_idx, bi)))
+
+    # one spare slot (index max_out) absorbs the writes that are dropped
+    bi = torch.zeros((), dtype=torch.long, device=dev) if exporting else 0
+    count = torch.zeros(b, dtype=torch.long, device=dev)
+    state = (bi, leads(bi, count), count,
+             boxes.new_zeros(b, max_out + 1, 4),
+             boxes.new_zeros(b, max_out + 1),
+             scores.new_zeros(b, max_out + 1),
+             torch.zeros(b, max_out + 1, dtype=torch.long, device=dev))
+    _, _, count, kept_boxes, _, kept_scores, kept_idx = _while(cond, body,
+                                                               state)
 
     keep_valid = out_slots[None, :] < torch.clamp_max(count, max_out)[:, None]
     keep_idx = torch.where(keep_valid, kept_idx[:, :max_out], 0)

@@ -4,10 +4,12 @@ Port of ``tpudet/ops/mish.py``. On the card every mish of the network goes
 through :func:`mish_cuda`, the hand-written kernels in ``csrc/mish.cu``
 (the counterparts of tpudet's Pallas ``mish_pallas`` and its custom VJP):
 fp32 arithmetic by tpudet's one-exp rational identity, rounded once to the
-input type. A tensor that requires
-grad goes through :class:`MishFunction`, which saves only ``x`` and whose
-backward is :func:`mish_backward_cuda`. On a CPU tensor the same wrappers
-compute their plain PyTorch versions, :func:`mish_reference` and
+input type. The kernels are the CUDA implementations of two registered
+ops, ``tpudet::mish_fwd`` and ``tpudet::mish_bwd`` (``torch.library``), so
+that ``torch.export`` keeps each mish whole and a loaded program finds
+them once ``tpudet_torch`` is imported. The forward op's autograd saves
+only ``x`` and its backward is ``tpudet::mish_bwd``. On a CPU tensor the
+ops compute their plain PyTorch versions, :func:`mish_reference` and
 :func:`mish_backward_reference`.
 
 :func:`mish` keeps tpudet's dtype rules (bf16 computes the one-exp rational
@@ -122,17 +124,41 @@ def _launch(fn, x: torch.Tensor, *args) -> None:
         raise RuntimeError(f'mish kernel launch failed: cudaError {err}')
 
 
-def _forward(x: torch.Tensor) -> torch.Tensor:
-    """Mish of ``x`` with no autograd: the kernel on a CUDA tensor (one
-    count in ``mish_cuda.launches``), :func:`mish_reference` on a CPU one."""
-    if x.device.type == 'cpu':
-        return mish_reference(x)
+def _like(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``y`` in ``torch.empty_like(x)``'s strides, the layout the ops'
+    fake implementations give."""
+    out = torch.empty_like(x)
+    return y if y.stride() == out.stride() else out.copy_(y)
+
+
+@torch.library.custom_op('tpudet::mish_fwd', mutates_args=(),
+                         device_types='cpu')
+def mish_fwd(x: torch.Tensor) -> torch.Tensor:
+    """Mish of ``x`` with no autograd, a registered op so that
+    ``torch.export`` keeps it whole (tpudet's ``jax.export`` keeps
+    ``mish_pallas`` as a custom call). On the CPU: :func:`mish_reference`;
+    on the card: the forward kernel (:func:`_mish_fwd_cuda`), which takes
+    fp32, fp16 and bf16 in a dense layout (contiguous or
+    ``channels_last``) and raises on anything else. The output is a new
+    tensor in ``x``'s layout; its gradient is ``tpudet::mish_bwd``."""
+    return _like(x, mish_reference(x))
+
+
+@mish_fwd.register_kernel('cuda')
+def _mish_fwd_cuda(x: torch.Tensor) -> torch.Tensor:
+    """The forward kernel of ``csrc/mish.cu`` (one count in
+    ``mish_fwd.launches``)."""
     _check(x, 'mish_cuda')
     y = torch.empty_like(x)
     if x.numel():
         _launch(_kernels()[0], x, x.data_ptr(), y.data_ptr(), x.numel())
-        mish_cuda.launches += 1
+        mish_fwd.launches += 1
     return y
+
+
+@mish_fwd.register_fake
+def _(x):
+    return torch.empty_like(x)
 
 
 def _memory_order(x: torch.Tensor):
@@ -166,23 +192,35 @@ def _g_rows(x: torch.Tensor, g: torch.Tensor):
     return row, pitch
 
 
-def mish_backward_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Gradient of mish at ``x`` for the incoming gradient ``g``. CUDA
-    tensors launch the backward kernel of ``csrc/mish.cu`` (and count the
-    launch in ``mish_backward_cuda.launches``); CPU tensors take
-    :func:`mish_backward_reference`. The output has ``x``'s layout.
+def _check_pair(x: torch.Tensor, g: torch.Tensor):
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f'mish_backward_cuda: g {tuple(g.shape)} {g.dtype} '
+                         f'{g.device} does not match x {tuple(x.shape)} '
+                         f'{x.dtype} {x.device}')
+
+
+@torch.library.custom_op('tpudet::mish_bwd', mutates_args=(),
+                         device_types='cpu')
+def mish_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Gradient of mish at ``x`` for the incoming gradient ``g``, in
+    ``x``'s layout, a registered op. On the CPU:
+    :func:`mish_backward_reference`; on the card: the backward kernel
+    (:func:`_mish_bwd_cuda`)."""
+    _check_pair(x, g)
+    return _like(x, mish_backward_reference(x, g))
+
+
+@mish_bwd.register_kernel('cuda')
+def _mish_bwd_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The backward kernel of ``csrc/mish.cu`` (one count in
+    ``mish_bwd.launches``).
 
     The kernel reads ``x`` in memory order and ``g`` in its own layout
     where that is ``x``'s or rows of whole 16-byte vectors at a pitch
     (:func:`_g_rows`; each such launch counts in ``.g_pitched``). A ``g``
     in any other layout is first copied into ``x``'s strides, one more
     pass over it, counted in ``.g_copies``."""
-    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
-        raise ValueError(f'mish_backward_cuda: g {tuple(g.shape)} {g.dtype} '
-                         f'{g.device} does not match x {tuple(x.shape)} '
-                         f'{x.dtype} {x.device}')
-    if x.device.type == 'cpu':
-        return mish_backward_reference(x, g)
+    _check_pair(x, g)
     _check(x, 'mish_backward_cuda')
     dx = torch.empty_like(x)
     n = x.numel()
@@ -196,51 +234,42 @@ def mish_backward_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
             rows = None
     if rows is None:
         g = torch.empty_like(x).copy_(g)
-        mish_backward_cuda.g_copies += 1
+        mish_bwd.g_copies += 1
         rows = n, n
     row, pitch = (0, 0) if rows[0] == n else rows  # 0, 0: g laid out as x
     _launch(_kernels()[1], x, x.data_ptr(), g.data_ptr(), dx.data_ptr(), n,
             row, pitch)
     if row:
-        mish_backward_cuda.g_pitched += 1
-    mish_backward_cuda.launches += 1
+        mish_bwd.g_pitched += 1
+    mish_bwd.launches += 1
     return dx
 
 
-mish_backward_cuda.launches = 0
-mish_backward_cuda.g_copies = 0
-mish_backward_cuda.g_pitched = 0
+@mish_bwd.register_fake
+def _(x, g):
+    _check_pair(x, g)
+    return torch.empty_like(x)
 
 
-class MishFunction(torch.autograd.Function):
-    """Mish with the gradient of tpudet's ``mish_pallas`` custom VJP: the
-    forward saves only ``x``; the backward recomputes ``tanh(softplus(x))``
-    from it (``tpudet/ops/mish.py:112-127``)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return _forward(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, = ctx.saved_tensors
-        return mish_backward_cuda(x, g)
+def _save_x(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0])
 
 
-def mish_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Mish forward. A CUDA tensor launches the kernel of ``csrc/mish.cu``
-    (and counts the launch in ``mish_cuda.launches``); a CPU tensor takes
-    :func:`mish_reference`. The output is a new tensor with ``x``'s
-    layout. A tensor that requires grad goes through :class:`MishFunction`,
-    whose backward launches the backward kernel on the card.
-
-    The kernels take fp32, fp16 and bf16 in a dense layout (contiguous or
-    ``channels_last``). Anything else raises.
-    """
-    if x.requires_grad and torch.is_grad_enabled():
-        return MishFunction.apply(x)
-    return _forward(x)
+def _mish_grad(ctx, g):
+    x, = ctx.saved_tensors
+    return mish_bwd(x, g)
 
 
-mish_cuda.launches = 0
+# tpudet's mish_pallas custom VJP (tpudet/ops/mish.py:112-127): the
+# forward saves only x; the backward recomputes tanh(softplus(x)) from it
+mish_fwd.register_autograd(_mish_grad, setup_context=_save_x)
+
+
+# the names the models, chip_smoke.py and the tests call: the ops
+# themselves, which carry the launch counters
+mish_cuda = mish_fwd
+mish_backward_cuda = mish_bwd
+mish_fwd.launches = 0  # forward kernel launches
+mish_bwd.launches = 0  # backward kernel launches
+mish_bwd.g_pitched = 0  # of those, g read as rows at a pitch
+mish_bwd.g_copies = 0  # g copied into x's strides first

@@ -54,6 +54,20 @@ def add_dist_args(p):
                    help='seconds a rank waits for the others')
 
 
+def cfg_overrides(options):
+    """``--cfg-options key=value ...`` as a dict of dotted keys, each value
+    a Python literal where it parses as one, else the string."""
+    overrides = {}
+    for kv in options:
+        k, v = kv.split('=', 1)
+        try:
+            v = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            pass
+        overrides[k] = v
+    return overrides
+
+
 def init_from_args(args):
     """Open the process group the flags ask for; this process's device."""
     import datetime
@@ -74,15 +88,7 @@ def main(argv=None):
 
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
-        overrides = {}
-        for kv in args.cfg_options:
-            k, v = kv.split('=', 1)
-            try:
-                v = ast.literal_eval(v)
-            except (ValueError, SyntaxError):
-                pass
-            overrides[k] = v
-        cfg.merge_from_dict(overrides)
+        cfg.merge_from_dict(cfg_overrides(args.cfg_options))
     if args.seed is not None:
         cfg['seed'] = args.seed
 
