@@ -171,7 +171,17 @@ Phases, in order; any failure exits non-zero:
    equal to the test CLI's; (e) the exported call's ms and device busy
    against the live call's, the lane NMS's eager and ``while_loop``
    loops on recorded candidates;
-16. output: a ``kernels`` JSON line (with each kernel's share of its
+16. ROADMAP.md's zoo rows a-c at full width and depth, no mish (0 / 0
+   launches on every path), prediction layers redrawn from the seed:
+   Cascade R-CNN R50-FPN (bf16 batch 8 on 1344^2, e2e ms and device
+   busy; fp32 on the card against the CPU on 2 images of 640^2, the
+   detections one-to-one; 2 bf16 steps of 2 images with peak memory;
+   ``train_detector`` for 2 steps and the test CLI against the API); the
+   GN+WS Faster R-CNN and the GN Mask R-CNN (one bf16 call of 8 on
+   1344^2, 2 steps each); YOLOv3 Darknet-53 at 608 (bf16 batch 8 with e2e,
+   forward, decode and NMS ms; 2 bf16 steps of 8; the test CLI; the fp32
+   eval artifact bit-equal to the live call);
+17. output: a ``kernels`` JSON line (with each kernel's share of its
    bound and its launches on every path), the whole run's seconds, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -345,7 +355,8 @@ STEP_TREE_TOL = 5e-3
 # crowd gt and one gt of a category outside the 80 classes
 EVAL_IMAGES = 32
 EVAL_SIZES = [(480, 640), (640, 480), (720, 1280), (333, 500), (1280, 1280)]
-EVAL_TIMED_RUNS = 3
+EVAL_TIMED_RUNS = 2
+EVAL_FP32_IMAGES = 4  # card against CPU, the CPU's share of the phase
 # the test pipeline on the card against the CPU: the same integer ops, so
 # 0 expected; at most 1 uint8 level after Normalize
 PIPELINE_TOL = 1 / 255
@@ -519,7 +530,7 @@ def kernel_resources(build, names):
             log(f'sass main loop {func}: ' + json.dumps(loop))
 
 
-def cuda_ms(fn, warmup=3, runs=20):
+def cuda_ms(fn, warmup=3, runs=5):
     """Median ms of ``fn()`` over ``runs`` timed calls, CUDA events."""
     import torch
     for _ in range(warmup):
@@ -941,16 +952,16 @@ def run_slice(torch, config=CONFIG, name='YOLOv4-l',
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = {
-            'stem_ms': cuda_ms(lambda: stem(stem_in), runs=10),
-            'e2e_ms': cuda_ms(lambda: det(img), runs=10),
-            'forward_ms': cuda_ms(lambda: model(img), runs=10),
+            'stem_ms': cuda_ms(lambda: stem(stem_in), runs=5),
+            'e2e_ms': cuda_ms(lambda: det(img), runs=5),
+            'forward_ms': cuda_ms(lambda: model(img), runs=5),
             'decode_ms': cuda_ms(
-                lambda: model.get_bboxes(pm, with_nms=False), runs=10),
+                lambda: model.get_bboxes(pm, with_nms=False), runs=5),
             'nms_ms': cuda_ms(lambda: batched_class_lane_nms(
                 bbox, scores, cfg_t['score_thr'],
                 cfg_t['nms']['iou_threshold'], cfg_t['max_per_img'],
                 lane_pre=cfg_t['lane_pre'], class_pre=cfg_t['class_pre']),
-                runs=10),
+                runs=5),
         }
         t0 = time.perf_counter()
         model(img)
@@ -969,7 +980,7 @@ def run_slice(torch, config=CONFIG, name='YOLOv4-l',
     return tree, launches, mish_shapes, path
 
 
-def profile_device(torch, fn, label, calls=3, top=15):
+def profile_device(torch, fn, label, calls=2, top=15):
     """torch.profiler over ``calls`` calls of ``fn``: the device's busy
     share of the wall time and the kernels that take it, by name. Returns
     (wall ms, device busy ms) per call, or None without device activity."""
@@ -1131,13 +1142,13 @@ def check_eval_pipeline(torch, cfg, arrays, coco, tmp):
 
 
 def check_eval_fp32(torch, cfg, tree, arrays, coco, tmp):
-    """The first batch through ``single_device_test`` in fp32 on the card
-    (TF32 off) and on the CPU: detections one-to-one per image and class
-    at IoU >= MATCH_IOU."""
+    """The first EVAL_FP32_IMAGES images through ``single_device_test`` in
+    fp32 on the card (TF32 off) and on the CPU: detections one-to-one per
+    image and class at IoU >= MATCH_IOU."""
     from tpudet_torch.apis import init_detector, single_device_test
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    first = dict(coco, images=coco['images'][:BATCH])
+    first = dict(coco, images=coco['images'][:EVAL_FP32_IMAGES])
     out = {}
     for device in ('cuda', 'cpu'):
         det = init_detector(cfg, variables=tree, device=device,
@@ -1205,16 +1216,16 @@ def eval_stage_times(torch, det, ds, arrays):
         times = {
             'pipeline_ms': host_ms(pipeline),
             'copy_ms': cuda_ms(lambda: [torch.from_numpy(a).to('cuda')
-                                        for a in host], runs=10),
+                                        for a in host], runs=5),
             'copy_bytes': sum(a.nbytes for a in host),
-            'forward_ms': cuda_ms(lambda: model(img), runs=10),
+            'forward_ms': cuda_ms(lambda: model(img), runs=5),
             'decode_ms': cuda_ms(lambda: model.get_bboxes(
-                pm, scale_factors=sf, with_nms=False), runs=10),
+                pm, scale_factors=sf, with_nms=False), runs=5),
             'nms_ms': cuda_ms(lambda: batched_class_lane_nms(
                 bbox, scores, cfg_t['score_thr'],
                 cfg_t['nms']['iou_threshold'], cfg_t['max_per_img'],
                 lane_pre=cfg_t['lane_pre'], class_pre=cfg_t['class_pre']),
-                runs=10),
+                runs=5),
             'per_class_ms': host_ms(lambda: nms_result_to_per_class(
                 res, model.bbox_head.num_classes)),
         }
@@ -2582,11 +2593,11 @@ def run_retina_inference(torch, mish):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = {
-            'e2e_ms': cuda_ms(lambda: det(img), runs=10),
-            'forward_ms': cuda_ms(lambda: model(img), runs=10),
-            'decode_ms': cuda_ms(decode, runs=10),
+            'e2e_ms': cuda_ms(lambda: det(img), runs=5),
+            'forward_ms': cuda_ms(lambda: model(img), runs=5),
+            'decode_ms': cuda_ms(decode, runs=5),
             'nms_ms': cuda_ms(lambda: batched_nms(bbox, scores, *nms_args,
-                                                  **nms_kw), runs=10),
+                                                  **nms_kw), runs=5),
         }
     times['img_per_s'] = RETINA_BATCH / times['e2e_ms'] * 1e3
     times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
@@ -3040,21 +3051,21 @@ def run_frcnn_inference(torch, mish, retina_times):
         roi_align_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         torch.cuda.reset_peak_memory_stats()
         times = {
-            'e2e_ms': cuda_ms(lambda: det(img), runs=10),
-            'forward_ms': cuda_ms(lambda: model(img), runs=10),
+            'e2e_ms': cuda_ms(lambda: det(img), runs=5),
+            'forward_ms': cuda_ms(lambda: model(img), runs=5),
             'backbone_neck_ms': cuda_ms(lambda: model.extract_feat(img),
-                                        runs=10),
-            'rpn_head_ms': cuda_ms(lambda: model.rpn_head(feats), runs=10),
+                                        runs=5),
+            'rpn_head_ms': cuda_ms(lambda: model.rpn_head(feats), runs=5),
             'rpn_proposals_ms': cuda_ms(lambda: model.rpn_head.get_proposals(
                 rpn_preds, img_shape=tuple(img.shape[1:3]),
                 nms_pre=rpn_cfg['nms_pre'], max_num=rpn_cfg['max_per_img'],
-                iou_thr=rpn_cfg['nms']['iou_threshold']), runs=10),
+                iou_thr=rpn_cfg['nms']['iou_threshold']), runs=5),
             'roi_align_ms': cuda_ms(lambda: model.roi_head.extract(
-                feats, props, valid), runs=10),
+                feats, props, valid), runs=5),
             'bbox_head_ms': cuda_ms(lambda: model.roi_head.bbox_head(pooled),
-                                    runs=10),
+                                    runs=5),
             'get_bboxes_ms': cuda_ms(lambda: model.get_bboxes(
-                (props, valid) + tuple(head_out)), runs=10),
+                (props, valid) + tuple(head_out)), runs=5),
         }
     times['img_per_s'] = FRCNN_BATCH / times['e2e_ms'] * 1e3
     times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
@@ -3592,7 +3603,7 @@ def run_mrcnn_inference(torch, mish):
             'bbox_only_e2e_ms': cuda_ms(lambda: det(img), runs=5),
             'forward_ms': cuda_ms(lambda: model(img), runs=5),
             'mask_head_ms': cuda_ms(lambda: model.roi_head.mask_forward(
-                feats, in_boxes, res.valid), runs=10),
+                feats, in_boxes, res.valid), runs=5),
             'paste_ms': cuda_ms(lambda: [paste_masks(p, b, h, w, MASK_THR)
                                          for p, b in sel], runs=5),
             'rle_ms': cuda_ms(lambda: [encode_rle_batch(m) for m in pasted],
@@ -4074,7 +4085,7 @@ def check_nvjpeg_decode(torch, jpeg, fixtures):
                            (diff <= band).float().mean()),
                        band=band, info=nv.info(data),
                        ms=cuda_ms(lambda: jpeg.decode(data, device='cuda'),
-                                  warmup=2, runs=10))
+                                  warmup=2, runs=5))
             if row['mean_abs'] > mean_max or \
                     row['within_band_share'] < share_min:
                 failures.append(f'{name}: mean {row["mean_abs"]:.3f} (limit '
@@ -4406,16 +4417,16 @@ def run_serving(torch, tree, fixtures):
         batch = bodies[:BATCH]
         stats['decode_ms_per_image'] = cuda_ms(
             lambda: [server._decode(b) for b in batch], warmup=2,
-            runs=10) / len(batch)
+            runs=5) / len(batch)
         decoded = [server._decode(b) for b in batch]
         canvas = torch.empty((BATCH, IMG, IMG, 3), device='cuda')
         stats['letterbox_ms_per_batch'] = cuda_ms(
             lambda: lb.letterbox(decoded, IMG, IMG, serve.PAD_VAL,
                                  to_rgb=True, norm=SERVE_NORM, out=canvas),
-            runs=10)
+            runs=5)
         stats['infer_ms_per_batch'] = cuda_ms(
             lambda: server._infer(canvas, probe.batches[0]['sfs']),
-            warmup=2, runs=10)
+            warmup=2, runs=5)
 
         def one_batch():
             items = [(b, {}, threading.Event()) for b in batch]
@@ -4423,7 +4434,7 @@ def run_serving(torch, tree, fixtures):
             if any('result' not in slot for _, slot, _ in items):
                 raise AssertionError('a profiled request got no result')
 
-        stats['batch_ms'] = cuda_ms(one_batch, warmup=2, runs=10)
+        stats['batch_ms'] = cuda_ms(one_batch, warmup=2, runs=5)
         prof = profile_device(torch, one_batch, 'served batch of 8',
                               calls=3)
         if prof:
@@ -4537,12 +4548,12 @@ def run_files_flow(torch, detector, fixtures):
 # phase 13: data-parallel training (tpudet_torch/parallel/mesh.py)
 
 DIST_MICRO = 6  # per rank: 2 ranks x 6 = phase 6's micro-batch of 12
-DIST_BF16_STEPS = 2  # timed, after one untimed bf16 step
+DIST_BF16_STEPS = 1  # timed, after one untimed bf16 step
 DIST_TIMEOUT_S = 300  # a rank's wait for the other at each collective
 # the shapes recipe on the committed shapes set (paths from ROOT)
 CONFIG_SHAPES = os.path.join(
     ROOT, 'docs/torch_train_runs/yolov4s_shapes_320_fixture.py')
-DIST_CLI_STEPS = 3
+DIST_CLI_STEPS = 2
 DIST_CLI_TIMEOUT_S = 300
 
 
@@ -5023,7 +5034,7 @@ def nms_ms(torch, fn, call):
     """ms of ``fn`` on the arguments of one recorded call."""
     args, kwargs, _ = call
     with torch.inference_mode():
-        return cuda_ms(lambda: fn(*args, **kwargs), runs=10)
+        return cuda_ms(lambda: fn(*args, **kwargs), runs=5)
 
 
 def compare_candidates(card, cpu):
@@ -5550,7 +5561,7 @@ def thread_events():
     return out
 
 
-def host_split(torch, fn, runs=10, top=8):
+def host_split(torch, fn, runs=5, top=8):
     """cProfile over ``runs`` calls of ``fn`` after a warm-up call: ms a
     call of self time in each of ``HOST_GROUPS``, in ``c_calls`` (ATen,
     launches, syncs and other builtins) and in ``other``, with their sum
@@ -5851,7 +5862,7 @@ def run_export(torch, tree):
         walls = {who: [] for who in calls}
         with torch.inference_mode():
             for who in ('live', 'exported', 'exported', 'live'):
-                walls[who].append(cuda_ms(calls[who], runs=10))
+                walls[who].append(cuda_ms(calls[who], runs=5))
         numbers.update(live_e2e_ms=walls['live'],
                        exported_e2e_ms=walls['exported'])
         for who, fn in calls.items():
@@ -5883,7 +5894,7 @@ def run_export(torch, tree):
                 raise AssertionError('the exported lane NMS differs from '
                                      'the eager one')
             for who in ('eager', 'while_loop', 'while_loop', 'eager'):
-                nms_times[who].append(cuda_ms(nms_calls[who], runs=10))
+                nms_times[who].append(cuda_ms(nms_calls[who], runs=5))
         numbers.update(nms_eager_ms=nms_times['eager'],
                        nms_while_loop_ms=nms_times['while_loop'],
                        nms_scores_shape=list(args[1].shape))
@@ -5891,6 +5902,407 @@ def run_export(torch, tree):
         del dets, programs, lane_program, lanes
         torch.cuda.empty_cache()
     return {k: {'exported_eval_call': v} for k, v in launches.items()}
+
+
+# ---------------------------------------------------------------------------
+# 16. the zoo's rows a-c: Cascade R-CNN, GN and GN+WS, YOLOv3
+
+CONFIG_CASCADE = os.path.join(
+    ROOT, 'configs/cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py')
+CONFIG_GN_WS = os.path.join(
+    ROOT, 'configs/gn+ws/faster_rcnn_r50_fpn_gn_ws-all_1x_coco.py')
+CONFIG_GN_MASK = os.path.join(
+    ROOT, 'configs/gn/mask_rcnn_r50_fpn_gn-all_2x_coco.py')
+CONFIG_V3 = os.path.join(ROOT,
+                         'configs/yolo/yolov3_d53_mstrain-608_273e_coco.py')
+ZOO_FP32_IMG = 640  # Cascade R-CNN, card against CPU
+ZOO_TRAIN_STEPS = 2
+V3_IMG, V3_BATCH = 608, 8
+V3_PRED_SPREAD = 2.0  # YOLOv3's pred convs: every attribute's logits
+
+
+def zoo_variables(torch, cfg, img, seed, measure_bn=False):
+    """``redrawn_variables`` of every prediction layer of ``cfg``'s model:
+    the RPN's and each RoI head's (``rpn_cls``, ``rpn_reg``, ``fc_cls``,
+    ``fc_reg``, as ``two_stage_variables``) or YOLOv3's ``conv_pred{i}``
+    (logits spread by V3_PRED_SPREAD around 0)."""
+    from tpudet_torch.models.builder import build_detector
+    spreads = {'rpn_cls': (FRCNN_RPN_CLS_SPREAD, 0.0),
+               'rpn_reg': (FRCNN_RPN_REG_SPREAD, 0.0),
+               'fc_cls': (FRCNN_CLS_SPREAD, 0.0),
+               'fc_reg': (FRCNN_REG_SPREAD, 0.0)}
+    with torch.device('meta'):
+        model = build_detector(cfg['model'])
+    layers = {}
+    for name, _ in model.named_modules():
+        leaf = name.split('.')[-1]
+        if leaf in spreads and 'mask_head' not in name:
+            layers[tuple(name.split('.'))] = spreads[leaf]
+        elif leaf.startswith('conv_pred'):
+            layers[tuple(name.split('.'))] = (V3_PRED_SPREAD, 0.0)
+    return redrawn_variables(torch, cfg, img, layers, seed, measure_bn)
+
+
+def zoo_inference(torch, mish, config, name, seed, size=None, batch=None,
+                  measure_bn=False):
+    """``config``'s model at full width and depth through ``init_detector``
+    / ``Detector``, bf16, ``batch`` images on ``size`` squares, every count
+    at 0 just before the one call (0 launches: the path has no mish);
+    finite detections in every image; e2e and forward ms, device busy,
+    peak memory; ``size`` and ``batch`` FRCNN_IMG and FRCNN_BATCH unless
+    given. Returns (weights tree, the Detector, the image batch, launches,
+    times)."""
+    from tpudet_torch.apis import init_detector
+    from tpudet_torch.config import Config
+    size, batch = size or FRCNN_IMG, batch or FRCNN_BATCH
+    cfg = Config.fromfile(config)
+    img_np = retina_images(cfg, batch, size, seed)
+    t0 = time.perf_counter()
+    tree = zoo_variables(torch, cfg, img_np, seed, measure_bn)
+    det = init_detector(cfg, variables=tree, device='cuda',
+                        dtype=torch.bfloat16)
+    model = det.model
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f'{name}: {n_params / 1e6:.2f} M parameters, bf16, weights from '
+        f'numpy seed {SEED} (prediction layers redrawn, seed {seed}) in '
+        f'{time.perf_counter() - t0:.1f} s')
+    img = torch.from_numpy(img_np).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(mish)
+    res = det(img)
+    torch.cuda.synchronize()
+    launches = _mish_counts(mish)
+    n_valid = [int(v) for v in res.valid.sum(1)]
+    log(f'{name} bf16 batch {batch} x {size}^2: launches '
+        f'{json.dumps(launches)}, detections per image {n_valid}')
+    if any(launches.values()):
+        raise AssertionError(f'the {name} path launched a mish kernel')
+    if not (torch.isfinite(res.bboxes).all() and
+            torch.isfinite(res.scores).all() and min(n_valid) > 0):
+        raise AssertionError(f'{name}: non-finite detections or an image '
+                             f'without')
+    with torch.inference_mode():
+        times = {'e2e_ms': cuda_ms(lambda: det(img), warmup=2, runs=5),
+                 'forward_ms': cuda_ms(lambda: model(img), warmup=1,
+                                       runs=5)}
+    times['img_per_s'] = batch / times['e2e_ms'] * 1e3
+    times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    with torch.inference_mode():
+        prof = profile_device(torch, lambda: det(img), f'{name} e2e call',
+                              calls=2, top=8)
+    times['busy_ms'] = prof[1] if prof else None
+    log(f'{name} bf16 batch {batch} x {size}^2: ' + json.dumps(times))
+    return tree, det, img, launches, times
+
+
+def zoo_train_steps(torch, mish, config, tree, name, batch_fn,
+                    steps=ZOO_TRAIN_STEPS):
+    """``steps`` bf16 steps (fp32 master weights) of ``config``'s model
+    through ``init_trainer(...).step`` on ``batch_fn(step)``, each with
+    its launch counts (0), ms and peak memory; the losses finite and the
+    params moved. Returns the launches of a step."""
+    from tpudet_torch.apis import init_trainer
+    from tpudet_torch.config import Config
+    cfg = Config.fromfile(config)
+    cfg['compute_dtype'] = 'bfloat16'
+    trainer = init_trainer(cfg, variables=tree, device='cuda',
+                           max_steps=steps + 1)
+    p0 = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+    launches = None
+    for step in range(steps):
+        batch = batch_fn(step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(mish)
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = _mish_counts(mish)
+        m = {k: float(v) for k, v in metrics.items()}
+        log(f'{name} train step: ' + json.dumps(dict(
+            step=step, **m, step_ms=step_s * 1e3,
+            img_per_s=len(batch['img']) / step_s,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches=launches)))
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad or any(launches.values()) or not any(
+                k.startswith('loss_') for k in m):
+            raise AssertionError(f'{name} step {step}: non-finite {bad}, '
+                                 f'launches {launches} or no loss')
+    moved = max(float((trainer.state.params[k].detach() - v).abs().max())
+                for k, v in p0.items())
+    if not moved > 0:
+        raise AssertionError(f'{name}: params did not move')
+    del trainer, p0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_loop_and_cli(torch, config, name, seed):
+    """``train_detector`` on ``config`` for ZOO_TRAIN_STEPS bf16 steps of
+    the config's batch, FRCNN_LOOP_IMAGES seeded training images and
+    FRCNN_LOOP_VAL_IMAGES for its evaluation, served from arrays through the
+    config's own pipelines; then the test CLI on its ``latest_ema.msgpack``
+    against the API (``run_cli_eval``). The weights are ``zoo_variables``
+    of the val set's first batch, BatchNorm statistics measured, as phase
+    11's loop takes them (from identity statistics two steps leave the
+    scores under score_thr). Returns (launches of a step, of a CLI
+    batch)."""
+    import tempfile
+
+    from tpudet_torch.apis import train_detector
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import DetDataLoader
+    register_array_data()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config.fromfile(config)
+        sets = {}
+        for part, seed, n in (('train', SEED + 2100, FRCNN_LOOP_IMAGES),
+                              ('val', SEED + 2200, FRCNN_LOOP_VAL_IMAGES)):
+            arrays, coco = eval_set(seed, n)
+            path = os.path.join(tmp, f'{part}.json')
+            with open(path, 'w') as f:
+                json.dump(coco, f)
+            ARRAYS[path] = arrays
+            sets[part] = (path, arrays, coco)
+        data = cfg['data']
+        cfg['data'] = dict(
+            data,
+            train=dict(type='ArrayCocoDataset', ann_file=sets['train'][0],
+                       pipeline=_from_arrays(data['train']['pipeline'])),
+            val=dict(type='ArrayCocoDataset', ann_file=sets['val'][0],
+                     pipeline=_from_arrays(data['val']['pipeline']),
+                     test_mode=True))
+        cfg['compute_dtype'] = 'bfloat16'
+        cfg['log_config'] = dict(interval=1)
+        img_size = cfg['data']['train_img_size']
+        val = array_dataset(cfg, sets['val'][1], sets['val'][2], 'cuda', tmp)
+        first = DetDataLoader(val, batch_size=2, img_size=img_size)._collate(
+            [val[i] for i in range(2)])['img'].cpu().numpy()
+        tree = zoo_variables(torch, cfg, first, seed, measure_bn=True)
+        work = os.path.join(tmp, 'work')
+        with LoopProbe(torch) as probe:
+            t0 = time.perf_counter()
+            train_detector(cfg, work, max_steps=ZOO_TRAIN_STEPS,
+                           device='cuda', variables=tree)
+            loop_s = time.perf_counter() - t0
+        rows = probe.rows
+        del probe.trainers[:]
+        torch.cuda.empty_cache()
+        with open(os.path.join(work, 'train.log')) as f:
+            evals = [line for line in f.read().splitlines()
+                     if ' - eval: ' in line]
+        weights = os.path.join(work, 'latest_ema.msgpack')
+        log(f'{name} train_detector: {ZOO_TRAIN_STEPS} steps in '
+            f'{loop_s:.1f} s, ' + json.dumps(loop_summary(
+                rows, cfg['data']['samples_per_gpu'])) + f'; last eval: '
+            f'{evals[-1].split(" - ")[-1] if evals else None}')
+        if [r['step'] for r in rows] != list(range(1, ZOO_TRAIN_STEPS + 1)) \
+                or not evals or not os.path.isfile(weights) or any(
+                    not math.isfinite(r['loss']) or any(r['launches'].values())
+                    for r in rows):
+            raise AssertionError(f'{name}: the steps, the evaluation or the '
+                                 f'EMA export is wrong')
+        cli = run_cli_eval(torch, config, weights, img_size=img_size,
+                           mish_per_forward=0)
+        for path, _, _ in sets.values():
+            ARRAYS.pop(path)
+    return rows[-1]['launches'], cli
+
+
+def run_cascade(torch, mish):
+    """Cascade R-CNN R50-FPN (``configs/cascade_rcnn/cascade_rcnn_r50_fpn_
+    1x_coco.py``): inference at batch 8 on 1344^2 in bf16; fp32 on the
+    card (TF32 off) against the port's CPU call on FRCNN_FP32_IMAGES images
+    of ZOO_FP32_IMG^2, detections one-to-one; bf16 train steps of 2
+    images; ``train_detector`` and the test CLI. Returns launches by
+    path."""
+    from tpudet_torch.apis import init_detector
+    from tpudet_torch.config import Config
+    tree, det, _, infer, times = zoo_inference(
+        torch, mish, CONFIG_CASCADE, 'Cascade R-CNN R50-FPN', SEED + 2000)
+    del det
+    torch.cuda.empty_cache()
+    cfg = Config.fromfile(CONFIG_CASCADE)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        few = torch.from_numpy(retina_images(cfg, FRCNN_FP32_IMAGES,
+                                             ZOO_FP32_IMG, SEED + 2010))
+        t0 = time.perf_counter()
+        ref = init_detector(cfg, variables=tree, device='cpu',
+                            dtype=torch.float32)(few)
+        cpu_s = time.perf_counter() - t0
+        got = init_detector(cfg, variables=tree, device='cuda',
+                            dtype=torch.float32)(few.cuda())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
+            allow_tf32 = flags
+    for i in range(FRCNN_FP32_IMAGES):
+        m, n_ref, n_got, gap = match_detections(ref, got, i, MATCH_IOU)
+        log(f'Cascade R-CNN fp32 card vs CPU ({cpu_s:.1f} s on the CPU), '
+            f'image {i} at {ZOO_FP32_IMG}^2: detections {m} matched of '
+            f'{n_ref} / {n_got} (label and IoU >= {MATCH_IOU}), largest box '
+            f'delta {gap:.3e} px')
+        if not (n_ref and n_ref - m <= FRCNN_KEEP_SHARE * n_ref):
+            raise AssertionError('Cascade R-CNN fp32 detections on the card '
+                                 'differ from the CPU')
+    torch.cuda.empty_cache()
+    train = zoo_train_steps(
+        torch, mish, CONFIG_CASCADE, tree, 'Cascade R-CNN',
+        lambda step: retina_train_batch(cfg, FRCNN_TRAIN_BATCH, FRCNN_IMG,
+                                        SEED + 2020 + step))
+    loop, cli = zoo_loop_and_cli(torch, CONFIG_CASCADE, 'Cascade R-CNN',
+                                 SEED + 2030)
+    return times, {'cascade_rcnn_inference_forward': infer,
+                   'cascade_rcnn_train_step': train,
+                   'cascade_rcnn_train_detector_step': loop,
+                   'cascade_rcnn_test_cli_batch': cli}
+
+
+def run_gn_ws(torch, mish):
+    """The GN+WS Faster R-CNN and the GN Mask R-CNN, R50-FPN: one bf16
+    call at batch 8 on 1344^2 and bf16 train steps of 2 images each.
+    Returns (times by model, launches by path)."""
+    from tpudet_torch.config import Config
+    times, launches = {}, {}
+    for key, config, name, seed in (
+            ('gn_ws_faster_rcnn', CONFIG_GN_WS, 'GN+WS Faster R-CNN',
+             SEED + 2300),
+            ('gn_mask_rcnn', CONFIG_GN_MASK, 'GN Mask R-CNN', SEED + 2400)):
+        tree, det, _, infer, times[key] = zoo_inference(
+            torch, mish, config, name, seed)
+        del det
+        torch.cuda.empty_cache()
+        cfg = Config.fromfile(config)
+        if 'mask' in key:
+            def batch_fn(step, cfg=cfg, seed=seed):
+                return mask_train_batch(torch, cfg, FRCNN_TRAIN_BATCH,
+                                        FRCNN_IMG, seed + 10 + step, 'cuda')
+        else:
+            def batch_fn(step, cfg=cfg, seed=seed):
+                return retina_train_batch(cfg, FRCNN_TRAIN_BATCH, FRCNN_IMG,
+                                          seed + 10 + step)
+        launches[f'{key}_inference_forward'] = infer
+        launches[f'{key}_train_step'] = zoo_train_steps(
+            torch, mish, config, tree, name, batch_fn)
+    return times, launches
+
+
+def run_yolov3(torch, mish):
+    """YOLOv3 Darknet-53 at 608 (``configs/yolo/yolov3_d53_mstrain-608_273e_
+    coco.py``), BatchNorm statistics measured on the batch: inference at
+    batch 8 in bf16 with e2e, forward, decode and NMS ms (the NMS on the
+    candidates one call gave it); bf16 train steps of the config's 8
+    images; the test CLI on the weights; the fp32 eval artifact
+    (``export_eval_artifact``) bit-equal to the live call, TF32 off and
+    cuDNN deterministic. Returns (times, launches by path)."""
+    import tempfile
+
+    from tpudet_torch.apis import init_detector
+    from tpudet_torch.config import Config
+    from tpudet_torch.core import nms
+    from tpudet_torch.models.dense_heads import yolov3_head
+    from tpudet_torch.tools import export_program as ex
+    from tpudet_torch.utils.checkpoint import save_variables
+    tree, det, img, infer, times = zoo_inference(
+        torch, mish, CONFIG_V3, 'YOLOv3 Darknet-53', SEED + 2500,
+        size=V3_IMG, batch=V3_BATCH, measure_bn=True)
+    model = det.model
+    recorded = []
+    orig = yolov3_head.batched_nms
+
+    def record(*args, **kwargs):
+        recorded.append((args, kwargs))
+        return orig(*args, **kwargs)
+    yolov3_head.batched_nms = record
+    try:
+        with torch.inference_mode():
+            maps = model(img)
+            det(img)
+    finally:
+        yolov3_head.batched_nms = orig
+    args, kwargs = recorded[0]
+    with torch.inference_mode():
+        times['decode_ms'] = cuda_ms(lambda: model.bbox_head.get_bboxes(
+            maps, with_nms=False), warmup=2, runs=5)
+        times['nms_ms'] = cuda_ms(lambda: orig(*args, **kwargs), warmup=2,
+                                  runs=5)
+    times['nms_candidates'] = int((args[1] > args[2]).sum())
+    log(f'YOLOv3 bf16 batch {V3_BATCH} x {V3_IMG}^2: ' + json.dumps(times))
+    del det, model, maps, recorded, args, kwargs
+    torch.cuda.empty_cache()
+
+    cfg = Config.fromfile(CONFIG_V3)
+    if cfg['data']['samples_per_gpu'] != V3_BATCH:
+        raise AssertionError('not the config\'s batch of 8')
+    train = zoo_train_steps(
+        torch, mish, CONFIG_V3, tree, 'YOLOv3',
+        lambda step: retina_train_batch(cfg, V3_BATCH, V3_IMG,
+                                        SEED + 2510 + step))
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'yolov3.msgpack')
+        save_variables(ckpt, tree)
+        cli = run_cli_eval(torch, CONFIG_V3, ckpt, img_size=V3_IMG,
+                           mish_per_forward=0)
+        det32 = init_detector(cfg, ckpt, device='cuda', dtype=torch.float32)
+        path = os.path.join(tmp, 'yolov3_fp32.pt2')
+        t0 = time.perf_counter()
+        mb = ex.export_eval_artifact(det32, path, batch=V3_BATCH,
+                                     img_size=V3_IMG) / 1e6
+        export_s = time.perf_counter() - t0
+        program = torch.export.load(path).module()
+        sf = torch.ones(V3_BATCH, 4, device='cuda')
+        hw = torch.full((V3_BATCH, 2), float(V3_IMG), device='cuda')
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        try:
+            ref = det32(img, sf)
+            with torch.inference_mode():
+                got = nms.NMSResult(*program(img, sf, hw))
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic) = flags
+        same = {k: torch.equal(getattr(ref, k), getattr(got, k))
+                for k in ref._fields}
+        log(f'YOLOv3 fp32 eval artifact: exported in {export_s:.1f} s, '
+            f'{mb:.2f} MB; its call against the live Detector, TF32 off, '
+            f'cuDNN deterministic: equal {json.dumps(same)}, '
+            f'{int(ref.valid.sum())} detections')
+        if not all(same.values()) or not int(ref.valid.sum()):
+            raise AssertionError('the YOLOv3 fp32 exported program differs '
+                                 'from the live Detector')
+        del det32, program
+    torch.cuda.empty_cache()
+    return times, {'yolov3_inference_forward': infer,
+                   'yolov3_train_step': train,
+                   'yolov3_test_cli_batch': cli}
+
+
+def run_zoo(torch):
+    """Phase 16: Cascade R-CNN, the GN+WS and GN R-CNNs and YOLOv3 at full
+    width and depth. Returns each path's launches of each kernel (all 0:
+    ReLU and LeakyReLU)."""
+    from tpudet_torch.ops import mish
+    launches, times = {}, {}
+    for name, fn in (('cascade', run_cascade), ('gn_ws', run_gn_ws),
+                     ('yolov3', run_yolov3)):
+        t0 = time.perf_counter()
+        times[name], paths = fn(torch, mish)
+        launches.update(paths)
+        log(f'phase 16 {name}: {time.perf_counter() - t0:.1f} s')
+    log('phase 16 inference times: ' + json.dumps(times))
+    return {k: {path: counts[k] for path, counts in launches.items()}
+            for k in ('mish_fwd', 'mish_bwd')}
 
 
 def main():
@@ -6002,7 +6414,13 @@ def main():
     export_launches = run_export(torch, tree)
     log(f'exported program phases: {time.perf_counter() - t0:.1f} s')
 
-    # 16. output
+    # 16. Cascade R-CNN, the GN and GN+WS R-CNNs, YOLOv3; each path with
+    # counts at 0 just before
+    t0 = time.perf_counter()
+    zoo_launches = run_zoo(torch)
+    log(f'zoo rows a-c phases: {time.perf_counter() - t0:.1f} s')
+
+    # 17. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -6042,6 +6460,7 @@ def main():
             paths.update(dist_launches[k['name']])
             paths.update(other_launches[k['name']])
             paths.update(export_launches[k['name']])
+            paths.update(zoo_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all')

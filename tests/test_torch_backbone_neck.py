@@ -21,6 +21,8 @@ from tpudet_torch.models.backbones.darknet_csp import DarknetCSP
 from tpudet_torch.models.necks.yolo_neck_csp import YOLOV4Neck
 from tpudet_torch.utils.flax_import import load_flax_variables
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 IMG = 128
 WIDTHS, OUTS = (128, 256, 256), (128, 256, 512)
 

@@ -23,6 +23,7 @@ from tpudet_torch.utils import checkpoint as P
 from tpudet_torch.utils.flax_import import (load_flax_variables,
                                             random_flax_variables,
                                             train_state_to_flax)
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 INTS = [0, 1, 127, 128, 255, 256, 65535, 65536, 2**32 - 1, 2**32, 2**63,
         -1, -32, -33, -128, -129, -32768, -32769, -2**31, -2**31 - 1, -2**63]

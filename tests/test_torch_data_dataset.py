@@ -24,6 +24,8 @@ from tpudet.data import COCO as JCOCO
 from tpudet.data import DetDataLoader as JLoader
 from tpudet_torch.data import COCO, CocoDataset, DetDataLoader, build_dataset
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 CLASSES = ('cat', 'dog', 'bird')
 NORM = dict(mean=[114, 114, 114], std=[255, 255, 255], to_rgb=True)
 SIZES = [(96, 128), (128, 96), (80, 80), (200, 150), (64, 128), (30, 100),

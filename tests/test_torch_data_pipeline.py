@@ -22,6 +22,8 @@ import torch
 from tpudet.data import pipelines as J
 from tpudet_torch.data import pipelines as P
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 NORM = dict(mean=[114, 114, 114], std=[255, 255, 255], to_rgb=True)
 # (h, w): shrink by a non-integer factor, shrink by exactly 2, grow, keep
 SIZES = {

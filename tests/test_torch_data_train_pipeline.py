@@ -29,6 +29,8 @@ from tpudet.data import pipelines as J
 from tpudet_torch.data import CocoDataset, DetDataLoader
 from tpudet_torch.data import pipelines as P
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 CLASSES = ('cat', 'dog', 'bird')
 NORM = dict(mean=[114, 114, 114], std=[255, 255, 255], to_rgb=True)
 # (h, w): both aspect groups, several letterbox factors

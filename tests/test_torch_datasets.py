@@ -30,6 +30,8 @@ from tpudet_torch.data import custom, dataset
 from tpudet_torch.registry import DATASETS
 from tpudet_torch.tools import dataset_formats as formats
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = os.path.join(ROOT, 'tests/torch_fixtures/shapes')
 CLASSES = ('rect', 'circle', 'triangle')

@@ -44,6 +44,8 @@ from tpudet_torch.tools import (coco_error_analysis, deployment_test,
                                 publish_model)
 from tpudet_torch.utils.checkpoint import load_variables
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 BATCH, IMG = 3, 64
 TAIL_TOL, TPUDET_TOL = 1e-5, 1e-4

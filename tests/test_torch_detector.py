@@ -22,6 +22,8 @@ from tpudet.config import Config as JaxConfig
 from tpudet.models.builder import build_detector as jax_build_detector
 from tpudet_torch.apis import init_detector
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG, NUM_CLASSES = 128, 4
 

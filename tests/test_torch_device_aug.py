@@ -22,6 +22,8 @@ import torch
 from tpudet.data import device_aug as J
 from tpudet_torch.data import device_aug as P
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 S, PAD_TO, CROP, OUT = 64, 192, 128, 64
 RATIOS = (0.015, 0.7, 0.4)
 AUG = dict(pad_to=PAD_TO, crop=CROP, scale_limit=0.5, pad_val=114.,

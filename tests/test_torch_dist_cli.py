@@ -23,6 +23,7 @@ import sys
 import pytest
 
 from .test_torch_train_loop import cfg_dict, coco, write_cfg  # noqa: F401
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120

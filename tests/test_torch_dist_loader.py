@@ -23,6 +23,7 @@ from tpudet_torch.data import build_dataset
 from tpudet_torch.data.loader import DetDataLoader, MosaicTileLoader
 
 from .test_torch_train_loop import IMG, N_IMAGES, cfg_dict, coco  # noqa
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 WORLD, SEED = 2, 3
 

@@ -35,6 +35,7 @@ from .test_torch_mask_rcnn import (_img, _loss_inputs, frame_masks,
 from .test_torch_rpn_head import gts
 from .torch_fixtures.dist import (Ranks, forward_train_job, head_losses,
                                   losses_job)
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 WORLD, RTOL = 2, 1e-5
 IMG, NUM_CLASSES, CH = 128, 3, 32

@@ -25,6 +25,7 @@ from tpudet_torch.parallel import (all_reduce_grads, broadcast_,
 from tpudet_torch.parallel.mesh import shared_devices
 
 from .torch_fixtures.dist import run_ranks, syncbn_job
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 RTOL, ATOL = 2e-5, 2e-6
 EPS, MOMENTUM = 1e-3, 0.03  # tpudet's CSP BatchNorm: flax momentum 0.97

@@ -35,6 +35,7 @@ from tpudet.train.train_state import make_train_step as jax_make_train_step
 from .test_torch_train_step import (BN_SCALE, EMA, IMG, OPT,
                                     assert_tree_close, tiny_batch, tiny_cfg)
 from .torch_fixtures.dist import Ranks, train_step_job
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 WORLD, MICRO, STEPS = 2, 2, 2
 

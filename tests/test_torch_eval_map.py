@@ -17,6 +17,8 @@ import pytest
 from tpudet.evaluation import mean_ap as J
 from tpudet_torch.evaluation import mean_ap as P
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 NUM_CLASSES = 4
 CLASSES = ('a', 'b', 'c', 'd')
 

@@ -40,6 +40,7 @@ from tpudet_torch.utils.checkpoint import save_variables
 
 from .test_models.test_retinanet import retina_cfg
 from .test_torch_faster_rcnn import frcnn_cfg
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 ROOT = __file__.rsplit('/tests/', 1)[0]
 K, MAX_OUT, IOU_THR = 700, 300, 0.5
@@ -214,9 +215,22 @@ V5S['bbox_head'].update(num_classes=3, in_channels=[128, 64, 64])
 V5S['test_cfg'].update(score_thr=0.0, anchor_pre=256, max_per_img=50)
 
 
+# YOLOv3 with tpudet's test widths (tests/test_models/test_yolov3.py)
+V3 = dict(Config.fromfile(f'{ROOT}/configs/yolo/yolov3_d53_mstrain-608_273e_'
+                          f'coco.py')['model'])
+V3['neck'] = dict(V3['neck'], out_channels=[128, 64, 32])
+V3['bbox_head'] = dict(V3['bbox_head'], num_classes=3,
+                       in_channels=[128, 64, 32], out_channels=[256, 128, 64])
+
+
 def _model_cfg(name):
     if name == 'yolov5':
         return V5S
+    if name == 'yolov3':
+        return V3
+    if name == 'cascade_rcnn':
+        return dict(frcnn_cfg(), type='CascadeRCNN', roi_head=dict(
+            type='CascadeRoIHead', num_classes=3, in_channels=64))
     if name == 'retinanet':
         cfg = retina_cfg(num_classes=4)
         cfg['test_cfg'] = dict(cfg['test_cfg'], score_thr=0.0)
@@ -233,7 +247,8 @@ def _eval_inputs(size, seed=3, b=2):
     return img, scale, hw
 
 
-@pytest.mark.parametrize('name', ['yolov5', 'retinanet', 'faster_rcnn'])
+@pytest.mark.parametrize('name', ['yolov5', 'retinanet', 'faster_rcnn',
+                                  'yolov3', 'cascade_rcnn'])
 def test_exported_eval_program_equals_the_eager_call(name):
     size = 64
     det = init_detector(Config(dict(model=_model_cfg(name))), device='cpu',

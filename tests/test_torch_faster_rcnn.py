@@ -51,6 +51,7 @@ from .test_torch_backbone_neck import random_variables
 from .test_torch_roi_head import assert_detections_equal
 from .test_torch_rpn_head import assert_proposals_equal, gts
 from .test_torch_train_step import _leaves
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 IMG, NUM_CLASSES = 128, 3
 TOL = 1e-4

@@ -59,6 +59,7 @@ from .test_torch_faster_rcnn import (IMG, NUM_CLASSES, _img, _jax_init_args,
 from .test_torch_rpn_head import gts
 from .test_torch_test_flow import CLASSES, NO_RESIZE, _write_set
 from .test_torch_train_step import assert_tree_close
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 
 @pytest.fixture(scope='module', params=['FasterRCNN', 'FastRCNN'])
@@ -79,7 +80,8 @@ def _jax_losses(jmodel, variables, kind, batch):
     variables = f64(variables)
 
     def total(params, args):
-        v = {'params': params, 'batch_stats': variables['batch_stats']}
+        v = {'params': params,
+             'batch_stats': variables.get('batch_stats', {})}
         losses, _ = jmodel.apply(v, *args, method='forward_train',
                                  mutable=['batch_stats'])
         return sum(x for k, x in losses.items() if 'loss' in k), losses
@@ -179,14 +181,27 @@ STEPS = 2
 def step_runs():
     """Both packages' steps from tpudet's init (``create_train_state``),
     in float64."""
+    return two_stage_step_runs(frcnn_cfg(), STEPS)
+
+
+def two_stage_step_runs(cfg, steps, adjust=None, batch_fn=None):
+    """``steps`` steps of tpudet's ``make_train_step`` and of the port's
+    ``init_trainer`` on detector config ``cfg`` from tpudet's init (its
+    params and EMA params passed through ``adjust``, if given), on the
+    batches ``batch_fn(step)`` (``_batch``'s by default), in
+    float64: ``(port's initial state, tpudet's, tpudet's final state,
+    tpudet's metrics, the port's final state, the port's metrics)``."""
     from tpudet_torch.train.train_state import create_train_state
-    cfg = frcnn_cfg()
     jmodel = jax_build_detector(cfg)
-    jopt = jax_opt_config(STEP_CFG, STEPS, 1)
-    state0 = jax.device_get(jax_create_state(
-        jmodel, jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 3)), jopt))
+    jopt = jax_opt_config(STEP_CFG, steps, 1)
+    state0 = jax.device_get(jax.jit(
+        lambda key, x: jax_create_state(jmodel, key, x, jopt))(
+            jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 3))))
     state0 = jax.tree.map(lambda a: np.asarray(a, np.float64)
                           if a.dtype == np.float32 else a, state0)
+    if adjust is not None:
+        state0 = state0.replace(params=adjust(state0.params),
+                                ema_params=adjust(state0.ema_params))
 
     def loss_fn(params, batch_stats, b):
         losses, mutated = jmodel.apply(
@@ -201,14 +216,15 @@ def step_runs():
     trainer = init_trainer(Config(dict(STEP_CFG, model=cfg)),
                            variables={'params': state0.params,
                                       'batch_stats': state0.batch_stats},
-                           device='cpu', max_steps=STEPS)
+                           device='cpu', max_steps=steps)
     trainer.model.double()
     trainer.model.dtype = torch.float64
     trainer.state = create_train_state(trainer.model, trainer.opt_cfg)
     init = train_state_to_flax(trainer.state, trainer.model)
     jstate, jm, tm = state0, [], []
-    for step in range(STEPS):
-        batch = _batch('FasterRCNN', img_seed=20 + step)
+    for step in range(steps):
+        batch = (batch_fn(step) if batch_fn else
+                 _batch('FasterRCNN', img_seed=20 + step))
         with jax.enable_x64(True):
             jstate, m = jstep(jstate, {k: jnp.asarray(v)
                                        for k, v in batch.items()})

@@ -21,6 +21,7 @@ from tpudet_torch.models.builder import build_detector
 from tpudet_torch.utils.flax_import import (flax_to_state_dict, leaf_table,
                                             load_flax_variables,
                                             random_flax_variables)
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'configs/yolov4/yolov4l_coco_mosaic.py')

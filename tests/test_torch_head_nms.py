@@ -25,6 +25,8 @@ from tpudet.models.dense_heads.yolocsp_head import YOLOCSPHead as JaxHead
 from tpudet_torch.core import nms as tnms
 from tpudet_torch.models.dense_heads.yolocsp_head import YOLOCSPHead
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 TEST_CFG = dict(score_thr=0.001, iou_thr=0.65, max_per_img=300, nms_pre=0,
                 anchor_pre=2048, lane_pre=4, class_pre=256)
 IN_CHANNELS = (256, 512, 1024)

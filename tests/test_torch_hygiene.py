@@ -9,6 +9,8 @@ import sys
 
 import pytest
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'tpudet')
 

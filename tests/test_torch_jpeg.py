@@ -24,6 +24,8 @@ from tests.torch_fixtures import (JPEG_DIR, jpeg_bytes, jpeg_manifest,
 from tpudet_torch.ops import jpeg, letterbox as L
 from tpudet_torch.tools import jpeg_fixtures
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 NAMES = sorted(jpeg_manifest())
 DECODED = [n for n in NAMES if n != jpeg_fixtures.TRUNCATED]
 SIZES = [(640, 640), (320, 416)]  # (out_h, out_w)

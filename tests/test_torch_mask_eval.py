@@ -50,6 +50,7 @@ from tpudet_torch.tools import test as cli
 from .test_torch_mask_rcnn import (IMG, NUM_CLASSES, _img, jax_init_tree,
                                    mask_rcnn_cfg)
 from .test_torch_test_flow import _iou
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 CLASSES = ('cat', 'dog', 'bird')
 NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],

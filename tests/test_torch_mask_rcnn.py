@@ -64,6 +64,7 @@ from tpudet_torch.utils.flax_import import (_to_flax_layout, leaf_table,
 
 from .test_torch_backbone_neck import random_variables
 from .test_torch_rpn_head import gts
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 IMG, NUM_CLASSES, CH = 96, 3, 32
 FILL_KINDS = ('convex', 'concave', 'self_intersecting', 'multi_part',

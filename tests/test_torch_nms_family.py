@@ -28,6 +28,7 @@ from tpudet_torch.core import nms as tnms
 from tpudet_torch.models.dense_heads.yolocsp_head import YOLOCSPHead
 
 from .test_torch_head_nms import _pred_maps
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 SCORE_ATOL, BOX_ATOL = 1e-6, 1e-4
 

@@ -76,6 +76,7 @@ from .test_torch_backbone_neck import _max_rel, random_variables
 from .test_torch_detector import _iou, _np
 from .test_torch_test_flow import CLASSES, NO_RESIZE, _write_set
 from .test_torch_train_step import assert_tree_close
+from . import torch_fixtures
 
 IMG, NUM_CLASSES = 128, 6
 TOL = 1e-4
@@ -369,8 +370,8 @@ def test_resnext_matches_tpudet():
 
 
 def test_resnet_refuses_what_is_not_ported():
+    # GN and weight standardization are ported: test_torch_gn_ws.py
     for kw in (dict(stage_with_dcn=(False, True, True, True)),
-               dict(norm='GN'), dict(conv_ws=True),
                dict(plugins=[dict(cfg=dict(type='ContextBlock'))])):
         with pytest.raises(NotImplementedError, match='ROADMAP.md'):
             ResNet(depth=18, **kw)
@@ -568,8 +569,9 @@ def step_runs():
     model = build_detector(cfg)
     opt = YoloSGDConfig(**OPT)
     state = train_state_from_flax(state0, model, opt)
-    state, tm = make_train_step(model, opt, **EMA)(
-        state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    with torch_fixtures.default_threads():  # momentum_buf's margin
+        state, tm = make_train_step(model, opt, **EMA)(
+            state, {k: torch.from_numpy(v) for k, v in batch.items()})
     return (state0, jax.device_get(jstate), {k: float(v) for k, v in
                                               jm.items()},
             train_state_to_flax(state, model), {k: float(v) for k, v in

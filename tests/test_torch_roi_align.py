@@ -24,6 +24,8 @@ import torch
 from tpudet.ops import roi_align as jra
 from tpudet_torch.ops import roi_align as tra
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 STRIDES = (4, 8, 16, 32)
 IMG = 128
 ATOL = 1e-5

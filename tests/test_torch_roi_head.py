@@ -32,6 +32,7 @@ from tpudet_torch.utils.flax_import import load_flax_variables
 from .test_torch_backbone_neck import random_variables
 from .test_torch_roi_align import _rois
 from .test_torch_rpn_head import gts
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 IMG, CH, NUM_CLASSES = 128, 16, 3
 STRIDES = (4, 8, 16, 32)
@@ -202,9 +203,7 @@ def test_get_bboxes_matches_tpudet(roi_pair, agnostic, clip):
 
 @pytest.mark.parametrize('kw', [dict(roi_extractor='generic'),
                                 dict(neg_sampling='iou_balanced'),
-                                dict(loss_bbox_type='balanced_l1'),
-                                dict(bbox_head_type='Shared4Conv1FCBBoxHead',
-                                     norm='GN')])
+                                dict(loss_bbox_type='balanced_l1')])
 def test_unported_branches_raise(kw):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         StandardRoIHead(num_classes=3, **kw)

@@ -28,6 +28,7 @@ from tpudet_torch.models.dense_heads.rpn_head import RPNHead
 from tpudet_torch.utils.flax_import import load_flax_variables
 
 from .test_torch_backbone_neck import random_variables
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 IMG, CH = 128, 16
 STRIDES = (4, 8, 16, 32, 64)

@@ -39,6 +39,8 @@ from tpudet_torch.apis import (async_inference_detector, inference_detector,
                                init_detector)
 from tpudet_torch.tools import serve as S
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG, BATCH = 64, 2
 CLASSES = [f'class{i}' for i in range(8)]

@@ -34,6 +34,7 @@ from tpudet_torch.tools import test as cli
 
 from .test_torch_test_flow import (CLASSES, IMG, NO_RESIZE, REPORT_ATOL,
                                    _cfg, _variables, _write_set)
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V5S = os.path.join(ROOT, 'configs/yolov5/yolov5s_coco_mosaic.py')

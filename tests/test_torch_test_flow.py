@@ -38,6 +38,8 @@ from tpudet_torch.core.nms import NMSResult
 from tpudet_torch.data import CocoDataset, DetDataLoader
 from tpudet_torch.evaluation import coco_fast_bbox_eval
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 IMG = 128
 CLASSES = ('cat', 'dog', 'bird')
 NORM = dict(mean=[114, 114, 114], std=[255, 255, 255], to_rgb=True)

@@ -37,6 +37,7 @@ from tpudet_torch.utils.flax_import import (load_flax_variables,
                                             state_dict_to_flax,
                                             train_state_from_flax,
                                             train_state_to_flax)
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 CIN, COUT = 6, 5
 DARKNET_BN = dict(bn_eps=1e-3, bn_momentum=0.97)

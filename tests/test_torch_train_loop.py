@@ -43,6 +43,8 @@ from tpudet_torch.data import MosaicTileLoader, build_dataset
 from tpudet_torch.tools import train as train_cli
 from tpudet_torch.utils.checkpoint import STATE_FILE, load_variables
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 IMG, N_IMAGES, BN_SCALE = 64, 16, 0.25
 NORM = dict(mean=[114, 114, 114], std=[255, 255, 255], to_rgb=True)
 AUG = dict(pad_to=192, crop=128, scale_limit=0.5, pad_val=114., min_area=4.,

@@ -26,6 +26,7 @@ from tpudet_torch.core.targets import (multilevel_responsible_matches,
 from tpudet_torch.models import losses as TL
 from tpudet_torch.models.dense_heads.yolocsp_head import (DEFAULT_BASE_SIZES,
                                                           YOLOCSPHead)
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 IMG, NUM_CLASSES, STRIDES = 128, 5, (8, 16, 32)
 

@@ -35,6 +35,8 @@ from tpudet.ops.mish import _mish_bwd_kernel
 from tpudet.ops.mish import mish_reference as jax_mish_reference
 from tpudet_torch.ops import mish as tmish
 
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
+
 TORCH = {'float32': torch.float32, 'float16': torch.float16,
          'bfloat16': torch.bfloat16}
 NUMPY = {'float32': np.float32, 'float16': np.float16,

@@ -25,6 +25,7 @@ from tpudet_torch.utils.flax_import import (leaf_table, random_flax_variables,
                                             state_dict_to_flax,
                                             train_state_from_flax,
                                             train_state_to_flax)
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 SCHED = dict(lr=0.01, total_steps=100, warmup_iters=10, min_lr_ratio=0.2)
 STEPS = [0, 3, 9, 10, 11, 50, 99, 100, 150]

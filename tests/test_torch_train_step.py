@@ -39,6 +39,7 @@ from tpudet_torch.train.optim import YoloSGDConfig
 from tpudet_torch.train.train_state import make_train_step
 from tpudet_torch.utils.flax_import import (train_state_from_flax,
                                             train_state_to_flax)
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 IMG, NUM_CLASSES, BATCH, ACCUM, STEPS = 64, 4, 4, 2, 2
 OPT = dict(lr=0.01, total_steps=50, warmup_iters=3, steps_per_epoch=0,

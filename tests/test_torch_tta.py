@@ -47,6 +47,7 @@ from .test_torch_test_flow import (CLASSES, IMG, IOU_MIN, NO_RESIZE,
                                    assert_nms_one_to_one,
                                    no_resize_set, pair,  # noqa: F401
                                    resize_set)
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 TIE_SHARE = 0.01
 

@@ -22,6 +22,7 @@ from tpudet_torch.evaluation import recall, voc_map
 from tpudet_torch.tools import dataset_formats as formats
 
 from .test_torch_datasets import CLASSES, SHAPES, _coco
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 ATOL = 1e-12
 

@@ -39,6 +39,7 @@ from tpudet_torch.utils.flax_import import (load_flax_variables,
 
 from .test_torch_backbone_neck import _max_rel, random_variables
 from .test_torch_detector import _np, _variables, assert_one_to_one
+from . import torch_fixtures  # noqa: F401  (one intra-op thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMG, NUM_CLASSES = 128, 4

@@ -1,6 +1,7 @@
 """Anchor grids, numpy: the port's own copy of ``tpudet/core/anchors.py``'s
-``AnchorGenerator`` (``:34-153``, RetinaNet's) and ``YOLOV4AnchorGenerator``
-(grid anchors and base anchor sizes).
+``AnchorGenerator`` (``:34-153``, RetinaNet's), ``YOLOAnchorGenerator``
+(``:221-275``: grid anchors, base anchor sizes, ``responsible_flags``) and
+``YOLOV4AnchorGenerator``, its subclass.
 
 Base anchors are xyxy around a per-level centre (the grid corner for
 ``AnchorGenerator``, stride/2 for YOLO); grid anchors shift them by
@@ -119,7 +120,7 @@ class AnchorGenerator:
         return out
 
 
-class YOLOV4AnchorGenerator:
+class YOLOAnchorGenerator:
     """Explicit per-level (w, h) base sizes, centres at stride/2."""
 
     def __init__(self, strides, base_sizes):
@@ -140,6 +141,10 @@ class YOLOV4AnchorGenerator:
     def num_levels(self) -> int:
         return len(self.base_sizes)
 
+    @property
+    def num_base_anchors(self) -> List[int]:
+        return [a.shape[0] for a in self.base_anchors]
+
     def base_anchor_wh(self) -> List[np.ndarray]:
         """(A, 2) widths/heights of the base anchors, per level
         (``tpudet/core/anchors.py:249-254``)."""
@@ -152,3 +157,27 @@ class YOLOV4AnchorGenerator:
         assert len(featmap_sizes) == self.num_levels
         return [_level_grid(base, size, stride) for base, size, stride in
                 zip(self.base_anchors, featmap_sizes, self.strides)]
+
+    def responsible_flags(self, featmap_sizes, gt_bboxes) -> List[np.ndarray]:
+        """YOLOv3's single-cell responsibility of one image's gts (G, 4):
+        per level, (H*W*A,) True for every anchor of a cell that holds a gt
+        centre (``tpudet/core/anchors.py:256-275``)."""
+        assert self.num_levels == len(featmap_sizes)
+        out = []
+        for i in range(self.num_levels):
+            feat_h, feat_w = featmap_sizes[i]
+            sx, sy = self.strides[i]
+            cx = (gt_bboxes[:, 0] + gt_bboxes[:, 2]) * 0.5
+            cy = (gt_bboxes[:, 1] + gt_bboxes[:, 3]) * 0.5
+            gx = np.floor(cx / sx).astype(np.int64)
+            gy = np.floor(cy / sy).astype(np.int64)
+            grid = np.zeros(feat_h * feat_w, dtype=bool)
+            grid[gy * feat_w + gx] = True
+            out.append(np.repeat(grid, self.num_base_anchors[i]))
+        return out
+
+
+class YOLOV4AnchorGenerator(YOLOAnchorGenerator):
+    """YOLOv4/v5's generator: YOLOv3's grid. tpudet's subclass adds only
+    the reference's variable-length matcher, which both packages compute
+    densely in ``core/targets.py``."""

@@ -18,6 +18,9 @@ Every anchor gets an int code over padded gts: ``IGNORE`` (-2),
 Ties are found with ``ious == gt_max``, so the codes are as exact as the
 IoUs: torch's IoU takes the same rounded steps as tpudet's on the CPU.
 
+``grid_assign_batch`` is YOLOv3's GridAssigner (``:77-120``) in the same
+codes.
+
 ``priority_rank`` ranks entries by a fixed priority, the sampling of the
 two-stage heads (``tpudet/models/dense_heads/rpn_head.py:104-117``).
 """
@@ -82,6 +85,48 @@ def max_iou_assign(anchors: torch.Tensor,
     return max_iou_assign_batch(anchors, gt_bboxes[None], gt_valid[None],
                                 pos_iou_thr, neg_iou_thr, min_pos_iou,
                                 match_low_quality, gt_max_assign_all)[0]
+
+
+def grid_assign_batch(anchors: torch.Tensor,
+                      responsible: torch.Tensor,
+                      gt_bboxes: torch.Tensor,
+                      gt_valid: torch.Tensor,
+                      pos_iou_thr: float = 0.5,
+                      neg_iou_thr: float = 0.5,
+                      min_pos_iou: float = 0.0) -> torch.Tensor:
+    """anchors (A, 4), responsible (B, A) bool, gt_bboxes (B, G, 4),
+    gt_valid (B, G) -> (B, A) int64 codes:
+
+    1. ignore by default;
+    2. negative where the max IoU over the valid gts is in [0,
+       ``neg_iou_thr``];
+    3. a responsible anchor whose max IoU over the gts is above
+       ``pos_iou_thr`` takes that (first) argmax gt;
+    4. each valid gt claims its best responsible anchors (every tie) whose
+       IoU is above ``min_pos_iou``; the highest gt index wins;
+    5. an image without a valid gt is negative everywhere."""
+    g = gt_valid.shape[1]
+    ious = bbox_overlaps(anchors[None], gt_bboxes)  # (B, A, G)
+    ious = torch.where(gt_valid[:, None, :], ious, ious.new_tensor(-1.0))
+    max_all = ious.amax(dim=2)
+    assigned = torch.full(max_all.shape, IGNORE, dtype=torch.int64,
+                          device=anchors.device)
+    assigned = torch.where((max_all >= 0) & (max_all <= neg_iou_thr),
+                           NEGATIVE, assigned)
+    resp_ious = torch.where(responsible[..., None], ious,
+                            ious.new_tensor(-1.0))
+    max_resp = resp_ious.amax(dim=2)
+    pos = (max_resp > pos_iou_thr) & responsible
+    assigned = torch.where(pos, resp_ious.argmax(dim=2), assigned)
+    gt_max = resp_ious.amax(dim=1)  # (B, G)
+    is_best = (resp_ious == gt_max[:, None, :]) & (
+        gt_valid & (gt_max > min_pos_iou))[:, None, :]
+    g_idx = torch.arange(g, dtype=torch.int32, device=anchors.device)
+    claim = torch.where(is_best, g_idx, torch.full_like(g_idx, -1)
+                        ).amax(dim=2).long()
+    assigned = torch.where(claim >= 0, claim, assigned)
+    return torch.where(gt_valid.any(dim=1, keepdim=True), assigned,
+                       NEGATIVE)
 
 
 def priority_rank(mask: torch.Tensor, priority: torch.Tensor) -> torch.Tensor:

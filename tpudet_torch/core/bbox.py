@@ -1,7 +1,7 @@
 """Box coders and IoU primitives: port of ``tpudet/core/bbox.py``
-(``YOLOV4BBoxCoder``, ``DeltaXYWHBBoxCoder``, ``bbox_overlaps``,
-``bbox_overlaps_aligned``, ``bbox_cxcywh``). All boxes are xyxy; the
-functions broadcast over leading axes."""
+(``YOLOV4BBoxCoder``, ``YOLOBBoxCoder``, ``DeltaXYWHBBoxCoder``,
+``bbox_overlaps``, ``bbox_overlaps_aligned``, ``bbox_cxcywh``). All boxes
+are xyxy; the functions broadcast over leading axes."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,6 +28,47 @@ class YOLOV4BBoxCoder:
         h_pred = pred_bboxes[..., 3] * h
         return torch.stack((x_pred - w_pred / 2, y_pred - h_pred / 2,
                             x_pred + w_pred / 2, y_pred + h_pred / 2), dim=-1)
+
+
+class YOLOBBoxCoder:
+    """YOLOv3's coder (``tpudet/core/bbox.py:136-183``): xy as the in-cell
+    offset, clipped to [eps, 1 - eps] (the target of a sigmoid), wh as the
+    log of the scale against the anchor, clipped below at ``log(eps)``."""
+
+    def __init__(self, eps: float = 1e-6):
+        self.eps = eps
+
+    def encode(self, bboxes, gt_bboxes, stride):
+        x_c = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        y_c = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        w = bboxes[..., 2] - bboxes[..., 0]
+        h = bboxes[..., 3] - bboxes[..., 1]
+        gx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+        gy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+        gw = gt_bboxes[..., 2] - gt_bboxes[..., 0]
+        gh = gt_bboxes[..., 3] - gt_bboxes[..., 1]
+        w_t = torch.log(torch.clamp_min(gw / w, self.eps))
+        h_t = torch.log(torch.clamp_min(gh / h, self.eps))
+        x_t = torch.clamp((gx - x_c) / stride + 0.5, self.eps, 1 - self.eps)
+        y_t = torch.clamp((gy - y_c) / stride + 0.5, self.eps, 1 - self.eps)
+        return torch.stack([x_t, y_t, w_t, h_t], dim=-1)
+
+    @staticmethod
+    def decode(bboxes, pred_bboxes, stride):
+        """``pred_bboxes``: xy already through the sigmoid, wh the raw log
+        scales, clamped at 8 before ``exp`` as tpudet's (an inf corner
+        would make NaN IoUs in the NMS; only untrained or diverged
+        predictions reach the clamp)."""
+        x_c = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        y_c = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        w = bboxes[..., 2] - bboxes[..., 0]
+        h = bboxes[..., 3] - bboxes[..., 1]
+        xp = (pred_bboxes[..., 0] - 0.5) * stride + x_c
+        yp = (pred_bboxes[..., 1] - 0.5) * stride + y_c
+        wp = torch.exp(torch.clamp_max(pred_bboxes[..., 2], 8.0)) * w
+        hp = torch.exp(torch.clamp_max(pred_bboxes[..., 3], 8.0)) * h
+        return torch.stack((xp - wp / 2, yp - hp / 2, xp + wp / 2,
+                            yp + hp / 2), dim=-1)
 
 
 def _clip_to(x, hi):

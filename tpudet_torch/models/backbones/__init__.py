@@ -1,4 +1,5 @@
+from .darknet import Darknet
 from .darknet_csp import DarknetCSP
 from .resnet import ResNet, ResNeXt
 
-__all__ = ['DarknetCSP', 'ResNet', 'ResNeXt']
+__all__ = ['Darknet', 'DarknetCSP', 'ResNet', 'ResNeXt']

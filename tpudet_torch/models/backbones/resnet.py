@@ -4,12 +4,17 @@
 
 The depth table of the reference: ``BasicBlock`` for 18/34,
 ``Bottleneck`` for 50/101/152, the stride on the 3x3 (``style='pytorch'``),
-a 7x7/2 stem conv, BN, ReLU and a 3x3/2 max-pool that pads with -inf (as
-flax's ``max_pool``). Convs are bias-free ``he_normal``; BN is
+a 7x7/2 stem conv, a norm, ReLU and a 3x3/2 max-pool that pads with -inf
+(as flax's ``max_pool``). Convs are bias-free ``he_normal``; the norm is
 ``layers.BatchNorm2d`` with tpudet's momentum 0.9 (torch 0.1), eps 1e-5
-and flax's biased running variance. Module names are tpudet's
-(``stem_conv``, ``layer{i}_{j}.conv1``, ``ds_conv``, ...), so weights
-carry by name. DCN, GN, weight standardization and plugins raise.
+and flax's biased running variance, or with ``norm='GN'`` the port's
+``GroupNorm`` (``gn_groups`` groups, no running statistics: tpudet's
+``frozen_stages`` does not exist for this backbone, and train and eval
+mode compute the same). ``conv_ws=True`` makes every conv a ``WSConv``,
+the stem and the downsample branch included; as in tpudet, ResNeXt's
+weight-standardized 3x3 is not grouped (``resnet.py:31-40, 123-124``).
+Module names are tpudet's (``stem_conv``, ``layer{i}_{j}.conv1``,
+``ds_conv``, ...), so weights carry by name. DCN and plugins raise.
 """
 from __future__ import annotations
 
@@ -19,34 +24,47 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...registry import BACKBONES
-from ..layers import BatchNorm2d, Conv
+from ..layers import Conv
+from ..plugins import WSConv, make_norm
 
 BN_MOMENTUM = 0.1  # flax 0.9
 BN_EPS = 1e-5
 
 
-def _conv(cin, cout, kernel, stride=1, groups=1):
-    return Conv(cin, cout, kernel, stride, kernel // 2, groups=groups,
-                bias=False)
+class _Convs:
+    """tpudet's conv factory and norm of a block: ``conv(cin, cout,
+    kernel, stride, groups)`` plain ``he_normal`` or weight-standardized
+    (which takes no groups, as tpudet's ``_make_conv``), ``norm(c)`` BN
+    or GN."""
 
+    def __init__(self, norm: str = 'BN', gn_groups: int = 32,
+                 conv_ws: bool = False):
+        self.norm_type, self.gn_groups, self.conv_ws = norm, gn_groups, conv_ws
 
-def _bn(channels):
-    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+    def conv(self, cin, cout, kernel, stride=1, groups=1):
+        if self.conv_ws:
+            return WSConv(cin, cout, kernel, stride)
+        return Conv(cin, cout, kernel, stride, kernel // 2, groups=groups,
+                    bias=False)
+
+    def norm(self, channels):
+        return make_norm(self.norm_type, channels, self.gn_groups, BN_EPS,
+                         BN_MOMENTUM)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, convs: _Convs = _Convs()):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = _bn(planes)
-        self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = _bn(planes)
+        self.conv1 = convs.conv(inplanes, planes, 3, stride)
+        self.bn1 = convs.norm(planes)
+        self.conv2 = convs.conv(planes, planes, 3)
+        self.bn2 = convs.norm(planes)
         if downsample:
-            self.ds_conv = _conv(inplanes, planes, 1, stride)
-            self.ds_bn = _bn(planes)
+            self.ds_conv = convs.conv(inplanes, planes, 1, stride)
+            self.ds_bn = convs.norm(planes)
         self.downsample = downsample
 
     def forward(self, x):
@@ -63,19 +81,20 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, groups: int = 1,
-                 base_width: int = 64):
+                 base_width: int = 64, convs: _Convs = _Convs()):
         super().__init__()
         width = planes if groups == 1 else int(
             planes * (base_width / 64)) * groups
-        self.conv1 = _conv(inplanes, width, 1)
-        self.bn1 = _bn(width)
-        self.conv2 = _conv(width, width, 3, stride, groups=groups)
-        self.bn2 = _bn(width)
-        self.conv3 = _conv(width, planes * self.expansion, 1)
-        self.bn3 = _bn(planes * self.expansion)
+        self.conv1 = convs.conv(inplanes, width, 1)
+        self.bn1 = convs.norm(width)
+        self.conv2 = convs.conv(width, width, 3, stride, groups=groups)
+        self.bn2 = convs.norm(width)
+        self.conv3 = convs.conv(width, planes * self.expansion, 1)
+        self.bn3 = convs.norm(planes * self.expansion)
         if downsample:
-            self.ds_conv = _conv(inplanes, planes * self.expansion, 1, stride)
-            self.ds_bn = _bn(planes * self.expansion)
+            self.ds_conv = convs.conv(inplanes, planes * self.expansion, 1,
+                                      stride)
+            self.ds_bn = convs.norm(planes * self.expansion)
         self.downsample = downsample
 
     def forward(self, x):
@@ -118,8 +137,6 @@ class ResNet(nn.Module):
             raise KeyError(f'invalid depth {depth} for ResNet')
         if any(stage_with_dcn):
             _refuse('stage_with_dcn', tuple(stage_with_dcn), ())
-        _refuse('norm', norm, 'BN')
-        _refuse('conv_ws', conv_ws, False)
         _refuse('plugins', plugins or None, None)
         if dtype is not None:  # tpudet's module field
             raise ValueError(
@@ -130,12 +147,15 @@ class ResNet(nn.Module):
         self.depth = depth
         self.out_indices = tuple(out_indices)
         block_cls, stage_blocks = self.arch_settings[depth]
-        self.stem_conv = Conv(3, base_channels, 7, 2, 3, bias=False)
-        self.stem_bn = _bn(base_channels)
+        convs = _Convs(norm, gn_groups, conv_ws)
+        self.stem_conv = (WSConv(3, base_channels, 7, 2) if conv_ws else
+                          Conv(3, base_channels, 7, 2, 3, bias=False))
+        self.stem_bn = convs.norm(base_channels)
         self.stage_names = []
         cin = base_channels
-        kw = (dict(groups=groups, base_width=base_width)
-              if block_cls is Bottleneck else {})
+        kw = dict(convs=convs)
+        if block_cls is Bottleneck:
+            kw.update(groups=groups, base_width=base_width)
         for i, num_blocks in enumerate(stage_blocks):
             planes = base_channels * 2**i
             names = []

@@ -1,6 +1,6 @@
 """Single-stage detector: backbone -> neck -> dense head. Port of
 ``tpudet/models/detectors/single_stage.py`` (``SingleStageDetector``,
-``YOLOV4``, ``YOLOV5``, ``RetinaNet``)."""
+``YOLOV4``, ``YOLOV5``, ``YOLOV3``, ``RetinaNet``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -94,6 +94,12 @@ class YOLOV4(SingleStageDetector):
 @DETECTORS.register_module()
 class YOLOV5(SingleStageDetector):
     """Named alias, mirroring the reference detector registry."""
+
+
+@DETECTORS.register_module()
+class YOLOV3(SingleStageDetector):
+    """YOLOv3 (reference mmdet/models/detectors/yolo.py)."""
+    default_iou_thr = 0.45
 
 
 @DETECTORS.register_module()

@@ -58,13 +58,30 @@ class TwoStageDetector(BaseDetector):
     def detect(self, feats, img_shape):
         """``forward`` on the features of an image batch of ``img_shape``
         (h, w)."""
-        rpn_preds = self.rpn_head(feats)
-        cfg = dict(self.test_cfg or {}).get('rpn', {})
-        proposals, _, prop_valid = self.rpn_head.get_proposals(
-            rpn_preds, img_shape=img_shape, **proposal_kwargs(cfg, 1000))
-        proposals = proposals.detach()
+        proposals, prop_valid = self.eval_proposals(feats, img_shape)
         cls_logits, deltas = self.roi_head(feats, proposals, prop_valid)
         return proposals, prop_valid, cls_logits, deltas
+
+    def eval_proposals(self, feats, img_shape):
+        """The RPN's proposals by ``test_cfg.rpn``, detached: ``(proposals
+        (B, P, 4), valid (B, P))``."""
+        cfg = dict(self.test_cfg or {}).get('rpn', {})
+        proposals, _, prop_valid = self.rpn_head.get_proposals(
+            self.rpn_head(feats), img_shape=img_shape,
+            **proposal_kwargs(cfg, 1000))
+        return proposals.detach(), prop_valid
+
+    def train_proposals(self, feats, img, gt_bboxes, gt_labels, gt_valid):
+        """The RPN's losses and its proposals by ``train_cfg.rpn_proposal``,
+        detached: ``(losses, proposals, valid)``."""
+        rpn_preds = self.rpn_head(feats)
+        losses = self.rpn_head.loss(rpn_preds, gt_bboxes, gt_labels,
+                                    gt_valid)
+        cfg = dict(self.train_cfg or {}).get('rpn_proposal', {})
+        proposals, _, prop_valid = self.rpn_head.get_proposals(
+            rpn_preds, img_shape=tuple(img.shape[1:3]),
+            **proposal_kwargs(cfg, 2000))
+        return losses, proposals.detach(), prop_valid
 
     def forward_train(self, img, gt_bboxes, gt_labels, gt_valid
                       ) -> Dict[str, torch.Tensor]:
@@ -79,14 +96,8 @@ class TwoStageDetector(BaseDetector):
         """The RPN and RoI losses on the features of ``img``, and the
         sampled rois they came from: ``(losses, (rois, sampled, labels,
         pos))``."""
-        rpn_preds = self.rpn_head(feats)
-        losses = self.rpn_head.loss(rpn_preds, gt_bboxes, gt_labels,
-                                    gt_valid)
-        cfg = dict(self.train_cfg or {}).get('rpn_proposal', {})
-        proposals, _, prop_valid = self.rpn_head.get_proposals(
-            rpn_preds, img_shape=tuple(img.shape[1:3]),
-            **proposal_kwargs(cfg, 2000))
-        proposals = proposals.detach()
+        losses, proposals, prop_valid = self.train_proposals(
+            feats, img, gt_bboxes, gt_labels, gt_valid)
         rois, sampled, labels, targets, pos = self.roi_head.sample_rois(
             proposals, prop_valid, gt_bboxes, gt_labels, gt_valid)
         cls_logits, deltas = self.roi_head(feats, rois, sampled)

@@ -129,9 +129,11 @@ class ConvTranspose(nn.ConvTranspose2d):
 
 def cast_weights(model: nn.Module, dtype: torch.dtype) -> None:
     """Store every conv's and dense layer's parameters in ``dtype``, the
-    inference compute dtype (BatchNorm keeps fp32)."""
+    inference compute dtype (BatchNorm, GroupNorm and the weight-standardized
+    convs, which standardize in fp32 at each call, keep fp32)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and \
+                not getattr(m, 'keeps_fp32', False):
             m.to(dtype)
 
 
@@ -257,17 +259,20 @@ class Conv2d(nn.Module):
 
 class ConvModule(nn.Module):
     """conv (no bias) + BN + act (``tpudet/models/layers.py:63-104``).
-    Padding defaults to ``kernel_size // 2``."""
+    Padding defaults to ``kernel_size // 2``. BN takes the CSP family's
+    eps and momentum unless given (YOLOv3's Darknet passes tpudet's
+    ConvModule defaults, torch's 1e-5 and 0.1)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 1, stride: int = 1,
                  padding: Optional[int] = None, groups: int = 1,
-                 act: ActCfg = 'Mish'):
+                 act: ActCfg = 'Mish', bn_eps: float = BN_EPS,
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         pad = kernel_size // 2 if padding is None else padding
         self.conv = Conv(in_channels, out_channels, kernel_size, stride, pad,
                          groups=groups, bias=False)
-        self.bn = BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(out_channels, eps=bn_eps, momentum=bn_momentum)
         self.act = get_activation(act)
 
     def forward(self, x):

@@ -6,7 +6,9 @@ Lateral 1x1 convs from ``start_level`` on, a nearest 2x top-down merge,
 (``'on_input'``) or the last output (``'on_output'``, or ``True`` as
 tpudet reads it), with a ReLU before every extra conv but the first when
 ``relu_before_extra_convs``. Every conv has a bias and tpudet's
-``xavier_uniform`` init. GN raises.
+``xavier_uniform`` init. With ``norm='GN'`` a ``GroupNorm`` follows each
+lateral and each output conv (``lateral_norm{i}``, ``fpn_norm{i}``;
+``tpudet/models/necks/fpn.py:44-64``), not the extra convs.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from torch import nn
 
 from ...registry import NECKS
 from ..layers import Conv, upsample_nearest_2x
+from ..plugins import make_norm
 
 
 def _conv(cin, cout, kernel, stride=1):
@@ -36,10 +39,6 @@ class FPN(nn.Module):
                  norm: Optional[str] = None, gn_groups: int = 32,
                  dtype=None):
         super().__init__()
-        if norm is not None:
-            raise NotImplementedError(
-                f'FPN(norm={norm!r}) is not ported; it comes with '
-                f'ROADMAP.md\'s "rest of the zoo" item')
         if dtype is not None:
             raise ValueError(f'FPN: dtype={dtype!r} is not a module setting '
                              f'in the port; see SingleStageDetector.set_dtype')
@@ -54,6 +53,11 @@ class FPN(nn.Module):
                 self.in_channels[start_level + i], out_channels, 1))
             self.add_module(f'fpn_conv{i}', _conv(out_channels,
                                                   out_channels, 3))
+            if norm is not None:
+                for kind in ('lateral', 'fpn'):
+                    self.add_module(f'{kind}_norm{i}', make_norm(
+                        norm, out_channels, gn_groups))
+        self.norm = norm
         if add_extra_convs:
             cin = (self.in_channels[-1] if add_extra_convs == 'on_input'
                    else out_channels)
@@ -62,15 +66,18 @@ class FPN(nn.Module):
                                                         2))
                 cin = out_channels
 
+    def _normed(self, kind, i, x):
+        x = getattr(self, f'{kind}_conv{i}')(x)
+        return x if self.norm is None else getattr(self, f'{kind}_norm{i}')(x)
+
     def forward(self, inputs):
         assert len(inputs) == len(self.in_channels)
-        laterals = [getattr(self, f'lateral_conv{i}')(
-            inputs[self.start_level + i]) for i in range(self.used)]
+        laterals = [self._normed('lateral', i, inputs[self.start_level + i])
+                    for i in range(self.used)]
         for i in range(self.used - 1, 0, -1):
             laterals[i - 1] = laterals[i - 1] + upsample_nearest_2x(
                 laterals[i])
-        outs = [getattr(self, f'fpn_conv{i}')(laterals[i])
-                for i in range(self.used)]
+        outs = [self._normed('fpn', i, laterals[i]) for i in range(self.used)]
         if self.extra > 0:
             if not self.add_extra_convs:
                 for _ in range(self.extra):

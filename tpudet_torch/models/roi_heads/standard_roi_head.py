@@ -18,9 +18,12 @@ and ``'smooth_l1'`` box losses).
   decode clipped per image, the top 2048 (roi, class) pairs over
   ``score_thr`` and one class-offset NMS an image.
 
-``roi_extractor='generic'`` (GRoIE), ``neg_sampling='iou_balanced'`` and
-``loss_bbox_type='balanced_l1'`` (Libra R-CNN) and the
-``Shared4Conv1FCBBoxHead`` with GN/WS are not ported: they raise.
+The bbox head is ``Shared2FCBBoxHead``, or ``Shared4Conv1FCBBoxHead``
+with ``bbox_head_type`` (``norm``, ``gn_groups``, ``conv_ws``: the GN and
+GN+WS configs); any other type builds the 2-FC head, as tpudet's ``setup``
+does. ``roi_extractor='generic'`` (GRoIE), ``neg_sampling='iou_balanced'``
+and ``loss_bbox_type='balanced_l1'`` (Libra R-CNN) are not ported: they
+raise.
 """
 from __future__ import annotations
 
@@ -39,13 +42,12 @@ from ...ops.roi_align import batched_multilevel_roi_align
 from ...registry import HEADS
 from .. import losses as L
 from ..dense_heads.rpn_head import fixed_priority
-from .bbox_head import Shared2FCBBoxHead
+from .bbox_head import Shared2FCBBoxHead, Shared4Conv1FCBBoxHead
 
 ZOO = 'comes with ROADMAP.md\'s "rest of the zoo" item'
 
 
-def _refuse(roi_extractor, neg_sampling, loss_bbox_type, bbox_head_type,
-            norm, conv_ws):
+def _refuse(roi_extractor, neg_sampling, loss_bbox_type):
     if roi_extractor != 'single':
         raise NotImplementedError(
             f'StandardRoIHead(roi_extractor={roi_extractor!r}) (GRoIE\'s '
@@ -58,12 +60,6 @@ def _refuse(roi_extractor, neg_sampling, loss_bbox_type, bbox_head_type,
         raise NotImplementedError(
             'StandardRoIHead(loss_bbox_type=\'balanced_l1\') (Libra '
             f'R-CNN) is not ported; it {ZOO}')
-    if bbox_head_type != 'Shared2FCBBoxHead' or norm is not None or conv_ws:
-        raise NotImplementedError(
-            f'StandardRoIHead(bbox_head_type={bbox_head_type!r}, '
-            f'norm={norm!r}, conv_ws={conv_ws!r}): only Shared2FCBBoxHead '
-            f'without norm is ported; Shared4Conv1FCBBoxHead with GN/WS '
-            f'{ZOO}')
 
 
 @HEADS.register_module()
@@ -83,8 +79,7 @@ class StandardRoIHead(nn.Module):
                  loss_bbox_type: str = 'l1', roi_extractor: str = 'single',
                  dtype=None):
         super().__init__()
-        _refuse(roi_extractor, neg_sampling, loss_bbox_type, bbox_head_type,
-                norm, conv_ws)
+        _refuse(roi_extractor, neg_sampling, loss_bbox_type)
         if dtype is not None:
             raise ValueError(f'StandardRoIHead: dtype={dtype!r} is not a '
                              f'module setting in the port; see '
@@ -99,9 +94,15 @@ class StandardRoIHead(nn.Module):
         self.min_pos_iou = min_pos_iou
         self.loss_bbox_type = loss_bbox_type
         self.bbox_coder = DeltaXYWHBBoxCoder(target_stds=target_stds)
-        self.bbox_head = Shared2FCBBoxHead(
-            num_classes=num_classes, in_channels=in_channels,
-            roi_feat_size=roi_size, target_stds=target_stds)
+        if bbox_head_type == 'Shared4Conv1FCBBoxHead':
+            self.bbox_head = Shared4Conv1FCBBoxHead(
+                num_classes=num_classes, in_channels=in_channels,
+                roi_feat_size=roi_size, target_stds=target_stds, norm=norm,
+                gn_groups=gn_groups, conv_ws=conv_ws)
+        else:
+            self.bbox_head = Shared2FCBBoxHead(
+                num_classes=num_classes, in_channels=in_channels,
+                roi_feat_size=roi_size, target_stds=target_stds)
 
     def extract(self, feats, rois, roi_valid, out_size=None):
         """Multilevel RoIAlign of a batch: ``feats`` NCHW per level,
@@ -246,26 +247,33 @@ class StandardRoIHead(nn.Module):
                 rois[:, :, None], deltas.reshape(b, p, c, 4).float(),
                 max_shape=shp)
         if scale_factors is not None:
-            scale_factors = torch.as_tensor(scale_factors,
-                                            dtype=boxes_pc.dtype,
-                                            device=boxes_pc.device)
-            boxes_pc = boxes_pc / scale_factors[:, None, None, :]
-        # every (roi, class) pair is a candidate with its own box
-        flat_boxes = boxes_pc.reshape(b, p * c, 4)
-        flat_scores = scores.reshape(b, p * c)
-        labels = torch.arange(c, device=rois.device).repeat(p)
-        masked = torch.where(flat_scores > score_thr, flat_scores,
-                             torch.full_like(flat_scores, NEG_INF))
-        top_s, top_i = topk_scores(masked, min(2048, p * c))
-        top_valid = top_s > NEG_INF / 2
-        cand = _gather_rows(flat_boxes, top_i)
-        lab = labels[top_i]
-        offsets, _ = _class_offsets(cand, top_valid, lab)
-        keep_idx, keep_valid = nms_padded(cand + offsets[..., None], top_s,
-                                          iou_thr, max_per_img, top_valid)
-        return NMSResult(
-            torch.where(keep_valid[..., None], _gather_rows(cand, keep_idx),
-                        0.),
-            torch.where(keep_valid, torch.gather(top_s, 1, keep_idx), 0.),
-            torch.where(keep_valid, torch.gather(lab, 1, keep_idx), -1),
-            keep_valid)
+            boxes_pc = boxes_pc / torch.as_tensor(
+                scale_factors, dtype=boxes_pc.dtype,
+                device=boxes_pc.device)[:, None, None, :]
+        return pair_nms(boxes_pc, scores, score_thr, iou_thr, max_per_img)
+
+
+def pair_nms(boxes_pc, scores, score_thr: float, iou_thr: float,
+             max_per_img: int) -> NMSResult:
+    """Every (roi, class) pair of ``boxes_pc`` (B, P, C, 4) and ``scores``
+    (B, P, C) over ``score_thr`` is a candidate with its own box: the top
+    2048 by score (ties by index) go through one class-offset NMS an image
+    (``standard_roi_head.py:295-317``, ``cascade_roi_head.py:178-204``)."""
+    b, p, c = scores.shape
+    flat_boxes = boxes_pc.reshape(b, p * c, 4)
+    flat_scores = scores.reshape(b, p * c)
+    labels = torch.arange(c, device=scores.device).repeat(p)
+    masked = torch.where(flat_scores > score_thr, flat_scores,
+                         torch.full_like(flat_scores, NEG_INF))
+    top_s, top_i = topk_scores(masked, min(2048, p * c))
+    top_valid = top_s > NEG_INF / 2
+    cand = _gather_rows(flat_boxes, top_i)
+    lab = labels[top_i]
+    offsets, _ = _class_offsets(cand, top_valid, lab)
+    keep_idx, keep_valid = nms_padded(cand + offsets[..., None], top_s,
+                                      iou_thr, max_per_img, top_valid)
+    return NMSResult(
+        torch.where(keep_valid[..., None], _gather_rows(cand, keep_idx), 0.),
+        torch.where(keep_valid, torch.gather(top_s, 1, keep_idx), 0.),
+        torch.where(keep_valid, torch.gather(lab, 1, keep_idx), -1),
+        keep_valid)

@@ -20,7 +20,8 @@ path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
   tpudet's HWC order (``Shared2FCBBoxHead``), so the rows of
   ``shared_fc0`` need no permutation;
 - BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) become
-  ``weight/bias/running_mean/running_var``.
+  ``weight/bias/running_mean/running_var``; GroupNorm's ``scale/bias``
+  (params only) become ``weight/bias``.
 
 Every leaf must find its tensor, with its shape, and every tensor of the
 model must be reached: anything else raises. Nothing is dropped. The only
@@ -66,6 +67,9 @@ def leaf_table(model: nn.Module) -> Dict[Path, Tuple[str, str]]:
                                                      '')
             table[('batch_stats', *path, 'var')] = (prefix + 'running_var',
                                                     '')
+        elif isinstance(m, nn.GroupNorm):
+            table[('params', *path, 'scale')] = (prefix + 'weight', '')
+            table[('params', *path, 'bias')] = (prefix + 'bias', '')
     return table
 
 
@@ -275,10 +279,11 @@ def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
     numpy seed: each conv's and Dense layer's kernel and bias by the
     initializers it names (``layers.Conv``/``layers.Dense``/
     ``layers.ConvTranspose`` ``kernel_init``, ``bias_init``; a plain
-    ``nn.Conv2d`` takes ``he_normal`` and a zero bias), BatchNorm scale 1,
-    bias 0, mean 0, var 1. A Dense kernel (in, out) is drawn as a 1 x 1
-    conv's, a ConvTranspose kernel in its flax shape (H, W, in, out). Kernels are
-    drawn in the order of their sorted flax paths."""
+    ``nn.Conv2d`` takes ``he_normal`` and a zero bias), BatchNorm and
+    GroupNorm scale 1, bias 0, mean 0, var 1. A Dense kernel (in, out) is
+    drawn as a 1 x 1 conv's, a ConvTranspose kernel in its flax shape (H,
+    W, in, out). Kernels are drawn in the order of their sorted flax
+    paths."""
     rng = np.random.RandomState(seed)
     modules = dict(model.named_modules())
     sd = model.state_dict()
