@@ -10,8 +10,11 @@ two-stage configs (``configs/faster_rcnn/``, the fp16, Pascal VOC and
 Cityscapes Faster R-CNN, ``rpn/`` and ``fast_rcnn/``), and the fork's
 two recipes and the from-scratch Faster R-CNN (3), and the 8 configs of
 ROADMAP.md's zoo rows a-c that are not Mask R-CNN (``configs/gn+ws/``'s
-two Faster R-CNN, ``configs/cascade_rcnn/`` and ``configs/yolo/``), each
-read by
+two Faster R-CNN, ``configs/cascade_rcnn/`` and ``configs/yolo/``), and
+the 12 of rows d, e and g that are not Mask R-CNN (the DCN Faster R-CNN
+R50 / R101 and Cascade, the two attention Faster R-CNN, SSD300 and
+SSD512 with the VOC and WIDER Face SSD300, the three RegNet RetinaNet),
+each read by
 both packages' ``Config``: the port's model is built on the meta
 device (no weights drawn), tpudet's tree comes from ``jax.eval_shape`` of
 its ``init`` (no weights computed either; ``FastRCNN`` also takes padded
@@ -21,13 +24,16 @@ Dense kernels (in, out), ConvTranspose kernels (H, W, in, out)). Exact.
 
 The 8 plain Mask R-CNN configs (``configs/mask_rcnn/``, the fp16,
 DeepFashion, LVIS and InstaBoost variants; their datasets and the
-InstaBoost transform are not built here) and the 4 GN and GN+WS Mask
-R-CNN configs are swept the same way, tpudet's tree from ``init`` through
-``forward_train`` (its mask head's params exist only there). The other 7
-configs that name ``MaskRCNN``/``MaskRoIHead`` or a Mask R-CNN-based head
-(DCN, GCB, HTC, SCNet, MS R-CNN, PointRend) raise ``NotImplementedError`` naming ROADMAP.md's "rest of the
-zoo" item, and so do the 2 Libra R-CNN configs (a list ``neck`` builds
-as tpudet's chain of necks; its ``BFP`` is not ported).
+InstaBoost transform are not built here), the 4 GN and GN+WS Mask
+R-CNN configs and the DCN and the 2 GCB Mask R-CNN configs are swept the
+same way, tpudet's tree from ``init`` through ``forward_train`` (its mask
+head's params exist only there). The other 4 configs that name
+``MaskRCNN``/``MaskRoIHead`` or a Mask R-CNN-based head (HTC, SCNet, MS
+R-CNN, PointRend) raise ``NotImplementedError`` naming ROADMAP.md's "rest
+of the zoo" item, and so do the 2 Libra R-CNN configs (a list ``neck``
+builds as tpudet's chain of necks; its ``BFP`` is not ported). The DCN
+ResNeXt-101 config is refused by both packages (tpudet's assertion, the
+port's ``NotImplementedError`` with its message).
 
 Every config whose ``data.train/val/test`` name a dataset other than
 ``CocoDataset`` (9, wrappers' inner datasets included) has each of those
@@ -86,6 +92,24 @@ GN_MASK_CONFIGS = sorted(
     for pattern in ('configs/gn/mask_rcnn_*.py', 'configs/gn+ws/mask_rcnn_*.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
 
+# ROADMAP.md's zoo rows d (DCN, GCB, attention), e (SSD) and g (RegNet)
+# but for their Mask R-CNN configs (DEG_MASK_CONFIGS) and the DCN
+# ResNeXt, which tpudet refuses (DCN_RESNEXT_CONFIG)
+DCN_RESNEXT_CONFIG = 'configs/dcn/faster_rcnn_x101_32x4d_fpn_dconv_c3-c5_1x_coco.py'
+ZOO_DEG_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for pattern in ('configs/dcn/faster_rcnn_*.py', 'configs/dcn/cascade_*.py',
+                    'configs/empirical_attention/*.py', 'configs/ssd/*.py',
+                    'configs/pascal_voc/ssd300_voc0712.py',
+                    'configs/wider_face/ssd300_wider_face.py',
+                    'configs/regnet/*.py')
+    for p in glob.glob(os.path.join(ROOT, pattern))
+    if os.path.relpath(p, ROOT) != DCN_RESNEXT_CONFIG)
+DEG_MASK_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for pattern in ('configs/dcn/mask_rcnn_*.py', 'configs/gcnet/*.py')
+    for p in glob.glob(os.path.join(ROOT, pattern)))
+
 # configs that build but sit outside the families above: the fork's two
 # recipes and training from scratch
 OTHER_CONFIGS = sorted([
@@ -105,8 +129,7 @@ MASK_CONFIGS = sorted(
     for p in glob.glob(os.path.join(ROOT, pattern)))
 REFUSED_MASK_CONFIGS = sorted(
     os.path.relpath(p, ROOT)
-    for pattern in ('configs/dcn/mask_rcnn_*.py', 'configs/gcnet/mask_rcnn_*.py',
-                    'configs/htc/*.py', 'configs/scnet/*.py',
+    for pattern in ('configs/htc/*.py', 'configs/scnet/*.py',
                     'configs/ms_rcnn/*.py', 'configs/point_rend/*.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
 
@@ -143,6 +166,12 @@ def test_the_zoo_row_sweeps_hold_twelve_configs():
     assert len(ZOO_ROW_CONFIGS) == 8 and len(GN_MASK_CONFIGS) == 4
 
 
+def test_the_zoo_rows_d_e_g_sweeps_hold_fifteen_configs():
+    assert len(ZOO_DEG_CONFIGS) == 12 and len(DEG_MASK_CONFIGS) == 3
+    assert not set(ZOO_DEG_CONFIGS) & set(
+        CONFIGS + RETINA_CONFIGS + TWO_STAGE_CONFIGS + ZOO_ROW_CONFIGS)
+
+
 def test_the_other_sweep_holds_three_configs():
     assert all(os.path.exists(os.path.join(ROOT, c)) for c in OTHER_CONFIGS)
     assert not set(OTHER_CONFIGS) & set(CONFIGS + RETINA_CONFIGS +
@@ -150,7 +179,8 @@ def test_the_other_sweep_holds_three_configs():
 
 
 @pytest.mark.parametrize('config', CONFIGS + RETINA_CONFIGS +
-                         TWO_STAGE_CONFIGS + OTHER_CONFIGS + ZOO_ROW_CONFIGS)
+                         TWO_STAGE_CONFIGS + OTHER_CONFIGS + ZOO_ROW_CONFIGS +
+                         ZOO_DEG_CONFIGS)
 def test_config_builds_with_tpudets_param_tree(config):
     path = os.path.join(ROOT, config)
     model_cfg = JaxConfig.fromfile(path)['model']
@@ -179,7 +209,8 @@ def test_the_mask_rcnn_sweep_holds_eight_configs():
     assert len(MASK_CONFIGS) == 8
 
 
-@pytest.mark.parametrize('config', MASK_CONFIGS + GN_MASK_CONFIGS)
+@pytest.mark.parametrize('config', MASK_CONFIGS + GN_MASK_CONFIGS +
+                         DEG_MASK_CONFIGS)
 def test_mask_config_builds_with_tpudets_param_tree(config):
     path = os.path.join(ROOT, config)
     jmodel = jax_build_detector(JaxConfig.fromfile(path)['model'])
@@ -196,8 +227,23 @@ def test_mask_config_builds_with_tpudets_param_tree(config):
 
 
 def test_the_refused_mask_sweep_holds_eleven_configs():
-    # eleven until the GN and GN+WS Mask R-CNN configs (4) were ported
-    assert len(REFUSED_MASK_CONFIGS) == 7
+    # eleven until the GN and GN+WS Mask R-CNN configs (4) were ported,
+    # seven until the DCN and GCB ones (3, DEG_MASK_CONFIGS)
+    assert len(REFUSED_MASK_CONFIGS) == 4
+
+
+def test_the_dcn_resnext_config_is_refused_by_both():
+    """tpudet asserts against DCN on a grouped block; the port refuses the
+    config when it builds the backbone, with tpudet's message."""
+    path = os.path.join(ROOT, DCN_RESNEXT_CONFIG)
+    jmodel = jax_build_detector(JaxConfig.fromfile(path)['model'])
+    with pytest.raises(AssertionError, match='DCN \\+ grouped conv'):
+        jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                       jnp.zeros((1, 64, 64, 3)))
+    with pytest.raises(NotImplementedError,
+                       match='DCN \\+ grouped conv not supported'):
+        with torch.device('meta'):
+            build_detector(Config.fromfile(path)['model'])
 
 
 @pytest.mark.parametrize('config', REFUSED_MASK_CONFIGS)

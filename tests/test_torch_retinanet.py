@@ -370,11 +370,16 @@ def test_resnext_matches_tpudet():
 
 
 def test_resnet_refuses_what_is_not_ported():
-    # GN and weight standardization are ported: test_torch_gn_ws.py
-    for kw in (dict(stage_with_dcn=(False, True, True, True)),
-               dict(plugins=[dict(cfg=dict(type='ContextBlock'))])):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            ResNet(depth=18, **kw)
+    # GN and weight standardization are ported: test_torch_gn_ws.py; DCN
+    # and the GCNet / attention plugins: test_torch_zoo_plugins.py. What
+    # is left: a plugin type tpudet does not register, and DCN on a
+    # grouped block (tpudet asserts against it)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        ResNet(depth=18, plugins=[dict(cfg=dict(type='NonLocal2d'),
+                                       position='after_conv1')])
+    with pytest.raises(NotImplementedError, match='resnet.py:131'):
+        ResNet(depth=50, groups=32, base_width=4,
+               stage_with_dcn=(False, True, True, True))
 
 
 @pytest.mark.parametrize('extra', [

@@ -1,7 +1,8 @@
 """Anchor grids, numpy: the port's own copy of ``tpudet/core/anchors.py``'s
-``AnchorGenerator`` (``:34-153``, RetinaNet's), ``YOLOAnchorGenerator``
-(``:221-275``: grid anchors, base anchor sizes, ``responsible_flags``) and
-``YOLOV4AnchorGenerator``, its subclass.
+``AnchorGenerator`` (``:34-153``, RetinaNet's), ``SSDAnchorGenerator``
+(``:157-218``), ``YOLOAnchorGenerator`` (``:221-275``: grid anchors, base
+anchor sizes, ``responsible_flags``) and ``YOLOV4AnchorGenerator``, its
+subclass.
 
 Base anchors are xyxy around a per-level centre (the grid corner for
 ``AnchorGenerator``, stride/2 for YOLO); grid anchors shift them by
@@ -76,22 +77,26 @@ class AnchorGenerator:
     def num_levels(self) -> int:
         return len(self.strides)
 
-    def _single_level_base_anchors(self, base_size, center=None
-                                   ) -> np.ndarray:
+    def _single_level_base_anchors(self, base_size, center=None,
+                                   scales=None, ratios=None) -> np.ndarray:
+        """A level's base anchors from ``scales`` and ``ratios`` (the
+        generator's own unless given)."""
+        scales = self.scales if scales is None else scales
+        ratios = self.ratios if ratios is None else ratios
         w = h = float(base_size)
         if center is None:
             x_center = self.center_offset * w
             y_center = self.center_offset * h
         else:
             x_center, y_center = center
-        h_ratios = np.sqrt(self.ratios)
+        h_ratios = np.sqrt(ratios)
         w_ratios = 1.0 / h_ratios
         if self.scale_major:
-            ws = (w * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
-            hs = (h * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
+            ws = (w * w_ratios[:, None] * scales[None, :]).reshape(-1)
+            hs = (h * h_ratios[:, None] * scales[None, :]).reshape(-1)
         else:
-            ws = (w * self.scales[:, None] * w_ratios[None, :]).reshape(-1)
-            hs = (h * self.scales[:, None] * h_ratios[None, :]).reshape(-1)
+            ws = (w * scales[:, None] * w_ratios[None, :]).reshape(-1)
+            hs = (h * scales[:, None] * h_ratios[None, :]).reshape(-1)
         return np.stack([x_center - 0.5 * ws, y_center - 0.5 * hs,
                          x_center + 0.5 * ws, y_center + 0.5 * hs],
                         axis=-1).astype(np.float32)
@@ -118,6 +123,61 @@ class AnchorGenerator:
             valid = (vy[:, None] & vx[None, :]).reshape(-1)
             out.append(np.repeat(valid, self.num_base_anchors[i]))
         return out
+
+
+class SSDAnchorGenerator(AnchorGenerator):
+    """SSD's generator: per-level min and max sizes from
+    ``basesize_ratio_range`` (the first level from tpudet's table of
+    ``(input_size, min ratio)`` pairs; others raise ``ValueError``), scales
+    ``[1, sqrt(max / min)]``, ratios ``[1, 1/r, r, ...]``, centres at
+    stride/2, and the big square anchor (the last row) moved to slot 1."""
+
+    def __init__(self, strides, ratios, basesize_ratio_range,
+                 input_size=300, scale_major=True):
+        assert len(strides) == len(ratios)
+        self.strides = [_pair(s) for s in strides]
+        self.input_size = input_size
+        self.centers = [(s[0] / 2., s[1] / 2.) for s in self.strides]
+        self.basesize_ratio_range = basesize_ratio_range
+
+        min_ratio, max_ratio = basesize_ratio_range
+        min_ratio = int(min_ratio * 100)
+        max_ratio = int(max_ratio * 100)
+        step = int(np.floor(max_ratio - min_ratio) / (self.num_levels - 2))
+        min_sizes, max_sizes = [], []
+        for ratio in range(min_ratio, max_ratio + 1, step):
+            min_sizes.append(int(input_size * ratio / 100))
+            max_sizes.append(int(input_size * (ratio + step) / 100))
+        first = {  # (input_size, min_ratio_percent) -> head sizes
+            (300, 15): (7, 15), (300, 20): (10, 20),
+            (512, 10): (4, 10), (512, 15): (7, 15),
+        }.get((input_size, min_ratio))
+        if first is None:
+            raise ValueError(
+                f'unsupported SSD config ({input_size}, {min_ratio / 100})')
+        min_sizes.insert(0, int(input_size * first[0] / 100))
+        max_sizes.insert(0, int(input_size * first[1] / 100))
+
+        self.base_sizes = min_sizes
+        self.scales = []
+        self.ratios = []
+        for k in range(len(self.strides)):
+            self.scales.append(
+                np.array([1., np.sqrt(max_sizes[k] / min_sizes[k])],
+                         np.float32))
+            anchor_ratio = [1.]
+            for r in ratios[k]:
+                anchor_ratio += [1 / r, r]
+            self.ratios.append(np.array(anchor_ratio, np.float32))
+        self.scale_major = scale_major
+        self.center_offset = 0
+        self.base_anchors = []
+        for i, base_size in enumerate(self.base_sizes):
+            anchors = self._single_level_base_anchors(
+                base_size, self.centers[i], self.scales[i], self.ratios[i])
+            indices = list(range(len(self.ratios[i])))
+            indices.insert(1, len(indices))
+            self.base_anchors.append(anchors[indices])
 
 
 class YOLOAnchorGenerator:

@@ -14,18 +14,35 @@ mode compute the same). ``conv_ws=True`` makes every conv a ``WSConv``,
 the stem and the downsample branch included; as in tpudet, ResNeXt's
 weight-standardized 3x3 is not grouped (``resnet.py:31-40, 123-124``).
 Module names are tpudet's (``stem_conv``, ``layer{i}_{j}.conv1``,
-``ds_conv``, ...), so weights carry by name. DCN and plugins raise.
+``ds_conv``, ...), so weights carry by name.
+
+``stage_with_dcn`` makes a stage's ``Bottleneck.conv2`` a
+``ModulatedDeformConv2d`` (``ops/deform_conv.py``, no bias, named
+``conv2``; it returns fp32, which ``bn2`` normalises before its output
+takes the block's dtype, as flax's BatchNorm does with ``dtype``). DCN on
+a grouped (ResNeXt) block raises, as tpudet asserts. ``plugins`` (a list
+of ``dict(cfg=dict(type=...), stages=(bool,) * 4, position=...)``) put a
+``plugins.build_plugin`` module after ``conv1``/``bn1``+ReLU, after
+``conv2``/``bn2``+ReLU (``after_conv2``) or after ``conv3``/``bn3``,
+before the residual sum, in every block of the stages it names; a
+module is ``plugin_{position}_{i}``, ``i`` its index in the stage's
+filtered list (tpudet's ``_apply_plugins``, ``resnet.py:53-64``).
+``BasicBlock`` takes ``after_conv1`` and ``after_conv2`` plugins.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.deform_conv import ModulatedDeformConv2d
 from ...registry import BACKBONES
 from ..layers import Conv
-from ..plugins import WSConv, make_norm
+from ..plugins import WSConv, build_plugin, make_norm
+
+POSITIONS = ('after_conv1', 'after_conv2', 'after_conv3')
 
 BN_MOMENTUM = 0.1  # flax 0.9
 BN_EPS = 1e-5
@@ -52,11 +69,35 @@ class _Convs:
                          BN_MOMENTUM)
 
 
-class BasicBlock(nn.Module):
+class _PluginBlock(nn.Module):
+    """A block's plugins: ``add_plugins`` builds them, ``plugins(x,
+    position)`` applies those at ``position`` in order."""
+
+    def add_plugins(self, plugins, channels):
+        """``plugins``: the stage's filtered list; ``channels``: position
+        -> the channels there."""
+        self.plugin_names = {pos: [] for pos in POSITIONS}
+        for i, p in enumerate(plugins or ()):
+            pos = p.get('position', 'after_conv3')
+            if pos not in channels:
+                continue
+            name = f'plugin_{pos}_{i}'
+            self.add_module(name, build_plugin(p['cfg'] if 'cfg' in p else p,
+                                               channels[pos]))
+            self.plugin_names[pos].append(name)
+
+    def plugins(self, x, position):
+        for name in self.plugin_names[position]:
+            x = getattr(self, name)(x)
+        return x
+
+
+class BasicBlock(_PluginBlock):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, convs: _Convs = _Convs()):
+                 downsample: bool = False, convs: _Convs = _Convs(),
+                 plugins=None):
         super().__init__()
         self.conv1 = convs.conv(inplanes, planes, 3, stride)
         self.bn1 = convs.norm(planes)
@@ -66,28 +107,41 @@ class BasicBlock(nn.Module):
             self.ds_conv = convs.conv(inplanes, planes, 1, stride)
             self.ds_bn = convs.norm(planes)
         self.downsample = downsample
+        self.add_plugins(plugins, {'after_conv1': planes,
+                                   'after_conv2': planes})
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = self.plugins(out, 'after_conv1')
+        out = self.plugins(self.bn2(self.conv2(out)), 'after_conv2')
         identity = self.ds_bn(self.ds_conv(x)) if self.downsample else x
         return F.relu(out + identity)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(_PluginBlock):
     """1x1, 3x3 (grouped for ResNeXt: width ``int(planes * base_width /
-    64) * groups``), 1x1 to ``planes * 4``."""
+    64) * groups``; deformable with ``with_dcn``), 1x1 to ``planes * 4``."""
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, groups: int = 1,
-                 base_width: int = 64, convs: _Convs = _Convs()):
+                 base_width: int = 64, convs: _Convs = _Convs(),
+                 with_dcn: bool = False, plugins=None):
         super().__init__()
         width = planes if groups == 1 else int(
             planes * (base_width / 64)) * groups
         self.conv1 = convs.conv(inplanes, width, 1)
         self.bn1 = convs.norm(width)
-        self.conv2 = convs.conv(width, width, 3, stride, groups=groups)
+        if with_dcn:
+            if groups != 1:
+                raise NotImplementedError(
+                    'DCN + grouped conv not supported (ResNeXt with '
+                    'stage_with_dcn; tpudet asserts it at '
+                    'tpudet/models/backbones/resnet.py:131)')
+            self.conv2 = ModulatedDeformConv2d(width, width, 3, stride,
+                                               bias=False)
+        else:
+            self.conv2 = convs.conv(width, width, 3, stride, groups=groups)
         self.bn2 = convs.norm(width)
         self.conv3 = convs.conv(width, planes * self.expansion, 1)
         self.bn3 = convs.norm(planes * self.expansion)
@@ -96,20 +150,20 @@ class Bottleneck(nn.Module):
                                       stride)
             self.ds_bn = convs.norm(planes * self.expansion)
         self.downsample = downsample
+        self.add_plugins(plugins, {'after_conv1': width,
+                                   'after_conv2': width,
+                                   'after_conv3': planes * self.expansion})
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.plugins(out, 'after_conv1')
+        out = self.conv2(out)  # fp32 from a DCN; bn2 returns x's dtype
+        out = self.bn2(out.to(torch.promote_types(x.dtype, out.dtype))
+                       ).to(x.dtype)
+        out = self.plugins(F.relu(out), 'after_conv2')
+        out = self.plugins(self.bn3(self.conv3(out)), 'after_conv3')
         identity = self.ds_bn(self.ds_conv(x)) if self.downsample else x
         return F.relu(out + identity)
-
-
-def _refuse(name, value, default):
-    if value != default and value is not None:
-        raise NotImplementedError(
-            f'ResNet({name}={value!r}) is not ported; it comes with '
-            f'ROADMAP.md\'s "rest of the zoo" item')
 
 
 @BACKBONES.register_module()
@@ -135,9 +189,6 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in self.arch_settings:
             raise KeyError(f'invalid depth {depth} for ResNet')
-        if any(stage_with_dcn):
-            _refuse('stage_with_dcn', tuple(stage_with_dcn), ())
-        _refuse('plugins', plugins or None, None)
         if dtype is not None:  # tpudet's module field
             raise ValueError(
                 f'ResNet: dtype={dtype!r} is not a module setting in the '
@@ -159,13 +210,17 @@ class ResNet(nn.Module):
         for i, num_blocks in enumerate(stage_blocks):
             planes = base_channels * 2**i
             names = []
+            stage_kw = dict(kw, plugins=[
+                p for p in plugins or () if p.get('stages', (True,) * 4)[i]])
+            if block_cls is Bottleneck:
+                stage_kw['with_dcn'] = bool(stage_with_dcn[i])
             for j in range(num_blocks):
                 stride = 2 if (i > 0 and j == 0) else 1
                 cout = planes * block_cls.expansion
                 needs_ds = j == 0 and (stride != 1 or cin != cout)
                 name = f'layer{i + 1}_{j}'
                 self.add_module(name, block_cls(cin, planes, stride,
-                                                needs_ds, **kw))
+                                                needs_ds, **stage_kw))
                 names.append(name)
                 cin = cout
             self.stage_names.append(names)

@@ -19,9 +19,15 @@ path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
   so a Dense kernel there is 3-D. The port flattens a pooled RoI in
   tpudet's HWC order (``Shared2FCBBoxHead``), so the rows of
   ``shared_fc0`` need no permutation;
+- a deformable conv's ``kernel`` (K*K, in, out) becomes ``weight``
+  (out, in, K, K), a conv's layout (``ops/deform_conv.py``; the
+  ``DEFORM`` kind);
 - BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) become
-  ``weight/bias/running_mean/running_var``; GroupNorm's ``scale/bias``
-  (params only) become ``weight/bias``.
+  ``weight/bias/running_mean/running_var``; GroupNorm's and flax
+  LayerNorm's ``scale/bias`` (params only) become ``weight/bias``;
+- a module's raw parameters (``GeneralizedAttention``'s ``gamma``,
+  ``key_content_bias``, ``geom_bias``; ``L2Norm``'s ``scale``) are
+  carried under the names its ``flax_leaves`` gives them.
 
 Every leaf must find its tensor, with its shape, and every tensor of the
 model must be reached: anything else raises. Nothing is dropped. The only
@@ -41,18 +47,23 @@ from torch import nn
 Path = Tuple[str, ...]
 
 
-CONV, DENSE, DECONV = 'conv', 'dense', 'deconv'
+CONV, DENSE, DECONV, DEFORM = 'conv', 'dense', 'deconv', 'deform'
 
 
 def leaf_table(model: nn.Module) -> Dict[Path, Tuple[str, str]]:
     """``(collection, *module path, leaf)`` -> ``(state_dict key, kernel
     kind)`` for every tensor of ``model`` that tpudet holds; the kind is
-    ``CONV``, ``DENSE`` or ``DECONV`` for a kernel and ``''`` (false) for
-    any other leaf."""
+    ``CONV``, ``DENSE``, ``DECONV`` or ``DEFORM`` for a kernel and ``''``
+    (false) for any other leaf. A module with a ``flax_leaves`` mapping
+    (torch parameter name -> (flax leaf, kind)) contributes its own
+    parameters by it."""
     table: Dict[Path, Tuple[str, str]] = {}
     for name, m in model.named_modules():
         path = tuple(name.split('.')) if name else ()
         prefix = f'{name}.' if name else ''
+        for pname, (leaf, kind) in getattr(m, 'flax_leaves', {}).items():
+            if getattr(m, pname, None) is not None:
+                table[('params', *path, leaf)] = (prefix + pname, kind)
         kind = (CONV if isinstance(m, nn.Conv2d) else
                 DECONV if isinstance(m, nn.ConvTranspose2d) else
                 DENSE if isinstance(m, nn.Linear) else '')
@@ -67,7 +78,7 @@ def leaf_table(model: nn.Module) -> Dict[Path, Tuple[str, str]]:
                                                      '')
             table[('batch_stats', *path, 'var')] = (prefix + 'running_var',
                                                     '')
-        elif isinstance(m, nn.GroupNorm):
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
             table[('params', *path, 'scale')] = (prefix + 'weight', '')
             table[('params', *path, 'bias')] = (prefix + 'bias', '')
     return table
@@ -98,7 +109,7 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
     return model
 
 
-KERNEL_RANK = {CONV: 4, DENSE: 2, DECONV: 4}
+KERNEL_RANK = {CONV: 4, DENSE: 2, DECONV: 4, DEFORM: 3}  # flax's rank
 
 
 def flax_shape(shape, kind: str) -> Tuple[int, ...]:
@@ -111,18 +122,25 @@ def flax_shape(shape, kind: str) -> Tuple[int, ...]:
         return shape[2:] + shape[:2]
     if kind == DENSE:
         return shape[::-1]
+    if kind == DEFORM:
+        return (shape[2] * shape[3], shape[1], shape[0])
     return shape
 
 
 def _from_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
     """HWIO -> OIHW on the last four axes of a conv kernel leaf, (in, out)
     -> (out, in) on the last two of a Dense one, (H, W, in, out) -> (in,
-    out, H, W) spatially flipped for a ConvTranspose one (a leading axis,
-    as in Adam's stacked (m, v) buffers, is kept)."""
+    out, H, W) spatially flipped for a ConvTranspose one, (K*K, in, out) ->
+    (out, in, K, K) for a deformable one (a leading axis, as in Adam's
+    stacked (m, v) buffers, is kept)."""
     if not kind:
         return value
     n = value.ndim
     lead = tuple(range(n - KERNEL_RANK[kind]))
+    if kind == DEFORM:
+        k = int(round(value.shape[-3] ** 0.5))
+        value = np.transpose(value, lead + (n - 1, n - 2, n - 3))
+        return value.reshape(value.shape[:-1] + (k, k))
     if kind == DENSE:
         return np.transpose(value, lead + (n - 1, n - 2))
     if kind == DECONV:
@@ -133,9 +151,15 @@ def _from_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
 
 def _to_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
     """OIHW -> HWIO, (out, in) -> (in, out), flipped (in, out, H, W) ->
-    (H, W, in, out) (inverse of the above)."""
+    (H, W, in, out), (out, in, K, K) -> (K*K, in, out) (inverse of the
+    above)."""
     if not kind:
         return value
+    if kind == DEFORM:
+        value = value.reshape(value.shape[:-2] + (-1,))
+        n = value.ndim
+        return np.transpose(value, tuple(range(n - 3)) + (n - 1, n - 2,
+                                                           n - 3))
     n = value.ndim
     lead = tuple(range(n - KERNEL_RANK[kind]))
     if kind == DENSE:
@@ -257,14 +281,19 @@ def _truncated_normal(rng: np.random.RandomState, shape, std: float):
 
 def _draw_kernel(rng: np.random.RandomState, init, hwio) -> np.ndarray:
     """A conv kernel (HWIO; I is cin / groups) drawn by flax's
-    initializer ``init``: ``'he_normal'`` (truncated normal, fan-in),
-    ``'xavier_uniform'`` (uniform, fan-average) or ``('normal', std)``."""
+    initializer ``init``: ``'he_normal'`` or ``'lecun_normal'`` (flax's
+    default; truncated normals of variance 2 or 1 over fan-in),
+    ``'xavier_uniform'`` (uniform, fan-average), ``'zeros'`` or
+    ``('normal', std)``."""
     kh, kw, cin, cout = hwio
-    if init == 'he_normal':
+    if init in ('he_normal', 'lecun_normal'):
         # the std of the truncated draw corrected by 0.8796..., the std of
         # N(0, 1) cut at +-2
-        std = np.sqrt(2.0 / (kh * kw * cin)) / .87962566103423978
+        gain = 2.0 if init == 'he_normal' else 1.0
+        std = np.sqrt(gain / (kh * kw * cin)) / .87962566103423978
         return _truncated_normal(rng, hwio, std)
+    if init == 'zeros':
+        return np.zeros(hwio, np.float32)
     if init == 'xavier_uniform':
         limit = np.sqrt(6.0 / (kh * kw * (cin + cout)))
         return rng.uniform(-limit, limit, hwio).astype(np.float32)
@@ -279,11 +308,14 @@ def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
     numpy seed: each conv's and Dense layer's kernel and bias by the
     initializers it names (``layers.Conv``/``layers.Dense``/
     ``layers.ConvTranspose`` ``kernel_init``, ``bias_init``; a plain
-    ``nn.Conv2d`` takes ``he_normal`` and a zero bias), BatchNorm and
-    GroupNorm scale 1, bias 0, mean 0, var 1. A Dense kernel (in, out) is
-    drawn as a 1 x 1 conv's, a ConvTranspose kernel in its flax shape (H,
-    W, in, out). Kernels are drawn in the order of their sorted flax
-    paths."""
+    ``nn.Conv2d`` takes ``he_normal`` and a zero bias), a deformable
+    conv's kernel ``he_normal`` (fan-in K*K*in) and its bias 0, BatchNorm,
+    GroupNorm and LayerNorm scale 1, bias 0, mean 0, var 1, and a raw
+    leaf the constant its module's ``leaf_init`` names (0 if none). A
+    Dense kernel (in, out) is drawn as a 1 x 1 conv's, a ConvTranspose
+    kernel in its flax shape (H, W, in, out), a deformable one as the (K,
+    K, in, out) conv kernel it reshapes. Kernels are drawn in the order of
+    their sorted flax paths."""
     rng = np.random.RandomState(seed)
     modules = dict(model.named_modules())
     sd = model.state_dict()
@@ -303,10 +335,16 @@ def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
         elif kind == DENSE:
             value = _draw_kernel(
                 rng, module.kernel_init, (1, 1, shape[1], shape[0]))[0, 0]
+        elif kind == DEFORM:
+            value = _draw_kernel(
+                rng, 'he_normal', (shape[2], shape[3], shape[1], shape[0])
+            ).reshape(flax_shape(shape, kind))
         elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d,
                                  nn.Linear)):  # a bias
             value = np.broadcast_to(np.asarray(
                 getattr(module, 'bias_init', 0.), np.float32), shape).copy()
+        elif leaf in getattr(module, 'leaf_init', {}):
+            value = np.full(shape, module.leaf_init[leaf], np.float32)
         elif leaf in ('scale', 'var'):
             value = np.ones(shape, np.float32)
         else:
