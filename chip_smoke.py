@@ -201,7 +201,17 @@ Phases, in order; any failure exits non-zero:
    300^2, fp32 card against CPU, 2 steps, ``train_detector`` and the test
    CLI against the API) and SSD512 (batch 8 on 512^2); the RegNetX-3.2GF
    RetinaNet (batch 8 on 1344^2, 2 steps);
-18. output: a ``kernels`` JSON line (with each kernel's share of its
+18. ROADMAP.md's zoo row f and row j's ATSS and VFNet at full width and
+   depth, no mish (0 / 0 on every path), the prediction layers redrawn
+   from the seed: GFL R50-FPN, ATSS R50-FPN, VFNet R50-FPN and LD (an
+   R-18 student, the R-101 GFL teacher of its ``teacher_config``), each
+   bf16 at batch 8 on 1344^2 (e2e, forward, decode and NMS ms, device
+   busy, peak memory), fp32 on the card against the CPU on 2 images of
+   640^2 (detections one-to-one, at least ATSS_MIN_PAIRS pairs an
+   image), 2 bf16 steps of 2 (LD's fp32 teacher timed on the device
+   within each); ``train_detector`` for 2 steps of LD; the test CLI on
+   GFL against the API;
+19. output: a ``kernels`` JSON line (with each kernel's share of its
    bound and its launches on every path), the whole run's seconds, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -6050,8 +6060,11 @@ def zoo_variables(torch, cfg, img, seed, measure_bn=False):
     activations put the energies in the thousands, the softmax one-hot,
     and which key wins flips under fp32 rounding, card against CPU), its
     ``gamma`` (GA_GAMMA) and its ``key_content_bias`` and ``geom_bias``
-    (N(0, 1 / qk_dim); all three start at 0 in tpudet), drawn from
-    ``RandomState(seed)``."""
+    (N(0, 1 / qk_dim); all three start at 0 in tpudet); the ATSS
+    family's class convs as RetinaNet's, ATSS's deltas and centerness,
+    GFL's bin logits and VFNet's log-distances (phase 18's spreads; a KD
+    teacher's layers, which the forward does not run, keep tpudet's init),
+    drawn from ``RandomState(seed)``."""
     import numpy as np
     from tpudet_torch.models.builder import build_detector
     spreads = {'rpn_cls': (FRCNN_RPN_CLS_SPREAD, 0.0),
@@ -6062,7 +6075,15 @@ def zoo_variables(torch, cfg, img, seed, measure_bn=False):
                'retina_reg': (RETINA_REG_SPREAD, 0.0),
                'conv_offset': (DCN_OFFSET_SPREAD, 0.0),
                'query_conv': (GA_QK_SPREAD, 0.0),
-               'key_conv': (GA_QK_SPREAD, 0.0)}
+               'key_conv': (GA_QK_SPREAD, 0.0),
+               'atss_cls': (RETINA_CLS_SPREAD, RETINA_CLS_BIAS),
+               'atss_reg': (RETINA_REG_SPREAD, 0.0),
+               'atss_centerness': (ATSS_CTR_SPREAD, 0.0),
+               'gfl_cls': (RETINA_CLS_SPREAD, RETINA_CLS_BIAS),
+               'gfl_reg': (GFL_BIN_SPREAD, 0.0),
+               'vfnet_cls': (RETINA_CLS_SPREAD, RETINA_CLS_BIAS),
+               'vfnet_reg': (VFNET_REG_SPREAD, 0.0),
+               'vfnet_reg_refine': (VFNET_REG_SPREAD, 0.0)}
     with torch.device('meta'):
         model = build_detector(cfg['model'])
     ssd = type(getattr(model, 'bbox_head', None)).__name__ == 'SSDHead'
@@ -6146,11 +6167,12 @@ def zoo_inference(torch, mish, config, name, seed, size=None, batch=None,
     return tree, det, img, launches, times
 
 
-def zoo_fp32_check(torch, cfg, tree, name, size, seed):
+def zoo_fp32_check(torch, cfg, tree, name, size, seed, min_pairs=1):
     """fp32 on the card (TF32 off) against the port's CPU call on
     FRCNN_FP32_IMAGES seeded images of ``size``^2: per image the
     detections pair one-to-one (label, IoU >= MATCH_IOU), all but
-    FRCNN_KEEP_SHARE of the CPU's, and there are some."""
+    FRCNN_KEEP_SHARE of the CPU's, and at least ``min_pairs`` pair.
+    Returns the pairs per image."""
     from tpudet_torch.apis import init_detector
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
@@ -6168,16 +6190,20 @@ def zoo_fp32_check(torch, cfg, tree, name, size, seed):
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
             allow_tf32 = flags
+    pairs = []
     for i in range(FRCNN_FP32_IMAGES):
         m, n_ref, n_got, gap = match_detections(ref, got, i, MATCH_IOU)
         log(f'{name} fp32 card vs CPU ({cpu_s:.1f} s on the CPU), image {i} '
             f'at {size}^2: detections {m} matched of {n_ref} / {n_got} '
-            f'(label and IoU >= {MATCH_IOU}), largest box delta {gap:.3e} '
-            f'px')
-        if not (n_ref and n_ref - m <= FRCNN_KEEP_SHARE * n_ref):
+            f'(label and IoU >= {MATCH_IOU}; at least {min_pairs}), largest '
+            f'box delta {gap:.3e} px')
+        if not (n_ref and n_ref - m <= FRCNN_KEEP_SHARE * n_ref and
+                m >= min_pairs):
             raise AssertionError(f'{name} fp32 detections on the card differ '
-                                 f'from the CPU')
+                                 f'from the CPU, or too few pair')
+        pairs.append(m)
     torch.cuda.empty_cache()
+    return pairs
 
 
 def zoo_train_steps(torch, mish, config, tree, name, batch_fn,
@@ -6185,7 +6211,10 @@ def zoo_train_steps(torch, mish, config, tree, name, batch_fn,
     """``steps`` bf16 steps (fp32 master weights) of ``config``'s model
     through ``init_trainer(...).step`` on ``batch_fn(step)``, each with
     its launch counts (0), ms and peak memory; the losses finite and the
-    params moved. Returns the launches of a step."""
+    params moved. A KD detector's teacher forward is timed on the device
+    within each step (its share of the step's wall logged), and it must
+    stay fp32, in eval mode, with its BatchNorm statistics unchanged.
+    Returns the launches of a step."""
     from tpudet_torch.apis import init_trainer
     from tpudet_torch.config import Config
     cfg = Config.fromfile(config)
@@ -6193,6 +6222,21 @@ def zoo_train_steps(torch, mish, config, tree, name, batch_fn,
     trainer = init_trainer(cfg, variables=tree, device='cuda',
                            max_steps=steps + 1)
     p0 = {k: v.detach().clone() for k, v in trainer.state.params.items()}
+    teacher = getattr(trainer.model, 'teacher_backbone', None)
+    if teacher is not None:
+        events = []
+        forward = trainer.model.teacher_forward
+        stats0 = {k: v.clone() for k, v in trainer.state.batch_stats.items()
+                  if k.startswith('teacher_')}
+
+        def timed(img):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = forward(img)
+            ev[1].record()
+            events.append(ev)
+            return out
+        trainer.model.teacher_forward = timed
     launches = None
     for step in range(steps):
         batch = batch_fn(step)
@@ -6205,11 +6249,19 @@ def zoo_train_steps(torch, mish, config, tree, name, batch_fn,
         step_s = time.perf_counter() - t0
         launches = _mish_counts(mish)
         m = {k: float(v) for k, v in metrics.items()}
+        extra = {}
+        if teacher is not None:
+            t_ms = sum(a.elapsed_time(b) for a, b in events)
+            # fp32 convs: TF32 or not (phase 4 turns it off for the rest
+            # of the script) moves the teacher's ms several times
+            extra = dict(teacher_ms=t_ms, teacher_share=t_ms / (step_s * 1e3),
+                         teacher_tf32=torch.backends.cudnn.allow_tf32)
+            events.clear()
         log(f'{name} train step: ' + json.dumps(dict(
             step=step, **m, step_ms=step_s * 1e3,
             img_per_s=len(batch['img']) / step_s,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-            launches=launches)))
+            launches=launches, **extra)))
         bad = [k for k, v in m.items() if not math.isfinite(v)]
         if bad or any(launches.values()) or not any(
                 k.startswith('loss_') for k in m):
@@ -6219,17 +6271,29 @@ def zoo_train_steps(torch, mish, config, tree, name, batch_fn,
                 for k, v in p0.items())
     if not moved > 0:
         raise AssertionError(f'{name}: params did not move')
+    if teacher is not None:
+        same = all(torch.equal(trainer.state.batch_stats[k], v)
+                   for k, v in stats0.items())
+        fp32 = all(p.dtype == torch.float32 for k, p in
+                   trainer.state.params.items() if k.startswith('teacher_'))
+        log(f'{name} teacher after {steps} steps: BatchNorm statistics '
+            f'unchanged {same} ({len(stats0)} tensors), fp32 {fp32}, eval '
+            f'mode {not teacher.training}')
+        if not (same and fp32 and stats0 and not teacher.training):
+            raise AssertionError(f'{name}: the teacher was not kept frozen '
+                                 f'in fp32')
     del trainer, p0
     torch.cuda.empty_cache()
     return launches
 
 
-def zoo_loop_and_cli(torch, config, name, seed):
+def zoo_loop_and_cli(torch, config, name, seed, cli=True):
     """``train_detector`` on ``config`` for ZOO_TRAIN_STEPS bf16 steps of
     the config's batch, FRCNN_LOOP_IMAGES seeded training images and
     FRCNN_LOOP_VAL_IMAGES for its evaluation, served from arrays through the
     config's own pipelines; then the test CLI on its ``latest_ema.msgpack``
-    against the API (``run_cli_eval``). The weights are ``zoo_variables``
+    against the API (``run_cli_eval``; none without ``cli``, and its
+    launches are then None). The weights are ``zoo_variables``
     of the val set's first batch, BatchNorm statistics measured, as phase
     11's loop takes them (from identity statistics two steps leave the
     scores under score_thr). Returns (launches of a step, of a CLI
@@ -6290,7 +6354,7 @@ def zoo_loop_and_cli(torch, config, name, seed):
             raise AssertionError(f'{name}: the steps, the evaluation or the '
                                  f'EMA export is wrong')
         cli = run_cli_eval(torch, config, weights, img_size=img_size,
-                           mish_per_forward=0)
+                           mish_per_forward=0) if cli else None
         for path, _, _ in sets.values():
             ARRAYS.pop(path)
     return rows[-1]['launches'], cli
@@ -6806,6 +6870,112 @@ def run_zoo_deg(torch):
             for k in ('mish_fwd', 'mish_bwd')}
 
 
+# ---------------------------------------------------------------------------
+# 18. the ATSS family: zoo row f (GFL, LD) and row j's ATSS and VFNet
+
+CONFIG_GFL = os.path.join(ROOT, 'configs/gfl/gfl_r50_fpn_1x_coco.py')
+CONFIG_ATSS = os.path.join(ROOT, 'configs/atss/atss_r50_fpn_1x_coco.py')
+CONFIG_VFNET = os.path.join(ROOT, 'configs/vfnet/vfnet_r50_fpn_1x_coco.py')
+CONFIG_LD = os.path.join(ROOT, 'configs/ld/ld_r18_gflv1_r101_fpn_coco_1x.py')
+# the redraws of phase 18 (class logits as RetinaNet's): ATSS's centerness
+# logits, GFL's bin logits (distances of a few strides from a softmax that
+# is not flat) and VFNet's log-distances (exp of it times 64-1024 px)
+ATSS_CTR_SPREAD, GFL_BIN_SPREAD, VFNET_REG_SPREAD = 1.0, 1.0, 0.3
+# fp32 card vs CPU: detections paired per image, at least (of the
+# test_cfg's 100)
+ATSS_MIN_PAIRS = 50
+
+
+def atss_decode_and_nms_ms(torch, det, img):
+    """The family's ``get_bboxes`` split on one bf16 call's pred maps:
+    decode (the per-level top-k, the decode, the concatenation: the heads'
+    ``batched_nms`` skipped) and ``batched_nms`` on the candidates the
+    call gave it, device ms; the candidates over ``score_thr``."""
+    from tpudet_torch.models.dense_heads import atss_head
+    model = det.model
+    recorded = []
+    orig = atss_head.batched_nms
+
+    def record(*args, **kwargs):
+        recorded.append((args, kwargs))
+        return orig(*args, **kwargs)
+    atss_head.batched_nms = record
+    try:
+        with torch.inference_mode():
+            maps = model(img)
+            model.get_bboxes(maps)
+        args, kwargs = recorded[0]
+        atss_head.batched_nms = lambda *a, **k: a[0]
+        with torch.inference_mode():
+            decode = cuda_ms(lambda: model.get_bboxes(maps), warmup=2,
+                             runs=5)
+            nms = cuda_ms(lambda: orig(*args, **kwargs), warmup=2, runs=5)
+    finally:
+        atss_head.batched_nms = orig
+    return {'decode_ms': decode, 'nms_ms': nms,
+            'nms_candidates': int((args[1] > args[2]).sum())}
+
+
+def run_atss_model(torch, mish, key, config, name, seed):
+    """One model of the family: bf16 inference at batch 8 on 1344^2 with
+    its decode and NMS ms, fp32 card against CPU at ZOO_FP32_IMG^2 (at
+    least ATSS_MIN_PAIRS pairs an image), 2 bf16 steps of 2. Returns
+    (weights tree, times, launches by path)."""
+    from tpudet_torch.config import Config
+    tree, det, img, infer, times = zoo_inference(torch, mish, config, name,
+                                                 seed)
+    times.update(atss_decode_and_nms_ms(torch, det, img))
+    log(f'{name} get_bboxes split: ' + json.dumps(
+        {k: times[k] for k in ('decode_ms', 'nms_ms', 'nms_candidates')}))
+    del det, img
+    torch.cuda.empty_cache()
+    cfg = Config.fromfile(config)
+    times['fp32_pairs'] = zoo_fp32_check(torch, cfg, tree, name,
+                                         ZOO_FP32_IMG, seed + 10,
+                                         min_pairs=ATSS_MIN_PAIRS)
+    train = zoo_train_steps(torch, mish, config, tree, name,
+                            zoo_batch_fn(torch, cfg, seed + 20))
+    return tree, times, {f'{key}_inference_forward': infer,
+                         f'{key}_train_step': train}
+
+
+def run_zoo_atss(torch):
+    """Phase 18: GFL, ATSS, VFNet (R50-FPN) and LD (R-18 student, R-101
+    teacher) at full width and depth; ``train_detector`` on LD, the test
+    CLI on GFL. Returns each path's launches of each kernel (all 0:
+    ReLU)."""
+    import tempfile
+
+    from tpudet_torch.ops import mish
+    from tpudet_torch.utils.checkpoint import save_variables
+    launches, times = {}, {}
+    for key, config, name, seed in (
+            ('gfl', CONFIG_GFL, 'GFL R50-FPN', SEED + 4000),
+            ('atss', CONFIG_ATSS, 'ATSS R50-FPN', SEED + 4100),
+            ('vfnet', CONFIG_VFNET, 'VFNet R50-FPN', SEED + 4200),
+            ('ld', CONFIG_LD, 'LD R-18 (R-101 teacher)', SEED + 4300)):
+        t0 = time.perf_counter()
+        tree, times[key], paths = run_atss_model(torch, mish, key, config,
+                                                 name, seed)
+        launches.update(paths)
+        if key == 'gfl':
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = os.path.join(tmp, 'gfl.msgpack')
+                save_variables(ckpt, tree)
+                launches['gfl_test_cli_batch'] = run_cli_eval(
+                    torch, config, ckpt, img_size=FRCNN_IMG,
+                    mish_per_forward=0)
+        if key == 'ld':
+            launches['ld_train_detector_step'], _ = zoo_loop_and_cli(
+                torch, config, name, seed + 30, cli=False)
+        del tree
+        torch.cuda.empty_cache()
+        log(f'phase 18 {key}: {time.perf_counter() - t0:.1f} s')
+    log('phase 18 inference times: ' + json.dumps(times))
+    return {k: {path: counts[k] for path, counts in launches.items()}
+            for k in ('mish_fwd', 'mish_bwd')}
+
+
 def main():
     try:
         import torch
@@ -6927,7 +7097,12 @@ def main():
     zoo_deg_launches = run_zoo_deg(torch)
     log(f'zoo rows d, e, g phases: {time.perf_counter() - t0:.1f} s')
 
-    # 18. output
+    # 18. GFL, ATSS, VFNet, LD; each path with counts at 0 just before
+    t0 = time.perf_counter()
+    zoo_atss_launches = run_zoo_atss(torch)
+    log(f'zoo row f, ATSS and VFNet phases: {time.perf_counter() - t0:.1f} s')
+
+    # 19. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -6969,6 +7144,7 @@ def main():
             paths.update(export_launches[k['name']])
             paths.update(zoo_launches[k['name']])
             paths.update(zoo_deg_launches[k['name']])
+            paths.update(zoo_atss_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all, '

@@ -35,6 +35,14 @@ builds as tpudet's chain of necks; its ``BFP`` is not ported). The DCN
 ResNeXt-101 config is refused by both packages (tpudet's assertion, the
 port's ``NotImplementedError`` with its message).
 
+The 6 configs of ROADMAP.md's zoo row f and the two of row j that share
+its assigner (``configs/gfl/``, ``configs/atss/``, ``configs/vfnet/``)
+are swept like the RetinaNet configs; LD's (``configs/ld/``) through
+``forward_train``, the only path that creates tpudet's teacher subtree.
+The probe over every config under ``configs/`` counts what the port
+builds, refuses with ``NotImplementedError`` and does not register
+(``KeyError``).
+
 Every config whose ``data.train/val/test`` name a dataset other than
 ``CocoDataset`` (9, wrappers' inner datasets included) has each of those
 types registered in the port, as the class of the same name ported from
@@ -110,6 +118,19 @@ DEG_MASK_CONFIGS = sorted(
     for pattern in ('configs/dcn/mask_rcnn_*.py', 'configs/gcnet/*.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
 
+# ROADMAP.md's zoo row f (GFL; LD, KD_CONFIGS) and row j's ATSS and VFNet,
+# which share its ATSS assigner
+ATSS_FAMILY_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for pattern in ('configs/gfl/*.py', 'configs/atss/*.py',
+                    'configs/vfnet/*.py')
+    for p in glob.glob(os.path.join(ROOT, pattern)))
+KD_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for p in glob.glob(os.path.join(ROOT, 'configs/ld/*.py')))
+# the probe over configs/: (build, NotImplementedError, KeyError)
+PROBE_COUNTS = (84, 9, 34)
+
 # configs that build but sit outside the families above: the fork's two
 # recipes and training from scratch
 OTHER_CONFIGS = sorted([
@@ -172,6 +193,31 @@ def test_the_zoo_rows_d_e_g_sweeps_hold_fifteen_configs():
         CONFIGS + RETINA_CONFIGS + TWO_STAGE_CONFIGS + ZOO_ROW_CONFIGS)
 
 
+def test_the_atss_family_sweeps_hold_seven_configs():
+    assert len(ATSS_FAMILY_CONFIGS) == 6 and len(KD_CONFIGS) == 1
+    assert not set(ATSS_FAMILY_CONFIGS + KD_CONFIGS) & set(
+        CONFIGS + RETINA_CONFIGS + TWO_STAGE_CONFIGS + ZOO_ROW_CONFIGS +
+        ZOO_DEG_CONFIGS)
+
+
+def test_the_probe_counts_what_builds_and_what_is_refused():
+    """Every config under ``configs/`` built on the meta device: 84 build,
+    9 raise ``NotImplementedError`` (the "rest of the zoo" and the DCN
+    ResNeXt), 34 raise ``KeyError`` (types the port does not register)."""
+    counts = [0, 0, 0]
+    for p in sorted(glob.glob(os.path.join(ROOT, 'configs/**/*.py'),
+                              recursive=True)):
+        try:
+            with torch.device('meta'):
+                build_detector(Config.fromfile(p)['model'])
+            counts[0] += 1
+        except NotImplementedError:
+            counts[1] += 1
+        except KeyError:
+            counts[2] += 1
+    assert tuple(counts) == PROBE_COUNTS
+
+
 def test_the_other_sweep_holds_three_configs():
     assert all(os.path.exists(os.path.join(ROOT, c)) for c in OTHER_CONFIGS)
     assert not set(OTHER_CONFIGS) & set(CONFIGS + RETINA_CONFIGS +
@@ -180,7 +226,7 @@ def test_the_other_sweep_holds_three_configs():
 
 @pytest.mark.parametrize('config', CONFIGS + RETINA_CONFIGS +
                          TWO_STAGE_CONFIGS + OTHER_CONFIGS + ZOO_ROW_CONFIGS +
-                         ZOO_DEG_CONFIGS)
+                         ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS)
 def test_config_builds_with_tpudets_param_tree(config):
     path = os.path.join(ROOT, config)
     model_cfg = JaxConfig.fromfile(path)['model']
@@ -203,6 +249,24 @@ def assert_port_tree_is(path, ref):
            for p, (key, kind) in leaf_table(model).items()}
     assert set(got) == set(ref)
     assert got == ref
+
+
+@pytest.mark.parametrize('config', KD_CONFIGS)
+def test_kd_config_builds_with_tpudets_param_tree(config):
+    """The student and the teacher (``teacher_backbone``, ``teacher_neck``,
+    ``teacher_bbox_head``: the R-101 GFL that ``teacher_config`` names)."""
+    path = os.path.join(ROOT, config)
+    jmodel = jax_build_detector(JaxConfig.fromfile(path)['model'])
+    g = 4
+    args = (jnp.zeros((1, 64, 64, 3)),
+            jnp.tile(jnp.asarray([[0., 0., 32., 32.]]), (1, g, 1)),
+            jnp.zeros((1, g), jnp.int32), jnp.ones((1, g), bool))
+    ref = _flat_shapes(jax.eval_shape(
+        partial(jmodel.init, method='forward_train'), jax.random.PRNGKey(0),
+        *args))
+    assert {p[1] for p in ref} >= {'teacher_backbone', 'teacher_neck',
+                                   'teacher_bbox_head'}
+    assert_port_tree_is(path, ref)
 
 
 def test_the_mask_rcnn_sweep_holds_eight_configs():

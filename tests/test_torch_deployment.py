@@ -304,7 +304,8 @@ def test_publish_msgpack_and_refuse_orbax(chain):
     orbax = chain['root'] / 'orbax' / '2'
     orbax.mkdir(parents=True)
     (orbax / '_CHECKPOINT_METADATA').write_text('{}')
-    with pytest.raises(SystemExit, match='queue 1 item 10'):
+    with pytest.raises(SystemExit, match="reading tpudet's orbax "
+                                         "train-state directories"):
         publish_model.main([str(orbax.parent), str(chain['root'] / 'x')])
 
 

@@ -23,8 +23,9 @@ broadcast at the start, only rank 0 writes checkpoints and weights (a
 barrier follows each write), every rank logs the final param checksum,
 and the EMA evaluation runs sharded over the ranks.
 
-A detector with ``forward_train`` (the two-stage family, ``FastRCNN``)
-trains through it (``tpudet/apis/train.py:167-196``): its arguments are
+A detector with ``forward_train`` (the two-stage family, ``FastRCNN``,
+the KD detector with its frozen teacher) trains through it
+(``tpudet/apis/train.py:167-196``): its arguments are
 taken from the batch by name, a required name missing from the batch
 raises, and the total is the sum of the keys that contain ``loss``.
 

@@ -1,6 +1,6 @@
-"""The dense MaxIoU assigner of the generic anchor path: port of
-``tpudet/core/assigners.py:28-74`` (``max_iou_assign``,
-``max_iou_assign_batch``).
+"""The dense assigners: port of ``tpudet/core/assigners.py``'s MaxIoU
+assigner of the generic anchor path (``:28-74``, ``max_iou_assign``,
+``max_iou_assign_batch``), YOLOv3's grid assigner and the ATSS assigner.
 
 Every anchor gets an int code over padded gts: ``IGNORE`` (-2),
 ``NEGATIVE`` (-1) or the index of its matched gt:
@@ -21,10 +21,24 @@ IoUs: torch's IoU takes the same rounded steps as tpudet's on the CPU.
 ``grid_assign_batch`` is YOLOv3's GridAssigner (``:77-120``) in the same
 codes.
 
+``atss_assign_batch`` is the ATSS assigner (``:123-185``), dense over
+(anchors, gts), in the same codes without ``IGNORE``:
+
+- per gt and level the ``topk`` anchors closest by centre distance are
+  candidates; ties go to the lower anchor index, as ``lax.top_k`` keeps
+  them (a stable sort: ``torch.topk`` promises no order);
+- the gt's threshold is the mean plus the population std of its
+  candidates' IoUs (``nanmean`` over the candidates);
+- a candidate at or above it whose centre lies strictly inside the gt is
+  positive; an anchor positive for several gts takes the one of highest
+  IoU, the first on a tie.
+
 ``priority_rank`` ranks entries by a fixed priority, the sampling of the
 two-stage heads (``tpudet/models/dense_heads/rpn_head.py:104-117``).
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -127,6 +141,60 @@ def grid_assign_batch(anchors: torch.Tensor,
     assigned = torch.where(claim >= 0, claim, assigned)
     return torch.where(gt_valid.any(dim=1, keepdim=True), assigned,
                        NEGATIVE)
+
+
+def atss_assign_batch(anchors: torch.Tensor,
+                      num_level_anchors: Sequence[int],
+                      gt_bboxes: torch.Tensor,
+                      gt_valid: torch.Tensor,
+                      topk: int = 9) -> torch.Tensor:
+    """anchors (A, 4) shared by the batch, ``num_level_anchors`` the
+    per-level counts (levels contiguous in ``anchors``), gt_bboxes (B, G,
+    4) padded, gt_valid (B, G) -> (B, A) int64: ``NEGATIVE`` or the
+    matched gt's index."""
+    num_anchors = anchors.shape[0]
+    ious = bbox_overlaps(anchors[None], gt_bboxes)  # (B, A, G)
+    ious = torch.where(gt_valid[:, None, :], ious, ious.new_tensor(-1.0))
+    a_cx = (anchors[:, 0] + anchors[:, 2]) * 0.5
+    a_cy = (anchors[:, 1] + anchors[:, 3]) * 0.5
+    g_cx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+    g_cy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+    # (B, G, A): each gt's distances along the last axis, where the sort is
+    dist = torch.sqrt((a_cx - g_cx[..., None]).square() +
+                      (a_cy - g_cy[..., None]).square())
+    candidate = torch.zeros(dist.shape, dtype=torch.bool,
+                            device=anchors.device)
+    start = 0
+    for n in num_level_anchors:
+        k = min(topk, n)
+        idx = torch.sort(dist[..., start:start + n], dim=-1,
+                         stable=True).indices[..., :k]
+        candidate[..., start:start + n].scatter_(-1, idx, True)
+        start += n
+    assert start == num_anchors, (start, num_anchors)
+    candidate = candidate.transpose(1, 2)  # (B, A, G)
+
+    cand_ious = torch.where(candidate, ious, ious.new_tensor(float('nan')))
+    mean = torch.nanmean(cand_ious, dim=1)  # (B, G)
+    std = torch.sqrt(torch.nanmean((cand_ious - mean[:, None]).square(),
+                                   dim=1))
+    thr = mean + std
+    inside = ((a_cx[:, None] > gt_bboxes[:, None, :, 0]) &
+              (a_cx[:, None] < gt_bboxes[:, None, :, 2]) &
+              (a_cy[:, None] > gt_bboxes[:, None, :, 1]) &
+              (a_cy[:, None] < gt_bboxes[:, None, :, 3]))
+    pos = candidate & (ious >= thr[:, None]) & inside & gt_valid[:, None]
+    pos_ious = torch.where(pos, ious, ious.new_tensor(-1.0))
+    best_gt = pos_ious.argmax(dim=2)  # the first maximum on a tie
+    return torch.where(pos.any(dim=2), best_gt, NEGATIVE)
+
+
+def atss_assign(anchors: torch.Tensor, num_level_anchors: Sequence[int],
+                gt_bboxes: torch.Tensor, gt_valid: torch.Tensor,
+                topk: int = 9) -> torch.Tensor:
+    """One image: gt_bboxes (G, 4), gt_valid (G,) -> (A,) codes."""
+    return atss_assign_batch(anchors, num_level_anchors, gt_bboxes[None],
+                             gt_valid[None], topk)[0]
 
 
 def priority_rank(mask: torch.Tensor, priority: torch.Tensor) -> torch.Tensor:

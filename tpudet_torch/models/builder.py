@@ -1,9 +1,11 @@
 """Config -> model builders: port of ``tpudet/models/builder.py`` for
-the single-stage, two-stage, Mask R-CNN and proposal detectors; the Mask
-R-CNN-based ones it does not port yet raise ``NotImplementedError``."""
+the single-stage, two-stage, Mask R-CNN and proposal detectors, and the
+teacher of a knowledge-distillation detector; the Mask R-CNN-based ones
+it does not port yet raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import copy
+import os.path as osp
 from typing import Dict, Optional
 
 import torch
@@ -17,6 +19,9 @@ ZOO_DETECTORS = ('HybridTaskCascade', 'SCNet', 'MaskScoringRCNN',
                  'PointRend')
 # tpudet's necks that the port does not build yet
 ZOO_NECKS = ('BFP',)
+# a relative ``teacher_config`` names a file of the repo (the checkout that
+# holds ``tpudet_torch/``)
+REPO_ROOT = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
 
 
 def _build(cfg: Dict):
@@ -52,13 +57,31 @@ def _build_neck(cfg):
     return _build(cfg)
 
 
+def _build_teacher(path: str) -> Dict[str, nn.Module]:
+    """A KD detector's frozen teacher (``tpudet/models/builder.py:66-82``):
+    ``teacher_backbone``, ``teacher_neck`` and ``teacher_bbox_head`` of
+    the detector config at ``path`` (relative to the repo root). Its
+    weights come with the detector's variables, not from
+    ``teacher_ckpt``."""
+    from ..config import Config
+    if not osp.isabs(path):
+        path = osp.join(REPO_ROOT, path)
+    tcfg = Config.fromfile(path)['model']
+    teacher = {'teacher_backbone': _build(tcfg['backbone']),
+               'teacher_bbox_head': _build(tcfg['bbox_head'])}
+    if tcfg.get('neck') is not None:
+        teacher['teacher_neck'] = _build_neck(tcfg['neck'])
+    return teacher
+
+
 def build_detector(cfg, train_cfg: Optional[Dict] = None,
                    test_cfg: Optional[Dict] = None,
                    dtype: Optional[torch.dtype] = None):
     """Build a detector from a reference-shaped config dict
     (``backbone``/``neck`` and ``bbox_head``, or ``rpn_head`` and / or
     ``roi_head`` (``tpudet/models/builder.py:86-91``), + ``train_cfg``/
-    ``test_cfg``).
+    ``test_cfg``; a ``teacher_config`` builds the teacher's modules and
+    ``teacher_ckpt`` is dropped).
     ``dtype`` sets the compute dtype, as tpudet's ``_flagship_model``
     passes ``dtype`` to every module."""
     cfg = copy.deepcopy(dict(cfg))
@@ -77,6 +100,9 @@ def build_detector(cfg, train_cfg: Optional[Dict] = None,
              for name in ('rpn_head', 'roi_head') if name in cfg}
     if not heads:
         heads['bbox_head'] = _build(cfg.pop('bbox_head'))
+    if 'teacher_config' in cfg:
+        cfg.pop('teacher_ckpt', None)
+        heads.update(_build_teacher(cfg.pop('teacher_config')))
     model = det_cls(
         backbone=_build(cfg.pop('backbone')),
         neck=None if neck_cfg is None else _build_neck(neck_cfg),

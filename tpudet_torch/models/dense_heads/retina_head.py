@@ -151,10 +151,8 @@ class RetinaHead(nn.Module):
         num_pos = torch.clamp_min(global_sum(pos.float().sum()), 1.0)
         gt_idx = assigned.clamp_min(0)
         matched_labels = torch.gather(gt_labels.long(), 1, gt_idx)
-        # one-hot with zero rows for labels out of range, as jax.nn.one_hot
-        classes = torch.arange(self.num_classes, device=gt_idx.device)
-        onehot = ((matched_labels[..., None] == classes) &
-                  pos[..., None]).float()
+        onehot = L.one_hot(matched_labels, self.num_classes,
+                           torch.float32) * pos[..., None]
         label_weights = (pos | neg).float()[..., None]
         loss_cls = L.sigmoid_focal_loss(
             cls_flat, onehot, gamma=self.focal_gamma, alpha=self.focal_alpha,

@@ -1,7 +1,8 @@
 from .rpn import RPN, FastRCNN
-from .single_stage import (YOLOV3, YOLOV4, YOLOV5, RetinaNet,
-                           SingleStageDetector)
+from .single_stage import (ATSS, GFL, YOLOV3, YOLOV4, YOLOV5, RetinaNet,
+                           SingleStageDetector, VFNet)
 from .two_stage import FasterRCNN, TwoStageDetector
 
-__all__ = ['YOLOV3', 'YOLOV4', 'YOLOV5', 'RetinaNet', 'SingleStageDetector',
-           'RPN', 'FastRCNN', 'FasterRCNN', 'TwoStageDetector']
+__all__ = ['ATSS', 'GFL', 'VFNet', 'YOLOV3', 'YOLOV4', 'YOLOV5', 'RetinaNet',
+           'SingleStageDetector', 'RPN', 'FastRCNN', 'FasterRCNN',
+           'TwoStageDetector']

@@ -1,6 +1,7 @@
 """Single-stage detector: backbone -> neck -> dense head. Port of
 ``tpudet/models/detectors/single_stage.py`` (``SingleStageDetector``,
-``YOLOV4``, ``YOLOV5``, ``YOLOV3``, ``RetinaNet``)."""
+``YOLOV4``, ``YOLOV5``, ``YOLOV3``, ``RetinaNet``, ``ATSS``, ``GFL``,
+``VFNet``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -107,3 +108,20 @@ class RetinaNet(SingleStageDetector):
     """The generic anchor path (reference
     mmdet/models/detectors/retinanet.py)."""
     default_iou_thr = 0.5
+
+
+@DETECTORS.register_module()
+class ATSS(SingleStageDetector):
+    """ATSS (reference mmdet/models/detectors/atss.py)."""
+    default_iou_thr = 0.6
+
+
+@DETECTORS.register_module()
+class GFL(ATSS):
+    """GFL (reference mmdet/models/detectors/gfl.py)."""
+
+
+@DETECTORS.register_module()
+class VFNet(SingleStageDetector):
+    """VarifocalNet (reference mmdet/models/detectors/vfnet.py)."""
+    default_iou_thr = 0.6

@@ -16,16 +16,17 @@ IN is either
   holds ``published_from`` and ``ema``, as tpudet's orbax branch.
 
 The output loads in tpudet's and the port's ``load_variables``. tpudet's
-orbax train-state directories are not read (ROADMAP.md, queue 1 item
-10).
+orbax train-state directories are not read (ROADMAP.md's item "reading
+tpudet's orbax train-state directories").
 """
 import argparse
 import hashlib
 import os
 import os.path as osp
 
-ORBAX_ITEM = ("reading tpudet's orbax train-state directories is "
-              'ROADMAP.md queue 1 item 10')
+ORBAX_ITEM = ("tpudet's orbax train-state directories are not read: "
+              "ROADMAP.md's item \"reading tpudet's orbax train-state "
+              'directories"')
 
 
 def parse_args(argv=None):

@@ -123,7 +123,10 @@ def make_train_step(model: nn.Module,
             totals.append(total.detach())
             seq.append({k: v.detach() for k, v in losses.items()})
         all_reduce_grads(state.params.values())
-        grads = {n: p.grad for n, p in state.params.items()}
+        # a parameter the loss does not reach (a KD detector's frozen
+        # teacher) gets jax.grad's zeros: decay and momentum still move it
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in state.params.items()}
         _, _, opt_metrics = opt_update(grads, state.opt_state, state.params,
                                        state.step)
         for p in state.params.values():

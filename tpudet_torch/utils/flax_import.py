@@ -32,7 +32,11 @@ path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
 Every leaf must find its tensor, with its shape, and every tensor of the
 model must be reached: anything else raises. Nothing is dropped. The only
 tensors tpudet has no leaf for are BatchNorm's ``num_batches_tracked``
-counters: zero on the way in, left out on the way out.
+counters: zero on the way in, left out on the way out. One exception: a
+model's ``flax_optional`` names top-level subtrees that tpudet's ``init``
+does not create (a KD detector's teacher, made only by ``forward_train``);
+a tree with none of them loads with those modules left as they are (a
+tree with some of them must hold all).
 """
 from __future__ import annotations
 
@@ -98,9 +102,19 @@ def flax_to_state_dict(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
     """tpudet variables -> a complete fp32 ``state_dict`` for ``model``.
 
     Raises ``KeyError`` for a leaf with no place in ``model`` or a tensor of
-    ``model`` that no leaf fills, ``ValueError`` for a shape mismatch."""
-    return _tensors(variables, leaf_table(model), model.state_dict(),
-                    type(model).__name__)
+    ``model`` that no leaf fills (but for those under ``model``'s
+    ``flax_optional`` subtrees when ``variables`` holds none of them: those
+    keep their values), ``ValueError`` for a shape mismatch."""
+    optional = getattr(model, 'flax_optional', ())
+    given = any(name in variables.get(c, {}) for name in optional
+                for c in ('params', 'batch_stats'))
+    absent = () if given else tuple(f'{name}.' for name in optional)
+    like = model.state_dict()
+    out = _tensors(variables, leaf_table(model), {
+        k: v for k, v in like.items() if not k.startswith(absent)},
+        type(model).__name__)
+    out.update({k: v for k, v in like.items() if k.startswith(absent)})
+    return out
 
 
 def load_flax_variables(model: nn.Module, variables) -> nn.Module:
