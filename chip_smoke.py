@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero:
    its byte bound and ``F.interpolate`` (not the same function);
 4. inference: YOLOv4-l 640 (``configs/yolov4/yolov4l_coco_mosaic.py``,
    80 classes) built by the port's Config and builder, weights drawn from
-   a numpy seed in tpudet's layout and carried by ``flax_import``; a
+   a seed in tpudet's layout (a torch generator on the card: tpudet's
+   initializers, a fraction of numpy's time) and carried by
+   ``flax_import``; a
    batch of 8 in bf16 through ``init_detector`` / ``Detector``; the launch
    counts of that one run; the card in fp32 against the same model on the
    CPU; bf16 against fp32; forward / decode / NMS / end-to-end times;
@@ -211,7 +213,18 @@ Phases, in order; any failure exits non-zero:
    image), 2 bf16 steps of 2 (LD's fp32 teacher timed on the device
    within each); ``train_detector`` for 2 steps of LD; the test CLI on
    GFL against the API;
-19. output: a ``kernels`` JSON line (with each kernel's share of its
+19. PAA (ROADMAP.md's row j) and zoo row h at full width and depth, no
+   mish (0 / 0 on every path), the prediction layers and BFP's non-local
+   block (``theta``, ``phi``, ``conv_out``) redrawn from the seed: PAA,
+   the Libra RetinaNet (on 1408^2: its BFP needs integer level ratios),
+   the Libra Faster R-CNN and the GRoIE Faster R-CNN, each bf16 at batch 8
+   (e2e, forward, device busy, peak memory; decode and NMS ms, or the RoI
+   extract's ms), fp32 on the card against the CPU on 2 images of 640^2;
+   2 bf16 steps of 2 of those and of the GHM RetinaNet (PAA's positives
+   and EM iterations a step); PAA's positive mask card against CPU on the
+   same fp32 pred maps; the test CLI on PAA, ``train_detector`` on the
+   Libra Faster R-CNN;
+20. output: a ``kernels`` JSON line (with each kernel's share of its
    bound and its launches on every path), the whole run's seconds, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -724,7 +737,7 @@ def check_mish_bwd_kernel(torch, mish):
 
 
 def make_variables(torch, cfg, img, bn_scale=BN_SCALE):
-    """tpudet variables for a YOLO config from a numpy seed, in three
+    """tpudet variables for a YOLO config from a seed, in three
     steps:
 
     - tpudet's init, with every BatchNorm scale at ``bn_scale``;
@@ -743,8 +756,9 @@ def make_variables(torch, cfg, img, bn_scale=BN_SCALE):
     from tpudet_torch.utils.flax_import import (leaf_table,
                                                 load_flax_variables,
                                                 random_flax_variables)
-    model = build_detector(cfg['model'])
-    tree = random_flax_variables(model, seed=SEED)
+    with torch.device('cuda'):
+        model = build_detector(cfg['model'])
+    tree = random_flax_variables(model, seed=SEED, device='cuda')
     for path, (key, _) in leaf_table(model).items():
         if path[-1] == 'scale':
             node = tree['params']
@@ -871,7 +885,7 @@ def run_slice(torch, config=CONFIG, name='YOLOv4-l',
     img_np = images(BATCH, SEED + 1)
     t0 = time.perf_counter()
     tree = make_variables(torch, cfg, img_np)
-    log(f'weights: numpy seed {SEED}, tpudet layout, '
+    log(f'weights: seed {SEED} on the card, tpudet layout, '
         f'{time.perf_counter() - t0:.1f} s')
     path = None
     if weights_dir is not None:
@@ -1018,6 +1032,18 @@ def run_slice(torch, config=CONFIG, name='YOLOv4-l',
     return tree, launches, mish_shapes, path
 
 
+def device_events(prof):
+    """(name, start us, end us) of every device activity (kernels, copies,
+    sets) that ``prof`` recorded, read from the profiler's own results:
+    ``prof.events()`` first parses every record into Python objects, which
+    took seconds a profile of ~10^4 kernels on the H100."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and
+            not getattr(e, 'is_hidden_event', lambda: False)()]
+
+
 def profile_device(torch, fn, label, calls=2, top=15):
     """torch.profiler over ``calls`` calls of ``fn``: the device's busy
     share of the wall time and the kernels that take it, by name. Returns
@@ -1025,7 +1051,6 @@ def profile_device(torch, fn, label, calls=2, top=15):
     Only the device's activity is traced: the busy share needs no host op
     event. The line logged gives the profile's own seconds beyond the
     calls."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1035,22 +1060,22 @@ def profile_device(torch, fn, label, calls=2, top=15):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(prof)
     overhead_s = time.perf_counter() - t_prof - wall_ms * calls / 1e3
     if not kernels:
         log(f'profile {label}: the profiler recorded no device activity; '
             f'device busy share not measured')
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = sorted((a, b) for _, a, b in kernels)
     busy, end = 0.0, float('-inf')
     for a, b in spans:  # union of kernel intervals, us
         if b > end:
             busy += b - max(a, end)
             end = b
     by_name = {}
-    for e in kernels:
-        t = by_name.setdefault(e.name, [0.0, 0])
-        t[0] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+    for name, a, b in kernels:
+        t = by_name.setdefault(name, [0.0, 0])
+        t[0] += (b - a) / 1e3 / calls
         t[1] += 1
     busy_ms = busy / 1e3 / calls
     log(f'profile per {label}: wall {wall_ms:.3f} ms, device busy '
@@ -2405,8 +2430,8 @@ def retina_images(cfg, n, size, seed):
 def redrawn_variables(torch, cfg, img, layers, seed, measure_bn=False,
                       run=None):
     """tpudet's init for ``cfg``'s model (``random_flax_variables`` from
-    the numpy seed) with the prediction layers ``layers`` (module path ->
-    (spread, bias)) redrawn from ``RandomState(seed)``: kernels
+    the seed, drawn on the card) with the prediction layers ``layers``
+    (module path -> (spread, bias)) redrawn from ``RandomState(seed)``: kernels
     N(0, (spread / (sqrt(fan_in) * rms))^2), rms that of the layer's input
     over all its calls in a forward of ``img``, so that the outputs spread
     by about ``spread`` around ``bias``. With ``measure_bn`` the forward
@@ -2420,8 +2445,9 @@ def redrawn_variables(torch, cfg, img, layers, seed, measure_bn=False,
     from tpudet_torch.utils.flax_import import (leaf_table,
                                                 load_flax_variables,
                                                 random_flax_variables)
-    model = build_detector(cfg['model'])
-    tree = random_flax_variables(model, seed=SEED)
+    with torch.device('cuda'):
+        model = build_detector(cfg['model'])
+    tree = random_flax_variables(model, seed=SEED, device='cuda')
     load_flax_variables(model, tree)
     model.to('cuda', memory_format=torch.channels_last)
     if measure_bn:
@@ -2472,7 +2498,7 @@ def redrawn_variables(torch, cfg, img, layers, seed, measure_bn=False,
 
 
 def retina_variables(torch, cfg, img, measure_bn=False):
-    """tpudet variables for a RetinaNet config from the numpy seed:
+    """tpudet variables for a RetinaNet config from the seed:
     tpudet's init (``random_flax_variables``: BatchNorm an identity) with
     the two prediction convs redrawn. With tpudet's N(0, 0.01^2) kernels
     and the 0.01 prior every class score sits near 0.01, under score_thr
@@ -2572,7 +2598,7 @@ def run_retina_inference(torch, mish):
     img_np = retina_images(cfg, RETINA_BATCH, RETINA_IMG, SEED + 900)
     t0 = time.perf_counter()
     tree = retina_variables(torch, cfg, img_np)
-    log(f'RetinaNet weights: numpy seed {SEED}, tpudet\'s init, '
+    log(f'RetinaNet weights: seed {SEED} on the card, tpudet\'s init, '
         f'class logits N({RETINA_CLS_BIAS}, {RETINA_CLS_SPREAD}^2), deltas '
         f'spread {RETINA_REG_SPREAD}; {time.perf_counter() - t0:.1f} s')
     det = init_detector(cfg, variables=tree, device='cuda',
@@ -2992,7 +3018,7 @@ def run_retinanet(torch):
 
 
 def two_stage_variables(torch, cfg, img, measure_bn=False):
-    """tpudet variables for a two-stage config from the numpy seed:
+    """tpudet variables for a two-stage config from the seed:
     ``redrawn_variables`` of the four prediction layers. At tpudet's init
     every objectness sits near 0.5 (N(0, 0.01^2) kernels: the proposals
     nearly tied) and every class probability near 1/81, under score_thr
@@ -3040,7 +3066,7 @@ def run_frcnn_inference(torch, mish, retina_times):
     img_np = retina_images(cfg, FRCNN_BATCH, FRCNN_IMG, SEED + 1400)
     t0 = time.perf_counter()
     tree = two_stage_variables(torch, cfg, img_np)
-    log(f'Faster R-CNN weights: numpy seed {SEED}, tpudet\'s init with '
+    log(f'Faster R-CNN weights: seed {SEED} on the card, tpudet\'s init with '
         f'objectness logits spread {FRCNN_RPN_CLS_SPREAD}, RPN deltas '
         f'{FRCNN_RPN_REG_SPREAD}, RoI class logits {FRCNN_CLS_SPREAD}, RoI '
         f'deltas {FRCNN_REG_SPREAD}; {time.perf_counter() - t0:.1f} s')
@@ -3590,9 +3616,9 @@ def run_mrcnn_inference(torch, mish):
     img_np = retina_images(cfg, MRCNN_BATCH, MRCNN_IMG, SEED + 2000)
     t0 = time.perf_counter()
     tree = mask_variables(torch, cfg, img_np)
-    log(f'Mask R-CNN weights: numpy seed {SEED}, tpudet\'s init with phase '
-        f'11\'s four prediction layers redrawn and the mask logits spread '
-        f'{MASK_LOGIT_SPREAD}; {time.perf_counter() - t0:.1f} s')
+    log(f'Mask R-CNN weights: seed {SEED} on the card, tpudet\'s init with '
+        f'phase 11\'s four prediction layers redrawn and the mask logits '
+        f'spread {MASK_LOGIT_SPREAD}; {time.perf_counter() - t0:.1f} s')
     det = init_detector(cfg, variables=tree, device='cuda',
                         dtype=torch.bfloat16)
     model = det.model
@@ -5491,7 +5517,7 @@ def run_garbage_recipe(torch, tmp):
 def run_other_datasets(torch):
     """Phase 14: (a) the datasets, (b) flip TTA, (c) the image demo, (d)
     the garbage recipe. The YOLOv4-l weights are phase 5's draw: phase
-    4's from numpy seed 0, BN statistics measured on this set's first
+    4's from seed 0, BN statistics measured on this set's first
     batch at EVAL_BN_SCALE. Returns the launches of each path."""
     import tempfile
 
@@ -5558,20 +5584,19 @@ def kernel_launches_by_name(torch, fn):
     of a profiler schedule, after a warm-up step: late in a whole run on
     the H100, a profile of the one call alone listed 100 of the 108 mish
     launches that the launch count read."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     events = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: events.extend(p.events())) as prof:
+                 on_trace_ready=lambda p: events.extend(device_events(p))
+                 ) as prof:
         for _ in range(2):
             fn()
             torch.cuda.synchronize()
             prof.step()
     counts = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA:
-            counts[e.name] = counts.get(e.name, 0) + 1
+    for name, _, _ in events:
+        counts[name] = counts.get(name, 0) + 1
     return counts
 
 
@@ -6064,7 +6089,10 @@ def zoo_variables(torch, cfg, img, seed, measure_bn=False):
     family's class convs as RetinaNet's, ATSS's deltas and centerness,
     GFL's bin logits and VFNet's log-distances (phase 18's spreads; a KD
     teacher's layers, which the forward does not run, keep tpudet's init),
-    drawn from ``RandomState(seed)``."""
+    and BFP's non-local ``theta`` and ``phi`` (outputs spread by
+    BFP_QK_SPREAD, as the attention's queries and keys) and ``conv_out``
+    (BFP_OUT_SPREAD; zero at tpudet's init, which leaves the block the
+    identity and its softmax untested), drawn from ``RandomState(seed)``."""
     import numpy as np
     from tpudet_torch.models.builder import build_detector
     spreads = {'rpn_cls': (FRCNN_RPN_CLS_SPREAD, 0.0),
@@ -6083,7 +6111,10 @@ def zoo_variables(torch, cfg, img, seed, measure_bn=False):
                'gfl_reg': (GFL_BIN_SPREAD, 0.0),
                'vfnet_cls': (RETINA_CLS_SPREAD, RETINA_CLS_BIAS),
                'vfnet_reg': (VFNET_REG_SPREAD, 0.0),
-               'vfnet_reg_refine': (VFNET_REG_SPREAD, 0.0)}
+               'vfnet_reg_refine': (VFNET_REG_SPREAD, 0.0),
+               'theta': (BFP_QK_SPREAD, 0.0),
+               'phi': (BFP_QK_SPREAD, 0.0),
+               'conv_out': (BFP_OUT_SPREAD, 0.0)}
     with torch.device('meta'):
         model = build_detector(cfg['model'])
     ssd = type(getattr(model, 'bbox_head', None)).__name__ == 'SSDHead'
@@ -6135,7 +6166,8 @@ def zoo_inference(torch, mish, config, name, seed, size=None, batch=None,
     model = det.model
     n_params = sum(p.numel() for p in model.parameters())
     log(f'{name}: {n_params / 1e6:.2f} M parameters, bf16, weights from '
-        f'numpy seed {SEED} (prediction layers redrawn, seed {seed}) in '
+        f'seed {SEED} on the card (prediction layers redrawn, numpy seed '
+        f'{seed}) in '
         f'{time.perf_counter() - t0:.1f} s')
     img = torch.from_numpy(img_np).cuda()
     torch.cuda.synchronize()
@@ -6671,7 +6703,8 @@ def check_attention_init(torch, cfg, seed, device='cuda'):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        tree = random_flax_variables(build_detector(cfg['model']), seed=SEED)
+        tree = random_flax_variables(build_detector(cfg['model']), seed=SEED,
+                                     device=device)
         img = torch.from_numpy(retina_images(cfg, 1, ZOO_FP32_IMG, seed))
         blocks, inputs = {}, {}
         for where in (device, 'cpu'):
@@ -6745,12 +6778,14 @@ def check_attention_init(torch, cfg, seed, device='cuda'):
     return rows
 
 
-def zoo_batch_fn(torch, cfg, seed, masks=False):
-    """Training batches of FRCNN_TRAIN_BATCH images at FRCNN_IMG."""
+def zoo_batch_fn(torch, cfg, seed, masks=False, size=None):
+    """Training batches of FRCNN_TRAIN_BATCH images at ``size`` (by default
+    FRCNN_IMG)."""
+    size = size or FRCNN_IMG
     if masks:
         return lambda step: mask_train_batch(
-            torch, cfg, FRCNN_TRAIN_BATCH, FRCNN_IMG, seed + step, 'cuda')
-    return lambda step: retina_train_batch(cfg, FRCNN_TRAIN_BATCH, FRCNN_IMG,
+            torch, cfg, FRCNN_TRAIN_BATCH, size, seed + step, 'cuda')
+    return lambda step: retina_train_batch(cfg, FRCNN_TRAIN_BATCH, size,
                                            seed + step)
 
 
@@ -6886,32 +6921,34 @@ ATSS_CTR_SPREAD, GFL_BIN_SPREAD, VFNET_REG_SPREAD = 1.0, 1.0, 0.3
 ATSS_MIN_PAIRS = 50
 
 
-def atss_decode_and_nms_ms(torch, det, img):
-    """The family's ``get_bboxes`` split on one bf16 call's pred maps:
-    decode (the per-level top-k, the decode, the concatenation: the heads'
-    ``batched_nms`` skipped) and ``batched_nms`` on the candidates the
-    call gave it, device ms; the candidates over ``score_thr``."""
-    from tpudet_torch.models.dense_heads import atss_head
+def atss_decode_and_nms_ms(torch, det, img, module=None):
+    """A dense head's ``get_bboxes`` split on one bf16 call's pred maps:
+    decode (the per-level top-k, the decode, the concatenation: the
+    ``batched_nms`` of ``module``, the ATSS family's ``atss_head`` by
+    default, skipped) and ``batched_nms`` on the candidates the call gave
+    it, device ms; the candidates over ``score_thr``."""
+    if module is None:
+        from tpudet_torch.models.dense_heads import atss_head as module
     model = det.model
     recorded = []
-    orig = atss_head.batched_nms
+    orig = module.batched_nms
 
     def record(*args, **kwargs):
         recorded.append((args, kwargs))
         return orig(*args, **kwargs)
-    atss_head.batched_nms = record
+    module.batched_nms = record
     try:
         with torch.inference_mode():
             maps = model(img)
             model.get_bboxes(maps)
         args, kwargs = recorded[0]
-        atss_head.batched_nms = lambda *a, **k: a[0]
+        module.batched_nms = lambda *a, **k: a[0]
         with torch.inference_mode():
             decode = cuda_ms(lambda: model.get_bboxes(maps), warmup=2,
                              runs=5)
             nms = cuda_ms(lambda: orig(*args, **kwargs), warmup=2, runs=5)
     finally:
-        atss_head.batched_nms = orig
+        module.batched_nms = orig
     return {'decode_ms': decode, 'nms_ms': nms,
             'nms_candidates': int((args[1] > args[2]).sum())}
 
@@ -6972,6 +7009,217 @@ def run_zoo_atss(torch):
         torch.cuda.empty_cache()
         log(f'phase 18 {key}: {time.perf_counter() - t0:.1f} s')
     log('phase 18 inference times: ' + json.dumps(times))
+    return {k: {path: counts[k] for path, counts in launches.items()}
+            for k in ('mish_fwd', 'mish_bwd')}
+
+
+# ---------------------------------------------------------------------------
+# 19. PAA (row j) and ROADMAP.md's zoo row h: Libra R-CNN and RetinaNet,
+# GRoIE, GHM RetinaNet
+
+CONFIG_PAA = os.path.join(ROOT, 'configs/paa/paa_r50_fpn_1x_coco.py')
+CONFIG_LIBRA_FRCNN = os.path.join(
+    ROOT, 'configs/libra_rcnn/libra_faster_rcnn_r50_fpn_1x_coco.py')
+CONFIG_LIBRA_RETINA = os.path.join(
+    ROOT, 'configs/libra_rcnn/libra_retinanet_r50_fpn_1x_coco.py')
+CONFIG_GROIE = os.path.join(
+    ROOT, 'configs/groie/faster_rcnn_r50_fpn_groie_1x_coco.py')
+CONFIG_GHM = os.path.join(ROOT, 'configs/ghm/retinanet_ghm_r50_fpn_1x_coco.py')
+# BFP's non-local block: theta's and phi's outputs spread as the
+# attention's queries and keys, conv_out's output by 1 (tpudet's zero init
+# leaves the block the identity)
+BFP_QK_SPREAD, BFP_OUT_SPREAD = 1.0, 1.0
+# the Libra RetinaNet's canvas: its BFP brings P3-P7 to P4 by integer
+# ratios (tpudet asserts them), and on 1344^2 P7 is 11 x 11 against P4's
+# 84 x 84; 1408 is the multiple of 128 next above
+LIBRA_RETINA_IMG = 1408
+# PAA's positive mask, card against CPU in fp32 on the same pred maps:
+# at most this share of the CPU's positives may differ (the EM's stop at
+# tol 1e-3 and the kept prefix follow the candidates' fp32 losses)
+PAA_MASK_SHARE = 0.01
+
+
+@contextlib.contextmanager
+def paa_assign_probe():
+    """Records each ``PAAHead.assign`` while it is active: the positives
+    and the EM iterations over the valid gts (mean and max; the loop runs
+    up to the next multiple of ``EM_CHECK_EVERY`` masked)."""
+    from tpudet_torch.models.dense_heads import paa_head
+    rows = []
+    orig = paa_head.PAAHead.assign
+
+    def assign(self, preds, gt_bboxes, gt_labels, gt_valid):
+        out = orig(self, preds, gt_bboxes, gt_labels, gt_valid)
+        it = out[-1].iterations[gt_valid]
+        rows.append(dict(
+            positives=int(out[3].sum()), gts=int(gt_valid.sum()),
+            em_iterations_mean=float(it.float().mean()),
+            em_iterations_max=int(it.max()),
+            em_loop=min(100, -(-int(it.max()) // paa_head.EM_CHECK_EVERY) *
+                        paa_head.EM_CHECK_EVERY)))
+        return out
+    paa_head.PAAHead.assign = assign
+    try:
+        yield rows
+    finally:
+        paa_head.PAAHead.assign = orig
+
+
+def check_paa_mask(torch, cfg, tree, seed):
+    """PAA's positive mask card against CPU in fp32 (TF32 off) on the same
+    pred maps: the card's fp32 forward of a training batch of 2 images of
+    ZOO_FP32_IMG^2, then ``assign`` on the card and, on copies of those
+    maps, on the CPU. Returns the masks' numbers."""
+    import copy
+
+    from tpudet_torch.apis import init_detector
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        det = init_detector(cfg, variables=tree, device='cuda',
+                            dtype=torch.float32)
+        batch = retina_train_batch(cfg, 2, ZOO_FP32_IMG, seed)
+        gts = [torch.from_numpy(batch[k]) for k in ('gt_bboxes', 'gt_labels',
+                                                   'gt_valid')]
+        head = det.model.bbox_head
+        with torch.no_grad():
+            maps = det.model(torch.from_numpy(batch['img']).cuda())
+            card = head.assign(maps, *[g.cuda() for g in gts])
+            cpu = copy.deepcopy(head).cpu().assign(
+                tuple(tuple(m.cpu() for m in lvl) for lvl in maps), *gts)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
+            allow_tf32 = flags
+    pos_card, pos_cpu = card[3].cpu(), cpu[3]
+    out = dict(positives_cpu=int(pos_cpu.sum()),
+               positives_card=int(pos_card.sum()),
+               differ=int((pos_card ^ pos_cpu).sum()),
+               em_iterations_differ=int((card[-1].iterations.cpu() !=
+                                         cpu[-1].iterations).sum()),
+               gts=int(gts[2].sum()))
+    log(f'PAA positive mask, fp32 card vs CPU on the same pred maps (2 '
+        f'images of {ZOO_FP32_IMG}^2): ' + json.dumps(out) + f' (at most '
+        f'{PAA_MASK_SHARE} of the CPU\'s positives may differ)')
+    if not (out['positives_cpu'] and
+            out['differ'] <= PAA_MASK_SHARE * out['positives_cpu']):
+        raise AssertionError('PAA\'s positive mask on the card differs from '
+                             'the CPU\'s')
+    del det
+    torch.cuda.empty_cache()
+    return out
+
+
+def roi_extract_ms(torch, det, img):
+    """The RoI head's ``extract`` on the proposals of one bf16 call, device
+    ms (the pooled rois and the output's MB)."""
+    head = det.model.roi_head
+    seen = []
+    orig = head.extract
+
+    def record(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        seen.append((args, kwargs, out.numel() * out.element_size() / 1e6))
+        return out
+    head.extract = record
+    try:
+        with torch.inference_mode():
+            det.model(img)
+    finally:
+        del head.extract
+    args, kwargs, mb = seen[0]
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: orig(*args, **kwargs), warmup=2, runs=5)
+    return {'roi_extract_ms': ms, 'rois': int(args[1].shape[0] *
+                                              args[1].shape[1]),
+            'pooled_mb': mb}
+
+
+def run_zoo_paa_libra(torch):
+    """Phase 19: PAA, the Libra RetinaNet (on LIBRA_RETINA_IMG^2), the GHM
+    RetinaNet (its inference is RetinaNet's: weights and steps only), the
+    Libra Faster R-CNN and the GRoIE Faster R-CNN, R50-FPN at full width
+    and depth: bf16 inference at batch 8 (e2e, forward, device busy, peak
+    memory; the one-stage models' decode and NMS ms, the R-CNNs' RoI
+    extract ms), fp32 card against CPU on 2 images of ZOO_FP32_IMG^2 (the
+    one-stage models at least ATSS_MIN_PAIRS pairs an image, the R-CNNs
+    1 % may differ), 2 bf16 steps of 2 (PAA's positives and EM iterations
+    a step); PAA's positive mask card against CPU; the test CLI on PAA,
+    ``train_detector`` on the Libra Faster R-CNN. Returns each path's
+    launches of each kernel (all 0: ReLU)."""
+    import tempfile
+
+    from tpudet_torch.config import Config
+    from tpudet_torch.models.dense_heads import retina_head
+    from tpudet_torch.ops import mish
+    from tpudet_torch.utils.checkpoint import save_variables
+    log(f'phase 19 redraws: BFP non-local theta / phi outputs spread '
+        f'{BFP_QK_SPREAD}, conv_out {BFP_OUT_SPREAD} (tpudet inits it at 0)')
+    launches, times = {}, {}
+    for key, config, name, seed in (
+            ('paa', CONFIG_PAA, 'PAA R50-FPN', SEED + 5000),
+            ('libra_retinanet', CONFIG_LIBRA_RETINA,
+             'Libra RetinaNet R50-FPN', SEED + 5100),
+            ('ghm_retinanet', CONFIG_GHM, 'GHM RetinaNet R50-FPN',
+             SEED + 5200),
+            ('libra_faster_rcnn', CONFIG_LIBRA_FRCNN,
+             'Libra Faster R-CNN R50-FPN', SEED + 5300),
+            ('groie_faster_rcnn', CONFIG_GROIE, 'GRoIE Faster R-CNN R50-FPN',
+             SEED + 5400)):
+        t0 = time.perf_counter()
+        cfg = Config.fromfile(config)
+        size = LIBRA_RETINA_IMG if key == 'libra_retinanet' else FRCNN_IMG
+        if key == 'ghm_retinanet':
+            tree = zoo_variables(torch, cfg, retina_images(
+                cfg, FRCNN_TRAIN_BATCH, size, seed), seed)
+            t = {}
+        else:
+            tree, det, img, infer, t = zoo_inference(torch, mish, config,
+                                                     name, seed, size=size)
+            launches[f'{key}_inference_forward'] = infer
+            if key.endswith('faster_rcnn'):
+                t.update(roi_extract_ms(torch, det, img))
+            else:
+                t.update(atss_decode_and_nms_ms(
+                    torch, det, img, None if key == 'paa' else retina_head))
+            log(f'{name} split: ' + json.dumps(
+                {k: v for k, v in t.items() if k in (
+                    'decode_ms', 'nms_ms', 'nms_candidates',
+                    'roi_extract_ms', 'rois', 'pooled_mb')}))
+            del det, img
+            torch.cuda.empty_cache()
+            t['fp32_pairs'] = zoo_fp32_check(
+                torch, cfg, tree, name, ZOO_FP32_IMG, seed + 10,
+                min_pairs=1 if key.endswith('faster_rcnn') else
+                ATSS_MIN_PAIRS)
+        batches = zoo_batch_fn(torch, cfg, seed + 20, size=size)
+        if key == 'paa':
+            t['positive_mask'] = check_paa_mask(torch, cfg, tree, seed + 15)
+            with paa_assign_probe() as rows:
+                train = zoo_train_steps(torch, mish, config, tree, name,
+                                        batches)
+            t['assign_per_step'] = rows
+            log(f'{name} assignment a step: ' + json.dumps(rows))
+            if not all(r['positives'] > 0 for r in rows):
+                raise AssertionError('PAA kept no positive in a step')
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = os.path.join(tmp, 'paa.msgpack')
+                save_variables(ckpt, tree)
+                launches['paa_test_cli_batch'] = run_cli_eval(
+                    torch, config, ckpt, img_size=FRCNN_IMG,
+                    mish_per_forward=0)
+        else:
+            train = zoo_train_steps(torch, mish, config, tree, name, batches)
+        launches[f'{key}_train_step'] = train
+        if key == 'libra_faster_rcnn':
+            launches['libra_faster_rcnn_train_detector_step'], _ = \
+                zoo_loop_and_cli(torch, config, name, seed + 30, cli=False)
+        times[key] = t
+        del tree
+        torch.cuda.empty_cache()
+        log(f'phase 19 {key}: {time.perf_counter() - t0:.1f} s')
+    log('phase 19 inference times: ' + json.dumps(times))
     return {k: {path: counts[k] for path, counts in launches.items()}
             for k in ('mish_fwd', 'mish_bwd')}
 
@@ -7102,7 +7350,13 @@ def main():
     zoo_atss_launches = run_zoo_atss(torch)
     log(f'zoo row f, ATSS and VFNet phases: {time.perf_counter() - t0:.1f} s')
 
-    # 19. output
+    # 19. PAA, Libra R-CNN and RetinaNet, GRoIE, GHM; each path with
+    # counts at 0 just before
+    t0 = time.perf_counter()
+    zoo_h_launches = run_zoo_paa_libra(torch)
+    log(f'PAA and zoo row h phases: {time.perf_counter() - t0:.1f} s')
+
+    # 20. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -7145,6 +7399,7 @@ def main():
             paths.update(zoo_launches[k['name']])
             paths.update(zoo_deg_launches[k['name']])
             paths.update(zoo_atss_launches[k['name']])
+            paths.update(zoo_h_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all, '

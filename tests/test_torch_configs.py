@@ -30,8 +30,7 @@ same way, tpudet's tree from ``init`` through ``forward_train`` (its mask
 head's params exist only there). The other 4 configs that name
 ``MaskRCNN``/``MaskRoIHead`` or a Mask R-CNN-based head (HTC, SCNet, MS
 R-CNN, PointRend) raise ``NotImplementedError`` naming ROADMAP.md's "rest
-of the zoo" item, and so do the 2 Libra R-CNN configs (a list ``neck``
-builds as tpudet's chain of necks; its ``BFP`` is not ported). The DCN
+of the zoo" item. The DCN
 ResNeXt-101 config is refused by both packages (tpudet's assertion, the
 port's ``NotImplementedError`` with its message).
 
@@ -39,9 +38,12 @@ The 6 configs of ROADMAP.md's zoo row f and the two of row j that share
 its assigner (``configs/gfl/``, ``configs/atss/``, ``configs/vfnet/``)
 are swept like the RetinaNet configs; LD's (``configs/ld/``) through
 ``forward_train``, the only path that creates tpudet's teacher subtree.
-The probe over every config under ``configs/`` counts what the port
-builds, refuses with ``NotImplementedError`` and does not register
-(``KeyError``).
+The 5 configs of ROADMAP.md's zoo row h and row j's PAA (``configs/paa/``,
+``configs/libra_rcnn/`` (a list ``neck``: tpudet's chain of necks, FPN
+then BFP), ``configs/groie/``, ``configs/ghm/``) are swept like the
+RetinaNet configs. The probe over every config under ``configs/`` counts
+what the port builds, refuses with ``NotImplementedError`` and does not
+register (``KeyError``).
 
 Every config whose ``data.train/val/test`` name a dataset other than
 ``CocoDataset`` (9, wrappers' inner datasets included) has each of those
@@ -128,8 +130,15 @@ ATSS_FAMILY_CONFIGS = sorted(
 KD_CONFIGS = sorted(
     os.path.relpath(p, ROOT)
     for p in glob.glob(os.path.join(ROOT, 'configs/ld/*.py')))
+# ROADMAP.md's zoo row h (Libra R-CNN and RetinaNet, GRoIE, GHM) and row
+# j's PAA
+ZOO_H_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for pattern in ('configs/paa/*.py', 'configs/libra_rcnn/*.py',
+                    'configs/groie/*.py', 'configs/ghm/*.py')
+    for p in glob.glob(os.path.join(ROOT, pattern)))
 # the probe over configs/: (build, NotImplementedError, KeyError)
-PROBE_COUNTS = (84, 9, 34)
+PROBE_COUNTS = (89, 5, 33)
 
 # configs that build but sit outside the families above: the fork's two
 # recipes and training from scratch
@@ -154,8 +163,8 @@ REFUSED_MASK_CONFIGS = sorted(
                     'configs/ms_rcnn/*.py', 'configs/point_rend/*.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
 
-# Libra R-CNN: FPN -> BFP chained necks, BFP and the IoU-balanced sampling
-# not ported
+# Libra R-CNN: FPN -> BFP chained necks, the IoU-balanced sampling and
+# balanced L1 in the Faster R-CNN
 LIBRA_CONFIGS = sorted(
     os.path.relpath(p, ROOT)
     for p in glob.glob(os.path.join(ROOT, 'configs/libra_rcnn/*.py')))
@@ -200,10 +209,18 @@ def test_the_atss_family_sweeps_hold_seven_configs():
         ZOO_DEG_CONFIGS)
 
 
+def test_the_zoo_row_h_sweep_holds_five_configs():
+    assert len(ZOO_H_CONFIGS) == 5
+    assert set(LIBRA_CONFIGS) < set(ZOO_H_CONFIGS)
+    assert not set(ZOO_H_CONFIGS) & set(
+        CONFIGS + RETINA_CONFIGS + TWO_STAGE_CONFIGS + ZOO_ROW_CONFIGS +
+        ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS + KD_CONFIGS)
+
+
 def test_the_probe_counts_what_builds_and_what_is_refused():
-    """Every config under ``configs/`` built on the meta device: 84 build,
-    9 raise ``NotImplementedError`` (the "rest of the zoo" and the DCN
-    ResNeXt), 34 raise ``KeyError`` (types the port does not register)."""
+    """Every config under ``configs/`` built on the meta device: 89 build,
+    5 raise ``NotImplementedError`` (the "rest of the zoo" and the DCN
+    ResNeXt), 33 raise ``KeyError`` (types the port does not register)."""
     counts = [0, 0, 0]
     for p in sorted(glob.glob(os.path.join(ROOT, 'configs/**/*.py'),
                               recursive=True)):
@@ -226,9 +243,14 @@ def test_the_other_sweep_holds_three_configs():
 
 @pytest.mark.parametrize('config', CONFIGS + RETINA_CONFIGS +
                          TWO_STAGE_CONFIGS + OTHER_CONFIGS + ZOO_ROW_CONFIGS +
-                         ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS)
+                         ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS + ZOO_H_CONFIGS)
 def test_config_builds_with_tpudets_param_tree(config):
-    path = os.path.join(ROOT, config)
+    assert_tpudets_tree(os.path.join(ROOT, config))
+
+
+def assert_tpudets_tree(path):
+    """The port's model of the config at ``path`` holds tpudet's param
+    tree from ``init`` on a 64 px image."""
     model_cfg = JaxConfig.fromfile(path)['model']
     jmodel = jax_build_detector(model_cfg)
     args = (jnp.zeros((1, 64, 64, 3)),)
@@ -325,11 +347,16 @@ def test_the_libra_sweep_holds_two_configs():
 
 @pytest.mark.parametrize('config', LIBRA_CONFIGS)
 def test_libra_config_refuses_what_is_not_ported(config):
-    cfg = Config.fromfile(os.path.join(ROOT, config))['model']
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md\'s "rest of the zoo" item'):
-        with torch.device('meta'):
-            build_detector(cfg)
+    """Nothing of the two Libra configs is refused any more: each builds
+    with tpudet's param tree, its neck the chain FPN -> BFP with the
+    non-local refine (``neck/necks_1/refine/{g,theta,phi,conv_out}``)."""
+    path = os.path.join(ROOT, config)
+    with torch.device('meta'):
+        model = build_detector(Config.fromfile(path)['model'])
+    assert type(model.neck.necks_1).__name__ == 'BFP'
+    assert {n for n, _ in model.neck.necks_1.refine.named_children()} == {
+        'g', 'theta', 'phi', 'conv_out'}
+    assert_tpudets_tree(path)
 
 
 def test_a_neck_list_builds_as_tpudets_chain():

@@ -139,7 +139,8 @@ def train_step_job(rank, world, model_cfg, flax_state, opt, ema,
 
 def forward_train_job(rank, world, model_cfg, variables, batch):
     """``forward_train`` of a float64 detector on this rank's equal slice
-    of ``batch``; its losses, with no gradient."""
+    of ``batch`` (a single-stage detector's head loss of its forward);
+    its losses, with no gradient."""
     import numpy as np
     import torch
 
@@ -153,7 +154,10 @@ def forward_train_job(rank, world, model_cfg, variables, batch):
     args = [torch.from_numpy(np.asarray(v[rank * n:(rank + 1) * n]))
             for v in batch.values()]
     with torch.no_grad():
-        losses = model.forward_train(*args)
+        if hasattr(model, 'forward_train'):
+            losses = model.forward_train(*args)
+        else:
+            losses = model.loss(model(args[0]), *args[1:])
     return {k: float(v) for k, v in losses.items()}
 
 

@@ -97,7 +97,8 @@ def init_detector(config: Union[str, Config, Dict],
     if isinstance(config, str):
         config = Config.fromfile(config)
     cfg = config if isinstance(config, Config) else Config(dict(model=config))
-    model = build_detector(cfg['model'])
+    with device:  # parameters made, and weights copied, on the device
+        model = build_detector(cfg['model'])
     if checkpoint is not None:
         variables, meta = load_variables(checkpoint)
         classes = meta.get('CLASSES', classes)

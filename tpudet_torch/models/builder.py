@@ -17,8 +17,6 @@ from ..registry import MODELS, build_from_cfg
 # tpudet's Mask R-CNN-based detectors that the port does not build yet
 ZOO_DETECTORS = ('HybridTaskCascade', 'SCNet', 'MaskScoringRCNN',
                  'PointRend')
-# tpudet's necks that the port does not build yet
-ZOO_NECKS = ('BFP',)
 # a relative ``teacher_config`` names a file of the repo (the checkout that
 # holds ``tpudet_torch/``)
 REPO_ROOT = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
@@ -50,10 +48,6 @@ def _build_neck(cfg):
     builder.py:48-53``)."""
     if isinstance(cfg, (list, tuple)):
         return ChainedNeck([_build_neck(c) for c in cfg])
-    if cfg['type'] in ZOO_NECKS:
-        raise NotImplementedError(
-            f'{cfg["type"]} is not ported; it comes with ROADMAP.md\'s "rest '
-            f'of the zoo" item')
     return _build(cfg)
 
 

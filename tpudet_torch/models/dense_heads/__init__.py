@@ -1,6 +1,7 @@
 from .atss_head import ATSSHead
 from .gfl_head import GFLHead
 from .ld_head import KnowledgeDistillationSingleStageDetector, LDHead
+from .paa_head import PAAHead
 from .retina_head import RetinaHead
 from .rpn_head import RPNHead
 from .ssd_head import SSD, SSDHead
@@ -9,5 +10,5 @@ from .yolocsp_head import YOLOCSPHead
 from .yolov3_head import YOLOV3Head
 
 __all__ = ['ATSSHead', 'GFLHead', 'KnowledgeDistillationSingleStageDetector',
-           'LDHead', 'RetinaHead', 'RPNHead', 'SSD', 'SSDHead', 'VFNetHead',
-           'YOLOCSPHead', 'YOLOV3Head']
+           'LDHead', 'PAAHead', 'RetinaHead', 'RPNHead', 'SSD', 'SSDHead',
+           'VFNetHead', 'YOLOCSPHead', 'YOLOV3Head']

@@ -44,7 +44,7 @@ def _conv(cin, cout, bias_init=0.):
 @HEADS.register_module()
 class RetinaHead(nn.Module):
     """The keyword arguments are tpudet's fields (``retina_head.py:42-62``)
-    with its defaults; ``use_ghm`` raises."""
+    with its defaults; ``use_ghm`` trains with the GHM losses."""
 
     def __init__(self, num_classes: int, in_channels: int = 256,
                  feat_channels: int = 256, stacked_convs: int = 4,
@@ -59,10 +59,6 @@ class RetinaHead(nn.Module):
                  loss_bbox_weight: float = 1.0, use_ghm: bool = False,
                  dtype=None):
         super().__init__()
-        if use_ghm:
-            raise NotImplementedError(
-                'RetinaHead(use_ghm=True) (GHM-C/GHM-R losses) is not '
-                'ported; it comes with ROADMAP.md\'s "rest of the zoo" item')
         if dtype is not None:
             raise ValueError(f'RetinaHead: dtype={dtype!r} is not a module '
                              f'setting in the port; see '
@@ -76,6 +72,7 @@ class RetinaHead(nn.Module):
         self.focal_alpha = focal_alpha
         self.loss_cls_weight = loss_cls_weight
         self.loss_bbox_weight = loss_bbox_weight
+        self.use_ghm = use_ghm
         self.num_anchors = len(ratios) * scales_per_octave
         self.anchor_generator = AnchorGenerator(
             strides=list(self.strides), ratios=list(ratios),
@@ -124,7 +121,8 @@ class RetinaHead(nn.Module):
 
     def loss(self, preds, gt_bboxes, gt_labels, gt_valid
              ) -> Dict[str, torch.Tensor]:
-        """Focal + L1 loss over all anchors, in fp32
+        """Focal + L1 loss over all anchors, in fp32, or with ``use_ghm``
+        GHM-C (30 bins) + GHM-R (mu 0.02, 10 bins, 10x the box weight)
         (``tpudet/models/dense_heads/retina_head.py:113-179``).
 
         Args:
@@ -154,19 +152,33 @@ class RetinaHead(nn.Module):
         onehot = L.one_hot(matched_labels, self.num_classes,
                            torch.float32) * pos[..., None]
         label_weights = (pos | neg).float()[..., None]
-        loss_cls = L.sigmoid_focal_loss(
-            cls_flat, onehot, gamma=self.focal_gamma, alpha=self.focal_alpha,
-            weight=label_weights, avg_factor=num_pos,
-            loss_weight=self.loss_cls_weight)
+        if self.use_ghm:
+            # GHM-C with 30 bins (configs/ghm/retinanet_ghm_r50_fpn_1x_coco)
+            loss_cls = L.ghm_c_loss(
+                cls_flat, onehot, bins=30,
+                label_weight=label_weights.expand_as(cls_flat),
+                loss_weight=self.loss_cls_weight)
+        else:
+            loss_cls = L.sigmoid_focal_loss(
+                cls_flat, onehot, gamma=self.focal_gamma,
+                alpha=self.focal_alpha, weight=label_weights,
+                avg_factor=num_pos, loss_weight=self.loss_cls_weight)
         matched_boxes = torch.gather(gt_bboxes, 1,
                                      gt_idx[..., None].expand(-1, -1, 4))
         matched_boxes = torch.where(pos[..., None], matched_boxes,
                                     anchors[None])
         target_deltas = self.bbox_coder.encode(anchors[None], matched_boxes)
-        loss_bbox = L.l1_loss(reg_flat, target_deltas,
-                              weight=pos[..., None].float(),
-                              avg_factor=num_pos,
-                              loss_weight=self.loss_bbox_weight)
+        if self.use_ghm:
+            # GHM-R: mu 0.02, 10 bins, weight 10
+            loss_bbox = L.ghm_r_loss(
+                reg_flat, target_deltas,
+                label_weight=pos[..., None].float().expand_as(reg_flat),
+                mu=0.02, bins=10, loss_weight=10.0 * self.loss_bbox_weight)
+        else:
+            loss_bbox = L.l1_loss(reg_flat, target_deltas,
+                                  weight=pos[..., None].float(),
+                                  avg_factor=num_pos,
+                                  loss_weight=self.loss_bbox_weight)
         num_gts = gt_valid.float().sum() / global_count(gt_valid.shape[0],
                                                         gt_valid.device)
         return dict(loss_cls=loss_cls, loss_bbox=loss_bbox, num_gts=num_gts)

@@ -1,7 +1,7 @@
 """Single-stage detector: backbone -> neck -> dense head. Port of
 ``tpudet/models/detectors/single_stage.py`` (``SingleStageDetector``,
 ``YOLOV4``, ``YOLOV5``, ``YOLOV3``, ``RetinaNet``, ``ATSS``, ``GFL``,
-``VFNet``)."""
+``VFNet``) and of ``tpudet/models/dense_heads/paa_head.py``'s ``PAA``."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -125,3 +125,11 @@ class GFL(ATSS):
 class VFNet(SingleStageDetector):
     """VarifocalNet (reference mmdet/models/detectors/vfnet.py)."""
     default_iou_thr = 0.6
+
+
+@DETECTORS.register_module()
+class PAA(SingleStageDetector):
+    """PAA (``tpudet/models/dense_heads/paa_head.py:251-262``): the test
+    config's ``score_voting`` and ``min_bbox_size`` are dropped."""
+    default_iou_thr = 0.6
+    strip_test_keys = ('score_voting',)

@@ -2,20 +2,23 @@
 heads use (``reduce_loss``, the BCE with logits, ``bce_loss``,
 ``giou_loss``, ``smooth_l1_loss``, ``l1_loss``, ``sigmoid_focal_loss``;
 the ATSS family's ``varifocal_loss``, ``quality_focal_loss``,
-``distribution_focal_loss`` and ``kd_kl_div_loss``). The rest of
-tpudet's loss zoo comes with the models that use it.
+``distribution_focal_loss`` and ``kd_kl_div_loss``; Libra R-CNN's
+``balanced_l1_loss`` and GHM's ``ghm_c_loss`` and ``ghm_r_loss``). The
+rest of tpudet's loss zoo comes with the models that use it.
 
 Every loss takes an optional ``weight`` and ``avg_factor``, so padded
 slots add nothing and a mean over the positives is a sum divided by
 their count."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..core.bbox import bbox_overlaps_aligned
+from ..parallel.mesh import global_sum
 
 
 def reduce_loss(loss, reduction: str = 'mean', weight=None,
@@ -162,3 +165,96 @@ def kd_kl_div_loss(pred, soft_label, T: float = 10.0, weight=None,
     kl = target * (torch.log(torch.clamp_min(target, 1e-12)) - logp)
     loss = kl.mean(dim=-1) * (T * T)
     return loss_weight * reduce_loss(loss, reduction, weight, avg_factor)
+
+
+def balanced_l1_loss(pred, target, beta: float = 1.0, alpha: float = 0.5,
+                     gamma: float = 1.5, weight=None, reduction: str = 'mean',
+                     avg_factor=None, loss_weight: float = 1.0):
+    """Libra R-CNN's balanced L1 (``losses.py:147-159``): below ``beta``,
+    ``alpha / b (b d + 1) log(b d / beta + 1) - alpha d``, above it
+    ``gamma d + gamma / b - alpha beta``, ``b = e^(gamma / alpha) - 1`` a
+    Python float as in tpudet."""
+    diff = (pred - target).abs()
+    b = math.e**(gamma / alpha) - 1
+    loss = torch.where(
+        diff < beta,
+        alpha / b * (b * diff + 1) * torch.log(b * diff / beta + 1) -
+        alpha * diff,
+        gamma * diff + gamma / b - alpha * beta)
+    return loss_weight * reduce_loss(loss, reduction, weight, avg_factor)
+
+
+def unit_edges(bins: int, dtype, device=None) -> torch.Tensor:
+    """``jnp.linspace(0, 1, bins + 1)`` bit for bit: XLA multiplies the
+    iota by the rounded reciprocal ``1 / bins``, then appends 1."""
+    step = torch.tensor(1.0, dtype=dtype) / bins
+    return torch.cat([torch.arange(bins, dtype=dtype) * step,
+                      torch.ones(1, dtype=dtype)]).to(device)
+
+
+def ghm_c_loss(pred, target, label_weight=None, bins: int = 10,
+               loss_weight: float = 1.0):
+    """Gradient-harmonized classification loss, stateless (tpudet's
+    ``momentum`` 0, which it never reads; ``losses.py:215-239``): each
+    valid element's BCE with logits is weighted by ``tot / (count of its
+    bin)`` over the count of non-empty bins, the bins splitting ``g =
+    |sigmoid(pred) - target|`` (no gradient) at ``unit_edges``, the last
+    bin closed by ``+1e-6``; the sum over ``tot``, the valid count. ``tot`` and the bins' counts are exact
+    integers made floats where tpudet divides by them (fp32, or float64
+    for a float64 ``pred``: past 2^24 they round as tpudet's do). With a
+    process group they are summed over the ranks, so that each rank's loss
+    is its share of the loss of the whole batch."""
+    g = (torch.sigmoid(pred) - target).abs().detach()
+    if label_weight is None:
+        label_weight = torch.ones_like(pred)
+    valid = label_weight > 0
+    edges = unit_edges(bins, torch.promote_types(pred.dtype, torch.float32),
+                       pred.device)
+    edges[-1] += 1e-6  # rounded in the edges' dtype, as tpudet's
+    # bin i holds edges[i] <= g < edges[i + 1]; a NaN lands past the last
+    bin_id = torch.searchsorted(edges, g.contiguous(), right=True) - 1
+    inside = valid & (bin_id < bins)
+    counts = global_sum(torch.cat([
+        valid.sum()[None],
+        torch.bincount(torch.where(inside, bin_id, bins).reshape(-1),
+                       minlength=bins + 1)[:bins]]))
+    tot = torch.clamp_min(counts[0].to(edges.dtype), 1.0)
+    counts = counts[1:]
+    n = counts[bin_id.clamp_max(bins - 1)]
+    weights = torch.where(inside & (n > 0),
+                          tot / torch.clamp_min(n.to(edges.dtype), 1.0),
+                          torch.zeros((), dtype=edges.dtype,
+                                      device=pred.device))
+    nonempty = (counts > 0).sum().float()
+    weights = weights / torch.clamp_min(nonempty, 1.0)
+    loss = binary_cross_entropy_with_logits(pred, target) * weights
+    return loss_weight * loss.sum() / tot
+
+
+def ghm_r_loss(pred, target, label_weight=None, mu: float = 0.02,
+               bins: int = 10, loss_weight: float = 1.0):
+    """Gradient-harmonized regression loss, stateless (``losses.py:242-
+    274``): the authentic smooth L1 ``sqrt(d^2 + mu^2) - mu``, each valid
+    element weighted by ``tot / (count of its bin)`` over the count of
+    non-empty bins, its bin ``min(int(g bins), bins - 1)`` of the gradient
+    length ``g = |d| / sqrt(d^2 + mu^2)`` (no gradient); the sum over
+    ``tot``, the label weights' fp32 sum. The weights are fp32 as
+    tpudet's; with a process group ``tot`` and the counts are summed over
+    the ranks, as ``ghm_c_loss``'s."""
+    diff = pred - target
+    root = torch.sqrt(diff * diff + mu * mu)
+    asl1 = root - mu
+    g = (diff.abs() / root).detach()
+    if label_weight is None:
+        label_weight = torch.ones_like(pred)
+    valid = label_weight > 0
+    bin_id = torch.clamp_max((g * bins).to(torch.int32), bins - 1).long()
+    counts = global_sum(torch.cat([
+        label_weight.float().sum()[None],
+        torch.bincount(torch.where(valid, bin_id, bins).reshape(-1),
+                       minlength=bins + 1)[:bins].float()]))
+    tot = torch.clamp_min(counts[0], 1.0)
+    nonempty = torch.clamp_min((counts[1:] > 0).float().sum(), 1.0)
+    w = torch.where(valid, tot / torch.clamp_min(counts[1:][bin_id], 1.0),
+                    torch.zeros((), device=pred.device)) / nonempty
+    return loss_weight * (asl1 * w).sum() / tot

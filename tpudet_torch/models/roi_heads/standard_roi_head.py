@@ -1,19 +1,23 @@
 """The standard two-stage RoI head: port of
-``tpudet/models/roi_heads/standard_roi_head.py`` (``StandardRoIHead``
-with the ``'single'`` extractor, ``'random'`` negatives and the ``'l1'``
-and ``'smooth_l1'`` box losses).
+``tpudet/models/roi_heads/standard_roi_head.py`` (``StandardRoIHead``).
 
 - training: the proposals and the padded gts appended to them (mmdet's
   ``add_gt_as_proposals``) are MaxIoU-assigned to the gts, then 512 rois
   an image are sampled, at most 25 % positive, by a fixed priority, numpy
   ``RandomState(1).rand(n_rois)`` (the positives, then the negatives, of
   lowest priority, ties by index), and gathered sampled-first into a
-  fixed (B, 512) slot table;
+  fixed (B, 512) slot table. Libra R-CNN's ``neg_sampling=
+  'iou_balanced'`` splits the negatives by their max IoU into
+  ``neg_num_bins`` bins over ``[0, neg_iou_thr)``, takes an equal share of
+  each bin, fills the shortfall from the remaining negatives and trims
+  the overshoot, every step by the same priority;
 - the RoI features come from the port's multilevel RoIAlign, each roi
-  pooled at its own FPN level (``ops/roi_align.py``);
+  pooled at its own FPN level (``ops/roi_align.py``), or with
+  ``roi_extractor='generic'`` (GRoIE) the sum of its RoIAlign over every
+  level, invalid rois 0;
 - losses: softmax cross-entropy over the sampled rois, the class-specific
-  L1 (or smooth L1) of the deltas over the positives, both over the
-  batch's sampled count;
+  L1 (or smooth L1, or Libra's balanced L1) of the deltas over the
+  positives, both over the batch's sampled count;
 - testing: softmax scores without the background column, per-class
   decode clipped per image, the top 2048 (roi, class) pairs over
   ``score_thr`` and one class-offset NMS an image.
@@ -21,9 +25,8 @@ and ``'smooth_l1'`` box losses).
 The bbox head is ``Shared2FCBBoxHead``, or ``Shared4Conv1FCBBoxHead``
 with ``bbox_head_type`` (``norm``, ``gn_groups``, ``conv_ws``: the GN and
 GN+WS configs); any other type builds the 2-FC head, as tpudet's ``setup``
-does. ``roi_extractor='generic'`` (GRoIE), ``neg_sampling='iou_balanced'``
-and ``loss_bbox_type='balanced_l1'`` (Libra R-CNN) are not ported: they
-raise.
+does. An option value without a branch (a typo, which tpudet would take
+as the default) raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -34,32 +37,27 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.assigners import max_iou_assign_batch, priority_rank
-from ...core.bbox import DeltaXYWHBBoxCoder
+from ...core.bbox import DeltaXYWHBBoxCoder, bbox_overlaps
 from ...core.nms import (NEG_INF, NMSResult, _class_offsets, _gather_rows,
                          nms_padded, topk_scores)
 from ...parallel.mesh import global_sum
-from ...ops.roi_align import batched_multilevel_roi_align
+from ...ops.roi_align import (batched_generic_roi_align,
+                               batched_multilevel_roi_align)
 from ...registry import HEADS
 from .. import losses as L
 from ..dense_heads.rpn_head import fixed_priority
 from .bbox_head import Shared2FCBBoxHead, Shared4Conv1FCBBoxHead
 
-ZOO = 'comes with ROADMAP.md\'s "rest of the zoo" item'
+OPTIONS = {'roi_extractor': ('single', 'generic'),
+           'neg_sampling': ('random', 'iou_balanced'),
+           'loss_bbox_type': ('l1', 'smooth_l1', 'balanced_l1')}
 
 
-def _refuse(roi_extractor, neg_sampling, loss_bbox_type):
-    if roi_extractor != 'single':
-        raise NotImplementedError(
-            f'StandardRoIHead(roi_extractor={roi_extractor!r}) (GRoIE\'s '
-            f'generic extractor) is not ported; it {ZOO}')
-    if neg_sampling != 'random':
-        raise NotImplementedError(
-            f'StandardRoIHead(neg_sampling={neg_sampling!r}) (Libra '
-            f'R-CNN\'s IoU-balanced sampling) is not ported; it {ZOO}')
-    if loss_bbox_type == 'balanced_l1':
-        raise NotImplementedError(
-            'StandardRoIHead(loss_bbox_type=\'balanced_l1\') (Libra '
-            f'R-CNN) is not ported; it {ZOO}')
+def _check_options(**given):
+    for name, value in given.items():
+        if value not in OPTIONS[name]:
+            raise ValueError(f'StandardRoIHead({name}={value!r}): the port '
+                             f'has {", ".join(OPTIONS[name])}')
 
 
 @HEADS.register_module()
@@ -79,7 +77,9 @@ class StandardRoIHead(nn.Module):
                  loss_bbox_type: str = 'l1', roi_extractor: str = 'single',
                  dtype=None):
         super().__init__()
-        _refuse(roi_extractor, neg_sampling, loss_bbox_type)
+        _check_options(roi_extractor=roi_extractor,
+                       neg_sampling=neg_sampling,
+                       loss_bbox_type=loss_bbox_type)
         if dtype is not None:
             raise ValueError(f'StandardRoIHead: dtype={dtype!r} is not a '
                              f'module setting in the port; see '
@@ -92,6 +92,9 @@ class StandardRoIHead(nn.Module):
         self.pos_iou_thr = pos_iou_thr
         self.neg_iou_thr = neg_iou_thr
         self.min_pos_iou = min_pos_iou
+        self.roi_extractor = roi_extractor
+        self.neg_sampling = neg_sampling
+        self.neg_num_bins = neg_num_bins
         self.loss_bbox_type = loss_bbox_type
         self.bbox_coder = DeltaXYWHBBoxCoder(target_stds=target_stds)
         if bbox_head_type == 'Shared4Conv1FCBBoxHead':
@@ -107,9 +110,16 @@ class StandardRoIHead(nn.Module):
     def extract(self, feats, rois, roi_valid, out_size=None):
         """Multilevel RoIAlign of a batch: ``feats`` NCHW per level,
         ``rois`` (B, P, 4) -> (B, P, s, s, C), s = ``out_size`` or
-        ``roi_size``."""
+        ``roi_size``; each roi from its level, or with the generic
+        extractor the sum over every level (``standard_roi_head.py:
+        79-109``; tpudet's comment names a ContextBlock after the sum,
+        which its code does not run, nor does the port)."""
         feats = [f.permute(0, 2, 3, 1)
                  for f in feats[:len(self.featmap_strides)]]
+        if self.roi_extractor == 'generic':
+            return batched_generic_roi_align(
+                feats, rois, roi_valid, out_size=out_size or self.roi_size,
+                strides=self.featmap_strides)
         return batched_multilevel_roi_align(
             feats, rois, roi_valid, out_size=out_size or self.roi_size,
             strides=self.featmap_strides)
@@ -150,7 +160,12 @@ class StandardRoIHead(nn.Module):
         pos_keep = pos & (priority_rank(pos, priority) <
                           int(s * self.pos_fraction))
         n_pos = pos_keep.sum(dim=1, keepdim=True)
-        neg_keep = neg & (priority_rank(neg, priority) < s - n_pos)
+        if self.neg_sampling == 'iou_balanced':
+            neg_keep = self._iou_balanced_negatives(
+                rois, gt_bboxes, gt_valid, neg, priority, s - n_pos,
+                neg_thr)
+        else:
+            neg_keep = neg & (priority_rank(neg, priority) < s - n_pos)
         sampled = pos_keep | neg_keep
 
         # the slot table, sampled first: a stable sort of the integers
@@ -176,11 +191,37 @@ class StandardRoIHead(nn.Module):
             out += (src_is_gt[order],)
         return out
 
+    def _iou_balanced_negatives(self, rois, gt_bboxes, gt_valid, neg,
+                                priority, want, neg_thr):
+        """Libra R-CNN's IoU-balanced negatives (``standard_roi_head.py:
+        153-190``): ``neg`` (B, R) split by each roi's max IoU with a
+        valid gt into ``neg_num_bins`` bins of ``[0, neg_thr)`` (the last
+        open above), ``want // bins + 1`` of each bin, the shortfall under
+        ``want`` (B, 1) filled from the other negatives, then the set cut
+        to ``want``, every step by ``priority`` (ties by index)."""
+        ious = bbox_overlaps(rois, gt_bboxes)  # (B, R, G)
+        max_iou = torch.where(gt_valid[:, None, :], ious,
+                              ious.new_zeros(())).amax(dim=2)
+        bins = self.neg_num_bins
+        bin_w = float(neg_thr) / bins if float(neg_thr) > 0 else 1.0
+        bin_id = torch.clamp((max_iou / bin_w).to(torch.int32), 0,
+                             bins - 1)
+        per_bin = want // bins + 1
+        keep = torch.zeros_like(neg)
+        for i in range(bins):
+            in_bin = neg & (bin_id == i)
+            keep = keep | (in_bin & (priority_rank(in_bin, priority) <
+                                     per_bin))
+        deficit = want - keep.sum(dim=1, keepdim=True)
+        rest = neg & ~keep
+        keep = keep | (rest & (priority_rank(rest, priority) < deficit))
+        return keep & (priority_rank(keep, priority) < want)
+
     def loss(self, cls_logits, deltas, labels, targets, pos, sampled,
              rois=None) -> Dict[str, torch.Tensor]:
         """Softmax cross-entropy and the class-specific L1 (or smooth L1,
-        beta 1) of the deltas, in fp32 (``standard_roi_head.py:222-255``).
-        """
+        beta 1, or balanced L1) of the deltas, in fp32
+        (``standard_roi_head.py:222-255``)."""
         num_total = torch.clamp_min(global_sum(sampled.float().sum()), 1.0)
         logp = F.log_softmax(cls_logits.float(), dim=-1)
         ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
@@ -195,7 +236,10 @@ class StandardRoIHead(nn.Module):
             reg = torch.gather(reg, 2, cls_idx[..., None, None].expand(
                 b, s, 1, 4))[:, :, 0]
         weight = pos[..., None].float()
-        if self.loss_bbox_type == 'smooth_l1':
+        if self.loss_bbox_type == 'balanced_l1':
+            loss_bbox = L.balanced_l1_loss(reg, targets, weight=weight,
+                                           avg_factor=num_total)
+        elif self.loss_bbox_type == 'smooth_l1':
             # cascade's stages regress with SmoothL1(beta=1)
             loss_bbox = L.smooth_l1_loss(reg, targets, beta=1.0,
                                          weight=weight, avg_factor=num_total)

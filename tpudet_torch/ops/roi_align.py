@@ -1,5 +1,6 @@
 """RoIAlign: port of ``tpudet/ops/roi_align.py`` (``roi_align``,
-``multilevel_roi_align``) as torch ops, with tpudet's semantics:
+``multilevel_roi_align``, ``generic_roi_align``) as torch ops, with
+tpudet's semantics:
 
 - sample points at ``roi_start + (i + 0.5) * bin / n - 0.5`` in feature
   pixels, ``n = sampling_ratio`` per bin and axis;
@@ -8,7 +9,9 @@
   into it);
 - a bin is the mean of its ``n x n`` samples;
 - on an FPN, a roi's level is ``floor(log2(sqrt(area) / 56 + 1e-6))``
-  clamped to the levels, and an invalid roi pools to 0.
+  clamped to the levels, and an invalid roi pools to 0; GRoIE's generic
+  extractor pools every roi from every level and sums (or concatenates)
+  the levels.
 
 tpudet pools every roi from every level and masks; here each roi is
 pooled at its own level only, with the same result and no host sync. The
@@ -140,3 +143,59 @@ def multilevel_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     return batched_multilevel_roi_align(
         [f[None] for f in feats], rois[None], roi_valid[None], out_size,
         strides, sampling_ratio, finest_scale)[0]
+
+
+def batched_generic_roi_align(feats: Sequence[torch.Tensor],
+                              rois: torch.Tensor, roi_valid: torch.Tensor,
+                              out_size: int = 7,
+                              strides: Sequence[int] = (4, 8, 16, 32),
+                              sampling_ratio: int = 2,
+                              aggregation: str = 'sum') -> torch.Tensor:
+    """GRoIE's generic extractor over a batch: every roi pooled from every
+    level of ``feats`` (B, H_l, W_l, C), in one gather pass, then the
+    levels summed in their order (``aggregation='sum'``: (B, P, out, out,
+    C)) or concatenated along the channels (``'concat'``: (B, P, out,
+    out, C * levels)); invalid rois 0."""
+    if aggregation not in ('sum', 'concat'):
+        raise ValueError(f'unknown aggregation {aggregation!r}')
+    feats = list(feats)[:len(strides)]
+    b, p = rois.shape[:2]
+    dev = rois.device
+    n_lvl = len(feats)
+    table = torch.cat([f.reshape(-1, f.shape[-1]) for f in feats])
+    sizes = [b * f.shape[1] * f.shape[2] for f in feats]
+    img = torch.arange(b, device=dev).repeat_interleave(p)
+
+    def per_level(values, dtype):  # (levels,) -> (levels * B * P,)
+        return torch.tensor(values, dtype=dtype, device=dev
+                            ).repeat_interleave(b * p)
+    height = per_level([f.shape[1] for f in feats], torch.long)
+    width = per_level([f.shape[2] for f in feats], torch.long)
+    base = per_level([sum(sizes[:i]) for i in range(n_lvl)], torch.long) + \
+        img.repeat(n_lvl) * height * width
+    pooled = _pool(table, rois.reshape(-1, 4).repeat(n_lvl, 1), base,
+                   per_level([1.0 / s for s in strides[:n_lvl]],
+                             torch.float32),
+                   height, width, roi_valid.reshape(-1).repeat(n_lvl),
+                   out_size, sampling_ratio)
+    pooled = pooled.reshape(n_lvl, b, p, out_size, out_size, -1)
+    if aggregation == 'concat':
+        return torch.cat(list(pooled), dim=-1)
+    out = pooled[0]
+    for lvl in range(1, n_lvl):  # tpudet's order of the sum
+        out = out + pooled[lvl]
+    return out
+
+
+def generic_roi_align(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                      roi_valid: torch.Tensor, out_size: int = 7,
+                      strides: Sequence[int] = (4, 8, 16, 32),
+                      sampling_ratio: int = 2,
+                      aggregation: str = 'sum') -> torch.Tensor:
+    """One image, as tpudet's ``generic_roi_align`` (``tpudet/ops/
+    roi_align.py:100-124``): ``feats`` per level (H_l, W_l, C), ``rois``
+    (P, 4), ``roi_valid`` (P,) -> (P, out, out, C), or (P, out, out,
+    C * levels) for ``'concat'``."""
+    return batched_generic_roi_align(
+        [f[None] for f in feats], rois[None], roi_valid[None], out_size,
+        strides, sampling_ratio, aggregation)[0]

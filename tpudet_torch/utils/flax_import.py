@@ -282,9 +282,27 @@ def train_state_to_flax(state, model: nn.Module) -> SimpleNamespace:
             table, state.opt_state.momentum_buf, 'params')))
 
 
-def _truncated_normal(rng: np.random.RandomState, shape, std: float):
+def _normal(rng, shape) -> np.ndarray:
+    """N(0, 1) draws of ``shape``: from a numpy ``RandomState`` in float64
+    (tpudet's tests draw so), from a ``torch.Generator`` in fp32 on its
+    device, as a numpy array."""
+    if isinstance(rng, torch.Generator):
+        return torch.randn(shape, generator=rng,
+                           device=rng.device).cpu().numpy()
+    return rng.standard_normal(shape)
+
+
+def _truncated_normal(rng, shape, std: float):
     """N(0, std^2) cut at +-2 std, redrawn outside (flax's truncated
-    normal)."""
+    normal), from a ``RandomState`` or a ``torch.Generator``."""
+    if isinstance(rng, torch.Generator):
+        x = torch.randn(shape, generator=rng, device=rng.device)
+        bad = x.abs() > 2
+        while bad.any():
+            x[bad] = torch.randn(int(bad.sum()), generator=rng,
+                                 device=rng.device)
+            bad = x.abs() > 2
+        return (x * float(std)).cpu().numpy()
     x = rng.standard_normal(shape)
     bad = np.abs(x) > 2
     while bad.any():
@@ -293,7 +311,15 @@ def _truncated_normal(rng: np.random.RandomState, shape, std: float):
     return (x * std).astype(np.float32)
 
 
-def _draw_kernel(rng: np.random.RandomState, init, hwio) -> np.ndarray:
+def _uniform(rng, limit: float, shape) -> np.ndarray:
+    """U(-limit, limit) draws of ``shape``, as ``_normal``'s."""
+    if isinstance(rng, torch.Generator):
+        x = torch.rand(shape, generator=rng, device=rng.device)
+        return ((2 * x - 1) * float(limit)).cpu().numpy()
+    return rng.uniform(-limit, limit, shape)
+
+
+def _draw_kernel(rng, init, hwio) -> np.ndarray:
     """A conv kernel (HWIO; I is cin / groups) drawn by flax's
     initializer ``init``: ``'he_normal'`` or ``'lecun_normal'`` (flax's
     default; truncated normals of variance 2 or 1 over fan-in),
@@ -310,14 +336,15 @@ def _draw_kernel(rng: np.random.RandomState, init, hwio) -> np.ndarray:
         return np.zeros(hwio, np.float32)
     if init == 'xavier_uniform':
         limit = np.sqrt(6.0 / (kh * kw * (cin + cout)))
-        return rng.uniform(-limit, limit, hwio).astype(np.float32)
+        return _uniform(rng, limit, hwio).astype(np.float32)
     kind, std = init
     if kind != 'normal':
         raise ValueError(f'unknown kernel initializer {init!r}')
-    return (rng.standard_normal(hwio) * std).astype(np.float32)
+    return (_normal(rng, hwio) * std).astype(np.float32)
 
 
-def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
+def random_flax_variables(model: nn.Module, seed: int = 0,
+                          device=None) -> Dict:
     """A tpudet variables tree for ``model`` drawn with tpudet's init from a
     numpy seed: each conv's and Dense layer's kernel and bias by the
     initializers it names (``layers.Conv``/``layers.Dense``/
@@ -329,8 +356,15 @@ def random_flax_variables(model: nn.Module, seed: int = 0) -> Dict:
     Dense kernel (in, out) is drawn as a 1 x 1 conv's, a ConvTranspose
     kernel in its flax shape (H, W, in, out), a deformable one as the (K,
     K, in, out) conv kernel it reshapes. Kernels are drawn in the order of
-    their sorted flax paths."""
-    rng = np.random.RandomState(seed)
+    their sorted flax paths, from numpy ``RandomState(seed)``; with a torch
+    ``device`` from a torch generator there seeded with ``seed``: the same
+    initializers and laws, other numbers, and on a GPU a small part of the
+    numpy draw's time."""
+    if device is None:
+        rng = np.random.RandomState(seed)
+    else:
+        rng = torch.Generator(device=device)
+        rng.manual_seed(seed)
     modules = dict(model.named_modules())
     sd = model.state_dict()
     tree: Dict = {}
