@@ -3775,11 +3775,7 @@ def run_mrcnn_eval(torch, mish, tree):
 
     from tpudet_torch.apis import init_detector, single_device_test
     from tpudet_torch.config import Config
-    from tpudet_torch.data import build_dataset
-    from tpudet_torch.evaluation import (coco_fast_bbox_eval,
-                                         coco_fast_segm_eval)
-    from tpudet_torch.tools import test as cli
-    from tpudet_torch.utils.checkpoint import save_variables
+    from tpudet_torch.evaluation import coco_fast_segm_eval
     register_array_data()
     cfg = Config.fromfile(CONFIG_MRCNN)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3814,59 +3810,97 @@ def run_mrcnn_eval(torch, mish, tree):
         del det, ds
         torch.cuda.empty_cache()
 
-        ann = os.path.join(tmp, 'segm.json')
-        with open(ann, 'w') as f:
-            json.dump(coco, f)
-        ARRAYS[ann] = arrays
-        weights = os.path.join(tmp, 'mrcnn.msgpack')
-        save_variables(weights, tree)
-        pipeline = _from_arrays(cfg['data']['test']['pipeline'])
-        cfg_file = os.path.join(tmp, 'mrcnn_cli.py')
-        with open(cfg_file, 'w') as f:
-            f.write(f'_base_ = {CONFIG_MRCNN!r}\n'
-                    f"data = dict(test=dict(type='ArrayCocoDataset', "
-                    f'ann_file={ann!r}, pipeline={pipeline!r}))\n')
-        _zero_counts(mish)
-        t0 = time.perf_counter()
-        got = cli.main([cfg_file, weights, '--batch-size', str(BATCH),
-                        '--img-size', str(MRCNN_IMG), '--eval', 'bbox',
-                        'segm', '--format-out', os.path.join(tmp, 'cli')])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        cli_launches = _mish_counts(mish)
-        cfg_cli = Config.fromfile(cfg_file)
-        det = init_detector(cfg_cli, weights, device='cuda',
-                            dtype=torch.float32)
-        ds = build_dataset({**cfg_cli['data']['test'], 'test_mode': True},
-                           dict(device=det.device))
-        results, segms = single_device_test(det.model, ds, batch_size=BATCH,
-                                            img_size=MRCNN_IMG,
-                                            progress=False, with_masks=True)
-        annos = [ds.get_ann_info_test(i) for i in range(len(ds))]
-        ref = dict(coco_fast_bbox_eval(results, annos, classes=ds.CLASSES),
-                   **coco_fast_segm_eval(results, segms, annos,
-                                         classes=ds.CLASSES))
-        gap = max(0.0 if math.isnan(got[k]) and math.isnan(v)
-                  else abs(got[k] - v) for k, v in ref.items())
-        with open(os.path.join(tmp, 'cli.segm.json')) as f:
-            cli_segm = json.load(f)
-        with open(ds.results2json(results, os.path.join(tmp, 'api'),
-                                  segm_results=segms)['segm']) as f:
-            api_segm = json.load(f)
-        log(f'test CLI --eval bbox segm over {len(ds)} images, fp32: '
-            f'{cli_s:.2f} s, launches {json.dumps(cli_launches)}; report '
-            f'{json.dumps(got)}; the API\'s max |delta| {gap:.3e} (tolerance '
-            f'{REPORT_ATOL}); segm.json {len(cli_segm)} records, equal to '
-            f'results2json\'s: {cli_segm == api_segm}')
-        if list(got) != list(ref) or not gap <= REPORT_ATOL or \
-                cli_segm != api_segm or not cli_segm or any(
-                    cli_launches.values()):
-            raise AssertionError('the test CLI segm report or json differs '
-                                 'from the API')
-        ARRAYS.pop(ann)
-        del det, ds
-        torch.cuda.empty_cache()
+        cli_launches = cli_segm_eval(torch, mish, CONFIG_MRCNN, tree,
+                                     arrays, coco, tmp, MRCNN_IMG)
     return flow, cli_launches
+
+
+def mask_areas(segm):
+    """The pixel area of every RLE in ``segm`` (per image, per class lists
+    of uncompressed RLEs: runs of 0s and 1s, 0s first)."""
+    return [sum(r['counts'][1::2]) for s in segm for c in s for r in c]
+
+
+def nonempty_share(areas, what):
+    """The share of ``areas`` above 0, logged; fails when none is (a mask
+    path that pastes nothing checks nothing)."""
+    share = sum(a > 0 for a in areas) / max(len(areas), 1)
+    log(f'{what}: {sum(a > 0 for a in areas)} of {len(areas)} pasted masks '
+        f'non-empty ({share:.4f})')
+    if not share:
+        raise AssertionError(f'{what}: every pasted mask is empty')
+    return share
+
+
+def cli_segm_eval(torch, mish, config, tree, arrays, coco, tmp, img_size):
+    """The test CLI (``--eval bbox segm``, fp32, ``tree`` from a msgpack)
+    on ``config`` over the set ``arrays`` / ``coco`` against
+    ``single_device_test`` + both reports of the same weights: the reports
+    within REPORT_ATOL, its ``segm.json`` equal to ``results2json``'s.
+    Returns the launches of the CLI."""
+    from tpudet_torch.apis import init_detector, single_device_test
+    from tpudet_torch.config import Config
+    from tpudet_torch.data import build_dataset
+    from tpudet_torch.evaluation import (coco_fast_bbox_eval,
+                                         coco_fast_segm_eval)
+    from tpudet_torch.tools import test as cli
+    from tpudet_torch.utils.checkpoint import save_variables
+    ann = os.path.join(tmp, 'segm.json')
+    with open(ann, 'w') as f:
+        json.dump(coco, f)
+    ARRAYS[ann] = arrays
+    weights = os.path.join(tmp, 'weights.msgpack')
+    save_variables(weights, tree)
+    pipeline = _from_arrays(Config.fromfile(config)['data']['test'][
+        'pipeline'])
+    cfg_file = os.path.join(tmp, 'segm_cli.py')
+    with open(cfg_file, 'w') as f:
+        f.write(f'_base_ = {config!r}\n'
+                f"data = dict(test=dict(type='ArrayCocoDataset', "
+                f'ann_file={ann!r}, pipeline={pipeline!r}))\n')
+    _zero_counts(mish)
+    t0 = time.perf_counter()
+    got = cli.main([cfg_file, weights, '--batch-size', str(BATCH),
+                    '--img-size', str(img_size), '--eval', 'bbox', 'segm',
+                    '--format-out', os.path.join(tmp, 'cli')])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = _mish_counts(mish)
+    cfg_cli = Config.fromfile(cfg_file)
+    det = init_detector(cfg_cli, weights, device='cuda', dtype=torch.float32)
+    ds = build_dataset({**cfg_cli['data']['test'], 'test_mode': True},
+                       dict(device=det.device))
+    results, segms = single_device_test(det.model, ds, batch_size=BATCH,
+                                        img_size=img_size, progress=False,
+                                        with_masks=True)
+    annos = [ds.get_ann_info_test(i) for i in range(len(ds))]
+    nonempty_share(mask_areas(segms),
+                   f'test CLI on {os.path.basename(config)}')
+    ref = dict(coco_fast_bbox_eval(results, annos, classes=ds.CLASSES),
+               **coco_fast_segm_eval(results, segms, annos,
+                                     classes=ds.CLASSES))
+    gap = max(0.0 if math.isnan(got[k]) and math.isnan(v)
+              else abs(got[k] - v) for k, v in ref.items())
+    with open(os.path.join(tmp, 'cli.segm.json')) as f:
+        cli_segm = json.load(f)
+    with open(ds.results2json(results, os.path.join(tmp, 'api'),
+                              segm_results=segms)['segm']) as f:
+        api_segm = json.load(f)
+    log(f'test CLI --eval bbox segm on {os.path.basename(config)} over '
+        f'{len(ds)} images, fp32: {cli_s:.2f} s, launches '
+        f'{json.dumps(cli_launches)}; report {json.dumps(got)}; the API\'s '
+        f'max |delta| {gap:.3e} (tolerance {REPORT_ATOL}); segm.json '
+        f'{len(cli_segm)} records, equal to results2json\'s: '
+        f'{cli_segm == api_segm}')
+    if list(got) != list(ref) or not gap <= REPORT_ATOL or \
+            cli_segm != api_segm or not cli_segm or any(
+                cli_launches.values()):
+        raise AssertionError('the test CLI segm report or json differs '
+                             'from the API')
+    ARRAYS.pop(ann)
+    del det, ds
+    torch.cuda.empty_cache()
+    return cli_launches
 
 
 def mask_train_batch(torch, cfg, n, size, seed, device):
@@ -6071,7 +6105,8 @@ GA_ENERGY_RTOL, GA_SETTLED, GA_OUT_RTOL = 1e-5, 0.999, 1e-3
 SSD_CLS_SPREAD, SSD_REG_SPREAD = 3.0, 0.3
 
 
-def zoo_variables(torch, cfg, img, seed, measure_bn=False):
+def zoo_variables(torch, cfg, img, seed, measure_bn=False, extra=None,
+                  run=None):
     """``redrawn_variables`` of every prediction layer of ``cfg``'s model:
     the RPN's and each RoI head's (``rpn_cls``, ``rpn_reg``, ``fc_cls``,
     ``fc_reg``, as ``two_stage_variables``), YOLOv3's ``conv_pred{i}``
@@ -6092,7 +6127,12 @@ def zoo_variables(torch, cfg, img, seed, measure_bn=False):
     and BFP's non-local ``theta`` and ``phi`` (outputs spread by
     BFP_QK_SPREAD, as the attention's queries and keys) and ``conv_out``
     (BFP_OUT_SPREAD; zero at tpudet's init, which leaves the block the
-    identity and its softmax untested), drawn from ``RandomState(seed)``."""
+    identity and its softmax untested), drawn from ``RandomState(seed)``.
+    ``extra`` (a regex of the module's dotted name -> (spread, bias))
+    redraws more layers, mask heads' too, ``run(model, img)`` the forward
+    that measures their inputs (``redrawn_variables``); a SAC's raw
+    ``weight_diff`` (zero at tpudet's init) is drawn at SAC_DIFF_SCALE of
+    its kernel's he-normal std."""
     import numpy as np
     from tpudet_torch.models.builder import build_detector
     spreads = {'rpn_cls': (FRCNN_RPN_CLS_SPREAD, 0.0),
@@ -6121,7 +6161,10 @@ def zoo_variables(torch, cfg, img, seed, measure_bn=False):
     layers = {}
     for name, _ in model.named_modules():
         leaf = name.split('.')[-1]
-        if leaf in spreads and 'mask_head' not in name:
+        hit = [v for k, v in (extra or {}).items() if re.search(k, name)]
+        if hit:
+            layers[tuple(name.split('.'))] = hit[0]
+        elif leaf in spreads and 'mask_head' not in name:
             layers[tuple(name.split('.'))] = spreads[leaf]
         elif leaf.startswith('conv_pred'):
             layers[tuple(name.split('.'))] = (V3_PRED_SPREAD, 0.0)
@@ -6129,13 +6172,18 @@ def zoo_variables(torch, cfg, img, seed, measure_bn=False):
             layers[tuple(name.split('.'))] = (
                 SSD_CLS_SPREAD if leaf.startswith('cls') else SSD_REG_SPREAD,
                 0.0)
-    tree = redrawn_variables(torch, cfg, img, layers, seed, measure_bn)
+    tree = redrawn_variables(torch, cfg, img, layers, seed, measure_bn,
+                             run=run)
     rng = np.random.RandomState(seed + 1)
 
     def redraw(node):
         for k, v in node.items():
             if isinstance(v, dict):
                 redraw(v)
+            elif k == 'weight_diff':
+                std = math.sqrt(2 / np.prod(v.shape[:-1]))
+                node[k] = (rng.randn(*v.shape) * SAC_DIFF_SCALE * std
+                           ).astype(np.float32)
             elif k == 'gamma':
                 node[k] = np.full_like(v, GA_GAMMA)
             elif k in ('key_content_bias', 'geom_bias'):
@@ -7224,6 +7272,418 @@ def run_zoo_paa_libra(torch):
             for k in ('mish_fwd', 'mish_bwd')}
 
 
+# ---------------------------------------------------------------------------
+# 20. ROADMAP.md's zoo row i: Mask Scoring R-CNN, HTC, SCNet, PointRend,
+# DetectoRS (SAC backbone, RFP neck) and YOLACT
+
+CONFIG_MS_RCNN = os.path.join(ROOT,
+                              'configs/ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py')
+CONFIG_HTC = os.path.join(ROOT, 'configs/htc/htc_r50_fpn_1x_coco.py')
+CONFIG_SCNET = os.path.join(ROOT, 'configs/scnet/scnet_r50_fpn_1x_coco.py')
+CONFIG_POINT_REND = os.path.join(
+    ROOT, 'configs/point_rend/point_rend_r50_fpn_1x_coco.py')
+CONFIG_DETECTORS = os.path.join(
+    ROOT, 'configs/detectors/detectors_htc_r50_1x_coco.py')
+CONFIG_YOLACT = os.path.join(ROOT, 'configs/yolact/yolact_r50_1x8_coco.py')
+# phase 20's redraws (module name regex -> (spread, bias)): the mask
+# logits of every mask head (PointRend's coarse and point heads too) as
+# phase 12's; YOLACT's 81 class logits (at tpudet's N(0, 0.01^2) every
+# class sits at 1/81, under score_thr 0.05), deltas and prototype
+# coefficients; and the leaves tpudet inits at zero, which leave SAC's
+# context convs and switch and RFP's feedback and gate near identities:
+# the context convs' outputs spread by SAC_CONTEXT_SPREAD, the switch's
+# logits by 1 around tpudet's bias 1, the feedback conv's outputs by
+# RFP_FEEDBACK_SPREAD, the gate's logits by 1; weight_diff at
+# SAC_DIFF_SCALE of the kernel's std
+YOLACT_CLS_SPREAD, YOLACT_COEFF_SPREAD = 3.0, 1.0
+SAC_CONTEXT_SPREAD, RFP_FEEDBACK_SPREAD, SAC_DIFF_SCALE = 0.3, 0.3, 0.3
+ZOO_I_SPREADS = {
+    r'mask_head\d*\.conv_logits$': (MASK_LOGIT_SPREAD, 0.0),
+    r'(mask_head|point_head)\.fc_logits$': (MASK_LOGIT_SPREAD, 0.0),
+    r'bbox_head\.conv_cls$': (YOLACT_CLS_SPREAD, 0.0),
+    r'bbox_head\.conv_reg$': (RETINA_REG_SPREAD, 0.0),
+    r'bbox_head\.conv_coeff$': (YOLACT_COEFF_SPREAD, 0.0),
+    r'\.(pre|post)_context$': (SAC_CONTEXT_SPREAD, 0.0),
+    r'\.switch$': (1.0, 1.0),
+    r'\.rfp_conv$': (RFP_FEEDBACK_SPREAD, 0.0),
+    r'\.rfp_weight$': (1.0, 0.0)}
+ZOO_I_SEMANTIC_CLASSES = 183
+# fp32 card against the CPU: one image of ZOO_FP32_IMG^2, where RoIs reach
+# every FPN level (P5 takes boxes of 448 px and more); the CPU's forward
+# of these R50 models takes seconds, so one image, not the earlier
+# phases' two; the redraw's measuring forward on the first 2 of the 8
+ZOO_I_FP32_IMAGES, ZOO_I_REDRAW_IMAGES = 1, 2
+# fp32 card against the CPU on the paired detections: the share of mask
+# probabilities further apart than MRCNN_PROB_ATOL. PointRend's 784
+# points a round are the most uncertain pixels, and a tie of -|logit|
+# (common after a 2x upsample) falls either way under rounding; the other
+# mask branches have no such choice
+ZOO_I_MASK_SHARE = {'ms_rcnn': 0.0, 'scnet': 0.0, 'point_rend': 0.01,
+                    'yolact': 0.0}
+ZOO_I_CLI_IMAGES = 8
+
+
+def zoo_i_measure(torch):
+    """``run(model, img)`` for ``redrawn_variables``: the forward, and the
+    mask branch on each image's first 100 rois where the model has one
+    (PointRend's with labels 0), so that its layers' inputs are measured."""
+    from tpudet_torch.apis.test import _mask_mode
+
+    def run(model, x):
+        out = model(x)
+        mode = _mask_mode(model)
+        if mode in ('roi', 'roi_labels'):
+            boxes, valid = out[0][:, :100], out[1][:, :100]
+            extra = ((torch.zeros_like(valid, dtype=torch.long),)
+                     if mode == 'roi_labels' else ())
+            model.predict_masks(x, boxes, valid, *extra)
+    return run
+
+
+def zoo_i_inference(torch, mish, config, name, seed):
+    """``config``'s model at full width and depth, bf16, FRCNN_BATCH images
+    on FRCNN_IMG squares, every count at 0 just before the one call: with
+    a mask branch the test flow's ``predict_masks`` (its mode) and each
+    image's RLEs pasted at MRCNN_ORI (``masks_to_segm_results``: the paste
+    and the run boundaries on the card), else the detections; e2e,
+    bbox-only and forward ms, device busy, peak memory. Returns (weights
+    tree, Detector, images, scale factors, launches, times)."""
+    from tpudet_torch.apis import init_detector
+    from tpudet_torch.apis.test import (_mask_mode, masks_to_segm_results,
+                                        predict_masks)
+    from tpudet_torch.config import Config
+    cfg = Config.fromfile(config)
+    img_np = retina_images(cfg, FRCNN_BATCH, FRCNN_IMG, seed)
+    t0 = time.perf_counter()
+    tree = zoo_variables(torch, cfg, img_np[:ZOO_I_REDRAW_IMAGES], seed,
+                         extra=ZOO_I_SPREADS, run=zoo_i_measure(torch))
+    det = init_detector(cfg, variables=tree, device='cuda',
+                        dtype=torch.bfloat16)
+    model = det.model
+    mode = _mask_mode(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f'{name}: {n_params / 1e6:.2f} M parameters, bf16, mask mode '
+        f'{mode}, weights from seed {SEED} on the card (prediction and '
+        f'zero-init layers redrawn, numpy seed {seed}) in '
+        f'{time.perf_counter() - t0:.1f} s')
+    img = torch.from_numpy(img_np).cuda()
+    sf = torch.ones((FRCNN_BATCH, 4), device='cuda')
+    h, w = MRCNN_ORI[:2]
+    metas = [dict(ori_shape=MRCNN_ORI)] * FRCNN_BATCH
+    nc = getattr(model, 'roi_head', getattr(model, 'bbox_head', None)
+                 ).num_classes
+
+    def e2e():
+        with torch.inference_mode():
+            if mode is None:
+                return det(img), None, None
+            res, probs = predict_masks(model, img, sf)
+            return res, probs, masks_to_segm_results(probs, res, metas, nc,
+                                                     MASK_THR)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(mish)
+    res, probs, segm = e2e()
+    torch.cuda.synchronize()
+    launches = _mish_counts(mish)
+    n_valid = [int(v) for v in res.valid.sum(1)]
+    msg = f'{name} bf16 batch {FRCNN_BATCH} x {FRCNN_IMG}^2: launches ' \
+        f'{json.dumps(launches)}, detections per image {n_valid}'
+    if segm is not None:
+        n_rle = [sum(len(c) for c in s) for s in segm]
+        areas = mask_areas(segm)
+        msg += (f', masks {tuple(probs.shape[2:])} pasted at {w} x {h}: RLEs '
+                f'per image {n_rle}, probabilities min '
+                f'{float(probs.min()):.4f} max {float(probs.max()):.4f} mean '
+                f'{float(probs.float().mean()):.4f}, first areas {areas[:3]}')
+        # where a mask pastes empty: its box off the canvas, or its
+        # probabilities at or under MASK_THR inside the box
+        b = res.bboxes[res.valid].float()
+        on = ((b[:, 2].clamp(max=w) - b[:, 0].clamp(min=0)).clamp(min=0) *
+              (b[:, 3].clamp(max=h) - b[:, 1].clamp(min=0)).clamp(min=0))
+        above = (probs[res.valid] > MASK_THR).float().mean(dim=(1, 2))
+        msg += (f'; boxes overlapping the canvas by >= 1 px^2: '
+                f'{int((on >= 1).sum())} of {len(b)}, median box '
+                f'{float((b[:, 2:] - b[:, :2]).median(0).values[0]):.1f} x '
+                f'{float((b[:, 2:] - b[:, :2]).median(0).values[1]):.1f} px, '
+                f'mean share of mask cells above {MASK_THR}: '
+                f'{float(above.mean()):.4f}')
+    log(msg)
+    if segm is not None:
+        nonempty_share(areas, f'{name} bf16')
+    if any(launches.values()):
+        raise AssertionError(f'the {name} path launched a mish kernel')
+    if not (torch.isfinite(res.bboxes).all() and
+            torch.isfinite(res.scores).all() and min(n_valid) > 0):
+        raise AssertionError(f'{name}: non-finite detections or an image '
+                             f'without')
+    if segm is not None and (n_rle != n_valid or not bool(
+            torch.isfinite(probs).all()) or any(
+            sum(r['counts']) != h * w for s in segm for c in s for r in c)):
+        raise AssertionError(f'{name}: masks missing, non-finite or of the '
+                             f'wrong size')
+    del res, probs, segm
+    with torch.inference_mode():
+        times = {'e2e_ms': cuda_ms(e2e, warmup=1, runs=3),
+                 'forward_ms': cuda_ms(lambda: model(img), warmup=1,
+                                       runs=3)}
+        if mode is not None:
+            times['bbox_only_e2e_ms'] = cuda_ms(lambda: det(img), warmup=1,
+                                                runs=3)
+    times['img_per_s'] = FRCNN_BATCH / times['e2e_ms'] * 1e3
+    times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    prof = profile_device(torch, e2e, f'{name} e2e call', calls=1, top=8)
+    times['busy_ms'] = prof[1] if prof else None
+    log(f'{name} bf16 batch {FRCNN_BATCH} x {FRCNN_IMG}^2: ' +
+        json.dumps(times))
+    return tree, det, img, sf, launches, times
+
+
+def sac_share(torch, det, img, busy_ms):
+    """DetectoRS's fp32 SAC convs on the inputs one bf16 call gives them:
+    the two 3x3s of every SAC (both backbones) run alone, and every SAC
+    module whole, device ms, and the convs' share of the call's device
+    busy ms; TF32 as the script has it (off since phase 4)."""
+    import torch.nn.functional as F
+    from tpudet_torch.models.backbones.detectors_resnet import SAConv2d
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((mod, args[0])))
+        for m in det.model.modules() if isinstance(m, SAConv2d)]
+    try:
+        with torch.inference_mode():
+            det.model(img)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def convs():
+        for mod, x in calls:
+            xk = x.float()
+            F.conv2d(xk, mod.weight, None, mod.stride, 1, 1, mod.groups)
+            F.conv2d(xk, mod.weight + mod.weight_diff, None, mod.stride, 3, 3,
+                     mod.groups)
+
+    with torch.inference_mode():
+        conv_ms = cuda_ms(convs, warmup=1, runs=3)
+        module_ms = cuda_ms(lambda: [mod(x) for mod, x in calls], warmup=1,
+                            runs=3)
+    out = dict(sac_sites=len(calls), sac_fp32_conv_ms=conv_ms,
+               sac_module_ms=module_ms,
+               sac_fp32_conv_share=conv_ms / busy_ms if busy_ms else None,
+               tf32=torch.backends.cudnn.allow_tf32)
+    log('DetectoRS SAC convs (fp32) on one bf16 call\'s inputs: ' +
+        json.dumps(out))
+    return out
+
+
+def point_rend_refine_ms(torch, det, img, sf):
+    """PointRend's ``refine_masks`` (5 rounds to 224^2, 784 points a
+    round) on one bf16 call's detections, device ms."""
+    model = det.model
+    with torch.inference_mode():
+        feats = model.extract_feat(img)
+        res = model.get_bboxes(model.detect(feats, tuple(img.shape[1:3])),
+                               scale_factors=sf)
+        coarse = model.roi_head.mask_forward(feats, res.bboxes, res.valid)
+        ms = cuda_ms(lambda: model.roi_head.refine_masks(
+            feats, res.bboxes, res.valid, res.labels, coarse), warmup=1,
+            runs=3)
+    out = {'refine_ms': ms, 'refined_masks': int(res.valid.sum())}
+    log('PointRend refine_masks: ' + json.dumps(out))
+    return out
+
+
+def yolact_fast_nms_check(torch, det, img):
+    """YOLACT's fast NMS on the candidates one bf16 call gave it: device
+    ms, and the card's result equal to the CPU's on the same inputs (every
+    valid slot: boxes, scores, labels, rows)."""
+    from tpudet_torch.models.dense_heads import yolact_head
+    recorded = []
+    orig = yolact_head.batched_fast_nms
+
+    def record(*args, **kwargs):
+        recorded.append((args, kwargs))
+        return orig(*args, **kwargs)
+    yolact_head.batched_fast_nms = record
+    try:
+        with torch.inference_mode():
+            det(img)
+    finally:
+        yolact_head.batched_fast_nms = orig
+    args, kwargs = recorded[0]
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: orig(*args, **kwargs), warmup=2, runs=5)
+        card, card_idx = orig(*args, **kwargs)
+        cpu, cpu_idx = orig(*[a.cpu() if torch.is_tensor(a) else a
+                              for a in args], **kwargs)
+    valid = cpu.valid
+    equal = torch.equal(card.valid.cpu(), valid) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(card, cpu)) and torch.equal(
+        card_idx.cpu()[valid], cpu_idx[valid])
+    out = {'fast_nms_ms': ms, 'candidates': list(args[1].shape),
+           'kept': int(valid.sum()), 'card_equals_cpu': equal}
+    log('YOLACT fast NMS: ' + json.dumps(out))
+    if not (equal and out['kept']):
+        raise AssertionError('YOLACT\'s fast NMS on the card differs from '
+                             'the CPU on the same inputs')
+    return out
+
+
+def zoo_i_fp32_check(torch, cfg, tree, key, name, seed):
+    """fp32 on the card (TF32 off) against the port's CPU call on
+    ZOO_I_FP32_IMAGES seeded images of ZOO_FP32_IMG^2, through the test
+    flow's ``predict_masks`` where the model has masks: the detections
+    pair one-to-one (label, IoU >= MATCH_IOU), all but FRCNN_KEEP_SHARE of
+    the CPU's; the mask probabilities of the pairs (every mask mode)
+    further apart than MRCNN_PROB_ATOL at most at ZOO_I_MASK_SHARE of the
+    pixels. Returns the numbers."""
+    from tpudet_torch.apis import init_detector
+    from tpudet_torch.apis.test import predict_masks
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    masks = key in ZOO_I_MASK_SHARE
+    try:
+        n = ZOO_I_FP32_IMAGES
+        few = torch.from_numpy(retina_images(cfg, n, ZOO_FP32_IMG, seed))
+        sf = torch.ones((n, 4))
+        out = []
+        t0 = time.perf_counter()
+        for device in ('cpu', 'cuda'):
+            det = init_detector(cfg, variables=tree, device=device,
+                                dtype=torch.float32)
+            with torch.inference_mode():
+                out.append(predict_masks(det.model, few.to(device),
+                                         sf.to(device)) if masks
+                           else (det(few.to(device)), None))
+            if device == 'cpu':
+                cpu_s = time.perf_counter() - t0
+            del det
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
+            allow_tf32 = flags
+    (ref, ref_p), (got, got_p) = out
+    result = dict(pairs=[], mask_prob_max_abs=0.0, mask_pixel_share=0.0)
+    far = total = 0
+    for i in range(n):
+        m, n_ref, n_got, gap = match_detections(ref, got, i, MATCH_IOU)
+        result['pairs'].append(m)
+        if masks:
+            pairs = detection_pairs(ref, got, i, MATCH_IOU)
+            r_idx = torch.tensor([r for r, _ in pairs], dtype=torch.long)
+            g_idx = torch.tensor([g for _, g in pairs], dtype=torch.long)
+            d = (ref_p[i][r_idx] - got_p[i][g_idx.cuda()].cpu()).abs()
+            result['mask_prob_max_abs'] = max(result['mask_prob_max_abs'],
+                                              float(d.max()))
+            far += int((d > MRCNN_PROB_ATOL).sum())
+            total += d.numel()
+        log(f'{name} fp32 card vs CPU ({cpu_s:.1f} s on the CPU), image {i} '
+            f'at {ZOO_FP32_IMG}^2: detections {m} matched of {n_ref} / '
+            f'{n_got} (label and IoU >= {MATCH_IOU}), largest box delta '
+            f'{gap:.3e} px')
+        if not (n_ref and n_ref - m <= FRCNN_KEEP_SHARE * n_ref):
+            raise AssertionError(f'{name} fp32 detections on the card differ '
+                                 f'from the CPU')
+    if masks:
+        result['mask_pixel_share'] = far / max(total, 1)
+        log(f'{name} fp32 card vs CPU masks {tuple(ref_p.shape[2:])} on the '
+            f'pairs: max |delta| {result["mask_prob_max_abs"]:.3e}, share '
+            f'further than {MRCNN_PROB_ATOL}: {result["mask_pixel_share"]:.3e}'
+            f' (at most {ZOO_I_MASK_SHARE[key]})')
+        if not (total and result['mask_pixel_share'] <=
+                ZOO_I_MASK_SHARE[key]):
+            raise AssertionError(f'{name} fp32 masks on the card differ from '
+                                 f'the CPU')
+    torch.cuda.empty_cache()
+    return result
+
+
+def semantic_batch_fn(torch, cfg, seed):
+    """``zoo_batch_fn``'s batches with masks and a seeded semantic map at
+    stride 8 (ZOO_I_SEMANTIC_CLASSES labels), made on the card."""
+    base = zoo_batch_fn(torch, cfg, seed, masks=True)
+
+    def batch(step):
+        b = base(step)
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(seed + step)
+        b['gt_semantic_seg'] = torch.randint(
+            0, ZOO_I_SEMANTIC_CLASSES,
+            (FRCNN_TRAIN_BATCH, FRCNN_IMG // 8, FRCNN_IMG // 8),
+            generator=gen, device='cuda')
+        return b
+    return batch
+
+
+def run_zoo_row_i(torch):
+    """Phase 20: Mask Scoring R-CNN, HTC, SCNet, PointRend, DetectoRS and
+    YOLACT, R50 at full width and depth: bf16 inference at batch 8 on
+    1344^2 with masks pasted and RLE-encoded where the model has a mask
+    branch (``'roi'``: MS R-CNN, SCNet; ``'roi_labels'``: PointRend;
+    ``'proto'``: YOLACT; HTC and DetectoRS bbox only), PointRend's refine
+    ms, YOLACT's fast-NMS ms (card equal to CPU), the share of DetectoRS's
+    fp32 SAC convs, the share of non-empty pasted masks (above 0); fp32
+    card against CPU (detections, and the masks of the four with a mask
+    branch); 2 bf16 steps of 2 images (with ``gt_frame_masks``, HTC and
+    SCNet with ``gt_semantic_seg``); the test CLI ``--eval bbox segm`` on
+    YOLACT. Returns each path's launches of each kernel (all 0: ReLU)."""
+    import tempfile
+
+    from tpudet_torch.config import Config
+    from tpudet_torch.ops import mish
+    log('phase 20 redraws: ' + json.dumps(
+        {k: list(v) for k, v in ZOO_I_SPREADS.items()}) +
+        f'; SAC weight_diff x {SAC_DIFF_SCALE} of its kernel\'s std')
+    launches, times = {}, {}
+    for key, config, name, seed in (
+            ('ms_rcnn', CONFIG_MS_RCNN, 'Mask Scoring R-CNN R50-FPN',
+             SEED + 6000),
+            ('htc', CONFIG_HTC, 'HTC R50-FPN', SEED + 6100),
+            ('scnet', CONFIG_SCNET, 'SCNet R50-FPN', SEED + 6200),
+            ('point_rend', CONFIG_POINT_REND, 'PointRend R50-FPN',
+             SEED + 6300),
+            ('detectors', CONFIG_DETECTORS, 'DetectoRS R50 (SAC, RFP)',
+             SEED + 6400),
+            ('yolact', CONFIG_YOLACT, 'YOLACT R50-FPN', SEED + 6500)):
+        t0 = time.perf_counter()
+        cfg = Config.fromfile(config)
+        tree, det, img, sf, infer, t = zoo_i_inference(torch, mish, config,
+                                                       name, seed)
+        launches[f'{key}_inference_forward'] = infer
+        if key == 'detectors':
+            t.update(sac_share(torch, det, img, t['busy_ms']))
+        elif key == 'point_rend':
+            t.update(point_rend_refine_ms(torch, det, img, sf))
+        elif key == 'yolact':
+            t.update(yolact_fast_nms_check(torch, det, img))
+        del det, img, sf
+        torch.cuda.empty_cache()
+        t['fp32'] = zoo_i_fp32_check(torch, cfg, tree, key, name, seed + 10)
+        batches = (semantic_batch_fn(torch, cfg, seed + 20)
+                   if key in ('htc', 'scnet') else
+                   zoo_batch_fn(torch, cfg, seed + 20,
+                                masks=key != 'detectors'))
+        launches[f'{key}_train_step'] = zoo_train_steps(
+            torch, mish, config, tree, name, batches)
+        if key == 'yolact':
+            register_array_data()
+            with tempfile.TemporaryDirectory() as tmp:
+                arrays, coco = eval_set(SEED + 6600, ZOO_I_CLI_IMAGES)
+                launches['yolact_test_cli_batch'] = cli_segm_eval(
+                    torch, mish, config, tree, arrays, with_polygons(coco),
+                    tmp, FRCNN_IMG)
+        times[key] = t
+        del tree
+        torch.cuda.empty_cache()
+        log(f'phase 20 {key}: {time.perf_counter() - t0:.1f} s')
+    log('phase 20 inference times: ' + json.dumps(times))
+    return {k: {path: counts[k] for path, counts in launches.items()}
+            for k in ('mish_fwd', 'mish_bwd')}
+
+
 def main():
     try:
         import torch
@@ -7356,7 +7816,13 @@ def main():
     zoo_h_launches = run_zoo_paa_libra(torch)
     log(f'PAA and zoo row h phases: {time.perf_counter() - t0:.1f} s')
 
-    # 20. output
+    # 20. MS R-CNN, HTC, SCNet, PointRend, DetectoRS, YOLACT; each path
+    # with counts at 0 just before
+    t0 = time.perf_counter()
+    zoo_i_launches = run_zoo_row_i(torch)
+    log(f'zoo row i phases: {time.perf_counter() - t0:.1f} s')
+
+    # 21. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -7400,6 +7866,7 @@ def main():
             paths.update(zoo_deg_launches[k['name']])
             paths.update(zoo_atss_launches[k['name']])
             paths.update(zoo_h_launches[k['name']])
+            paths.update(zoo_i_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all, '

@@ -1,6 +1,5 @@
-"""Every shipped YOLO, RetinaNet, two-stage and plain Mask R-CNN config
-builds in the port with tpudet's param tree; the Mask R-CNN variants that
-need more than this port has raise ``NotImplementedError``.
+"""Every shipped YOLO, RetinaNet, two-stage, Mask R-CNN and zoo config
+that the port registers builds in it with tpudet's param tree.
 
 The configs under ``configs/yolov4/``, ``configs/yolov5/`` and
 ``configs/yolov5_ddp/`` and ``configs/shapes/yolo*.py`` (15 in all), and
@@ -27,10 +26,10 @@ DeepFashion, LVIS and InstaBoost variants; their datasets and the
 InstaBoost transform are not built here), the 4 GN and GN+WS Mask
 R-CNN configs and the DCN and the 2 GCB Mask R-CNN configs are swept the
 same way, tpudet's tree from ``init`` through ``forward_train`` (its mask
-head's params exist only there). The other 4 configs that name
-``MaskRCNN``/``MaskRoIHead`` or a Mask R-CNN-based head (HTC, SCNet, MS
-R-CNN, PointRend) raise ``NotImplementedError`` naming ROADMAP.md's "rest
-of the zoo" item. The DCN
+head's params exist only there). The 6 configs of ROADMAP.md's zoo row i
+(Mask Scoring R-CNN, HTC, SCNet, PointRend, DetectoRS, YOLACT) too,
+``forward_train`` fed tpudet's dummies by name (``gt_frame_masks``,
+``gt_semantic_seg``). The DCN
 ResNeXt-101 config is refused by both packages (tpudet's assertion, the
 port's ``NotImplementedError`` with its message).
 
@@ -42,8 +41,8 @@ The 5 configs of ROADMAP.md's zoo row h and row j's PAA (``configs/paa/``,
 ``configs/libra_rcnn/`` (a list ``neck``: tpudet's chain of necks, FPN
 then BFP), ``configs/groie/``, ``configs/ghm/``) are swept like the
 RetinaNet configs. The probe over every config under ``configs/`` counts
-what the port builds, refuses with ``NotImplementedError`` and does not
-register (``KeyError``).
+what the port builds (95), refuses with ``NotImplementedError`` (1) and
+does not register (``KeyError``, 31).
 
 Every config whose ``data.train/val/test`` name a dataset other than
 ``CocoDataset`` (9, wrappers' inner datasets included) has each of those
@@ -52,7 +51,7 @@ tpudet's module of the same name, with tpudet's class names.
 """
 import glob
 import os
-from functools import partial
+from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -137,8 +136,16 @@ ZOO_H_CONFIGS = sorted(
     for pattern in ('configs/paa/*.py', 'configs/libra_rcnn/*.py',
                     'configs/groie/*.py', 'configs/ghm/*.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
+# ROADMAP.md's zoo row i: Mask Scoring R-CNN, HTC, SCNet, PointRend,
+# DetectoRS (SAC backbone, RFP neck) and YOLACT
+ZOO_I_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for pattern in ('configs/ms_rcnn/*.py', 'configs/htc/*.py',
+                    'configs/scnet/*.py', 'configs/point_rend/*.py',
+                    'configs/detectors/*.py', 'configs/yolact/*.py')
+    for p in glob.glob(os.path.join(ROOT, pattern)))
 # the probe over configs/: (build, NotImplementedError, KeyError)
-PROBE_COUNTS = (89, 5, 33)
+PROBE_COUNTS = (95, 1, 31)
 
 # configs that build but sit outside the families above: the fork's two
 # recipes and training from scratch
@@ -218,9 +225,9 @@ def test_the_zoo_row_h_sweep_holds_five_configs():
 
 
 def test_the_probe_counts_what_builds_and_what_is_refused():
-    """Every config under ``configs/`` built on the meta device: 89 build,
-    5 raise ``NotImplementedError`` (the "rest of the zoo" and the DCN
-    ResNeXt), 33 raise ``KeyError`` (types the port does not register)."""
+    """Every config under ``configs/`` built on the meta device: 95 build,
+    1 raises ``NotImplementedError`` (the DCN ResNeXt, refused by design),
+    31 raise ``KeyError`` (types the port does not register)."""
     counts = [0, 0, 0]
     for p in sorted(glob.glob(os.path.join(ROOT, 'configs/**/*.py'),
                               recursive=True)):
@@ -314,8 +321,10 @@ def test_mask_config_builds_with_tpudets_param_tree(config):
 
 def test_the_refused_mask_sweep_holds_eleven_configs():
     # eleven until the GN and GN+WS Mask R-CNN configs (4) were ported,
-    # seven until the DCN and GCB ones (3, DEG_MASK_CONFIGS)
+    # seven until the DCN and GCB ones (3, DEG_MASK_CONFIGS); the last
+    # four are zoo row i's Mask R-CNN-based ones, built since
     assert len(REFUSED_MASK_CONFIGS) == 4
+    assert set(REFUSED_MASK_CONFIGS) < set(ZOO_I_CONFIGS)
 
 
 def test_the_dcn_resnext_config_is_refused_by_both():
@@ -334,11 +343,75 @@ def test_the_dcn_resnext_config_is_refused_by_both():
 
 @pytest.mark.parametrize('config', REFUSED_MASK_CONFIGS)
 def test_mask_config_refuses_what_is_not_ported(config):
-    cfg = Config.fromfile(os.path.join(ROOT, config))['model']
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md\'s "rest of the zoo" item'):
-        with torch.device('meta'):
-            build_detector(cfg)
+    """Nothing of the four is refused any more (HTC, SCNet, Mask Scoring
+    R-CNN, PointRend): each builds with the mask branch the config names,
+    and holds tpudet's param tree from ``forward_train``'s init."""
+    with torch.device('meta'):
+        model = build_detector(Config.fromfile(
+            os.path.join(ROOT, config))['model'])
+    heads = {n for n, _ in model.roi_head.named_children()}
+    assert heads & {'mask_head', 'mask_head0'}
+    assert_tpudets_forward_train_tree(os.path.join(ROOT, config))
+
+
+def test_the_zoo_row_i_sweep_holds_six_configs():
+    assert len(ZOO_I_CONFIGS) == 6
+    assert not set(ZOO_I_CONFIGS) & set(
+        CONFIGS + RETINA_CONFIGS + TWO_STAGE_CONFIGS + ZOO_ROW_CONFIGS +
+        ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS + KD_CONFIGS + ZOO_H_CONFIGS +
+        MASK_CONFIGS)
+
+
+@lru_cache(maxsize=None)
+def tpudets_forward_train_tree(path):
+    """tpudet's param tree (path -> flax shape) of the config at ``path``
+    from ``init`` through ``forward_train`` (64 px), fed tpudet's dummies
+    by parameter name (``tpudet/train/train_state.py:39-75``): the mask,
+    semantic and IoU heads exist only there. Cached: two tests of a
+    config share one trace."""
+    import inspect
+    jmodel = jax_build_detector(JaxConfig.fromfile(path)['model'])
+    g = 4
+    dummies = dict(
+        img=jnp.zeros((1, 64, 64, 3)),
+        gt_bboxes=jnp.tile(jnp.asarray([[0., 0., 32., 32.]]), (1, g, 1)),
+        gt_labels=jnp.zeros((1, g), jnp.int32),
+        gt_valid=jnp.ones((1, g), bool), gt_frame_masks=jnp.ones((1, g, 28,
+                                                                  28)),
+        gt_semantic_seg=jnp.zeros((1, 8, 8), jnp.int32))
+    args = [dummies[n] for n in
+            inspect.signature(jmodel.forward_train).parameters]
+    return _flat_shapes(jax.eval_shape(
+        partial(jmodel.init, method='forward_train'), jax.random.PRNGKey(0),
+        *args))
+
+
+def assert_tpudets_forward_train_tree(path):
+    """The port's model of the config at ``path`` holds tpudet's param tree
+    from ``forward_train``'s init (``tpudets_forward_train_tree``)."""
+    ref = tpudets_forward_train_tree(path)
+    assert_port_tree_is(path, ref)
+    return ref
+
+
+@pytest.mark.parametrize('config', ZOO_I_CONFIGS)
+def test_zoo_i_config_builds_with_tpudets_param_tree(config):
+    """Each of zoo row i's configs, tpudet's tree through ``forward_train``
+    with ``gt_frame_masks`` and, where it takes one, ``gt_semantic_seg``;
+    DetectoRS's second backbone (``neck/rfp_module0``), its raw SAC leaves
+    and YOLACT's protonet and semantic head among them."""
+    ref = assert_tpudets_forward_train_tree(os.path.join(ROOT, config))
+    kind = config.split('/')[1]
+    want = {'ms_rcnn': ('roi_head', 'mask_iou_head'),
+            'htc': ('roi_head', 'semantic_head'),
+            'scnet': ('roi_head', 'glbctx_head'),
+            'point_rend': ('roi_head', 'point_head'),
+            'detectors': ('neck', 'rfp_module0'),
+            'yolact': ('protonet',)}[kind]
+    assert any(p[1:1 + len(want)] == want for p in ref)
+    if kind == 'detectors':
+        assert ('params', 'backbone', 'layer2_0', 'conv2',
+                'weight_diff') in ref
 
 
 def test_the_libra_sweep_holds_two_configs():

@@ -200,3 +200,10 @@ def losses_job(rank, world, cases, model_cfg, variables, batch):
     detector's ``forward_train`` losses on this rank's slice."""
     return (head_losses(cases, rank, world),
             forward_train_job(rank, world, model_cfg, variables, batch))
+
+
+def forward_trains_job(rank, world, models):
+    """``forward_train_job`` of each ``(model cfg, variables, batch)`` of
+    ``models``, by name."""
+    return {name: forward_train_job(rank, world, *m)
+            for name, m in models.items()}

@@ -1,6 +1,7 @@
 """Batched COCO-val testing: counterpart of ``tpudet/apis/test.py``
 (``single_device_test`` with its flip test-time augmentation
-``tta_get_bboxes``, its mask path ``_mask_mode`` and
+``tta_get_bboxes``, its mask path ``_mask_mode`` (the Mask R-CNN family's
+``'roi'``, PointRend's ``'roi_labels'``, YOLACT's ``'proto'``) and
 ``masks_to_segm_results``, and its sharding over processes
 ``merge_sharded_results`` and ``_gather_object_shards``).
 
@@ -24,8 +25,6 @@ from ..parallel.mesh import all_gather_object, is_distributed
 from ..parallel.mesh import process_count as group_size
 from ..parallel.mesh import process_index as group_rank
 from .inference import nms_result_to_per_class
-
-MASK_ITEM = 'comes with ROADMAP.md\'s "rest of the zoo" item'
 
 
 def tta_get_bboxes(model, aug_imgs, aug_scale_factors, aug_flips,
@@ -66,31 +65,39 @@ def tta_get_bboxes(model, aug_imgs, aug_scale_factors, aug_flips,
 
 def _mask_mode(model):
     """The detector's mask-prediction API, if any (``tpudet/apis/test.py:
-    58-68``): ``'roi'`` for the Mask R-CNN family. YOLACT's ``'proto'``
-    (``predict_masks(outputs)``) and PointRend's ``'roi_labels'``
-    (``predict_masks(img, boxes, valid, labels)``) are not ported and
-    raise."""
+    58-68``): ``'proto'`` for YOLACT (``predict_masks(outputs)`` -> ``(res,
+    masks)``), ``'roi_labels'`` for PointRend (``predict_masks(img, boxes,
+    valid, labels)`` -> (B, D, R, R)), ``'roi'`` for the Mask R-CNN family
+    (``predict_masks(img, boxes, valid)`` -> (B, D, s, s, C))."""
     if not hasattr(model, 'predict_masks'):
         return None
     params = list(inspect.signature(model.predict_masks).parameters)
     if 'outputs' in params:
-        raise NotImplementedError(f"YOLACT's 'proto' mask mode {MASK_ITEM}")
+        return 'proto'
     if 'det_labels' in params:
-        raise NotImplementedError(
-            f"PointRend's 'roi_labels' mask mode {MASK_ITEM}")
+        return 'roi_labels'
     return 'roi'
 
 
 def predict_masks(model, img, scale_factor):
     """Detections and each one's mask probabilities of its predicted class
-    for an image batch (tpudet's ``infer_masks``): the detections of the
-    model's forward (``scale_factor`` maps them to the original images),
-    then the mask branch on them in the network input's frame, on the
-    same call's features. Returns ``(NMSResult, probs (B, D, s, s))``."""
+    for an image batch (tpudet's ``infer_masks``, ``tpudet/apis/test.py:
+    215-231``): YOLACT's decode crops its masks with the boxes in the
+    network input's frame and rescales the boxes after; the RoI modes take
+    the detections of the model's forward (``scale_factor`` maps them to
+    the original images) and run the mask branch on them in the network
+    input's frame, on the same call's features. Returns ``(NMSResult,
+    probs (B, D, s, s))``."""
+    mode = _mask_mode(model)
+    if mode == 'proto':
+        return model.predict_masks(model(img), scale_factors=scale_factor)
     feats = model.extract_feat(img)
     res = model.get_bboxes(model.detect(feats, tuple(img.shape[1:3])),
                            scale_factors=scale_factor)
     in_boxes = res.bboxes * scale_factor[:, None, :]
+    if mode == 'roi_labels':
+        return res, model.predict_masks(img, in_boxes, res.valid, res.labels,
+                                        feats=feats)
     # (B, D, s, s, C): keep each detection's predicted class
     probs = model.predict_masks(img, in_boxes, res.valid, feats=feats)
     b, d, s = probs.shape[:3]

@@ -1,9 +1,9 @@
 """Shape-static NMS, batched over images: port of ``tpudet/core/nms.py``
 (``topk_scores``, ``nms_blocked``, ``nms_padded``, ``soft_nms_padded``,
 ``nms``, ``multiclass_nms``/``batched_nms``, ``dense_class_nms``,
-``class_sorted_nms``, ``lane_topk_select``, ``class_lane_nms`` and their
-batched forms). YOLACT's ``fast_nms`` and the oracle ``nms_padded_scan``
-wait (ROADMAP.md).
+``class_sorted_nms``, ``lane_topk_select``, ``class_lane_nms``, YOLACT's
+``fast_nms`` and ``bbox_overlaps_ck``, and their batched forms). The
+oracle ``nms_padded_scan`` waits (ROADMAP.md).
 
 Semantics kept from tpudet, so that the detection sets are equal:
 
@@ -552,3 +552,69 @@ def class_lane_nms(bboxes, scores, score_thr, iou_thr, max_per_img,
     return _one_image(batched_class_lane_nms, bboxes, scores, valid,
                       score_thr, iou_thr, max_per_img, lane_pre=lane_pre,
                       class_pre=class_pre)
+
+
+def bbox_overlaps_ck(boxes: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """(..., k, 4) -> (..., k, k) IoU, tpudet's arithmetic
+    (``tpudet/core/nms.py:815-825``)."""
+    area = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+    return _iou_block(boxes, area, boxes, area, eps)
+
+
+def batched_fast_nms(bboxes: torch.Tensor,
+                     scores: torch.Tensor,
+                     score_thr: float,
+                     iou_thr: float,
+                     top_k: int = 200,
+                     max_per_img: int = 100,
+                     return_indices: bool = False):
+    """YOLACT's fast NMS (``tpudet/core/nms.py:778-812``) over a batch:
+    per class the top ``top_k`` boxes by score (ties by index), each
+    dropped where its largest IoU with a higher-ranked box of its class
+    exceeds ``iou_thr`` (boxes already dropped still suppress: one
+    parallel matrix op) or its score is not over ``score_thr``; then the
+    top ``max_per_img`` of the kept (class, rank) pairs, ranked class by
+    class, ties by that order.
+
+    Args:
+        bboxes: (B, N, 4); scores: (B, N, C) without a background column.
+
+    Returns:
+        ``NMSResult`` (B, max_per_img, ...), and with ``return_indices``
+        each detection's row of ``bboxes`` (B, max_per_img); an invalid
+        slot's row is not meaningful.
+    """
+    b, n, num_classes = scores.shape
+    k = min(top_k, n)
+    s_sorted, idx = topk_scores(scores.transpose(1, 2), k)  # (B, C, k)
+    boxes_ck = torch.gather(
+        bboxes[:, None].expand(b, num_classes, n, 4), 2,
+        idx[..., None].expand(b, num_classes, k, 4))
+    iou = bbox_overlaps_ck(boxes_ck)
+    tri = torch.triu(torch.ones((k, k), dtype=torch.bool,
+                                device=scores.device), diagonal=1)
+    iou_max = torch.where(tri, iou, iou.new_zeros(())).amax(dim=-2)
+    keep = (iou_max <= iou_thr) & (s_sorted > score_thr)
+    flat = torch.where(keep, s_sorted,
+                       torch.full_like(s_sorted, NEG_INF)).reshape(b, -1)
+    top_vals, top_pos = topk_scores(flat, max_per_img)
+    valid = top_vals > NEG_INF / 2
+    det_boxes = _gather_rows(boxes_ck.reshape(b, -1, 4), top_pos)
+    res = NMSResult(
+        torch.where(valid[..., None], det_boxes, det_boxes.new_zeros(())),
+        torch.where(valid, top_vals, top_vals.new_zeros(())),
+        torch.where(valid, top_pos // k, -1), valid)
+    if return_indices:
+        return res, torch.gather(idx.reshape(b, -1), 1, top_pos)
+    return res
+
+
+def fast_nms(bboxes, scores, score_thr, iou_thr, top_k=200, max_per_img=100,
+             return_indices=False):
+    """``batched_fast_nms`` of one image: (N, 4) boxes, (N, C) scores."""
+    out = batched_fast_nms(bboxes[None], scores[None], score_thr, iou_thr,
+                           top_k, max_per_img, return_indices)
+    if return_indices:
+        res, keep_idx = out
+        return NMSResult(*(t[0] for t in res)), keep_idx[0]
+    return NMSResult(*(t[0] for t in out))

@@ -1,7 +1,6 @@
 """Config -> model builders: port of ``tpudet/models/builder.py`` for
-the single-stage, two-stage, Mask R-CNN and proposal detectors, and the
-teacher of a knowledge-distillation detector; the Mask R-CNN-based ones
-it does not port yet raise ``NotImplementedError``."""
+the single-stage, two-stage, Mask R-CNN-based and proposal detectors, and
+the teacher of a knowledge-distillation detector."""
 from __future__ import annotations
 
 import copy
@@ -14,9 +13,6 @@ from torch import nn
 from ..registry import MODELS, build_from_cfg
 
 
-# tpudet's Mask R-CNN-based detectors that the port does not build yet
-ZOO_DETECTORS = ('HybridTaskCascade', 'SCNet', 'MaskScoringRCNN',
-                 'PointRend')
 # a relative ``teacher_config`` names a file of the repo (the checkout that
 # holds ``tpudet_torch/``)
 REPO_ROOT = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
@@ -81,10 +77,6 @@ def build_detector(cfg, train_cfg: Optional[Dict] = None,
     cfg = copy.deepcopy(dict(cfg))
     det_type = cfg.pop('type')
     det_cls = MODELS.get(det_type)
-    if det_type in ZOO_DETECTORS:
-        raise NotImplementedError(
-            f'{det_type} is not ported; it comes with ROADMAP.md\'s "rest of '
-            f'the zoo" item')
     if det_cls is None:
         raise KeyError(f'{det_type} is not a registered detector')
     train_cfg = cfg.pop('train_cfg', None) if train_cfg is None else train_cfg

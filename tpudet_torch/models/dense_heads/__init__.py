@@ -7,8 +7,11 @@ from .rpn_head import RPNHead
 from .ssd_head import SSD, SSDHead
 from .vfnet_head import VFNetHead
 from .yolocsp_head import YOLOCSPHead
+from .yolact_head import (YOLACT, YOLACTHead, YOLACTProtonet,
+                          YOLACTSegmHead)
 from .yolov3_head import YOLOV3Head
 
 __all__ = ['ATSSHead', 'GFLHead', 'KnowledgeDistillationSingleStageDetector',
            'LDHead', 'PAAHead', 'RetinaHead', 'RPNHead', 'SSD', 'SSDHead',
-           'VFNetHead', 'YOLOCSPHead', 'YOLOV3Head']
+           'VFNetHead', 'YOLACT', 'YOLACTHead', 'YOLACTProtonet',
+           'YOLACTSegmHead', 'YOLOCSPHead', 'YOLOV3Head']

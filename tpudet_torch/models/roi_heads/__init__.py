@@ -1,8 +1,17 @@
 from .bbox_head import Shared2FCBBoxHead, Shared4Conv1FCBBoxHead
 from .cascade_roi_head import CascadeRCNN, CascadeRoIHead
 from .mask_head import FCNMaskHead, MaskRCNN, MaskRoIHead
+from .htc_roi_head import FusedSemanticHead, HTCRoIHead, HybridTaskCascade
+from .mask_scoring_roi_head import (MaskIoUHead, MaskScoringRCNN,
+                                    MaskScoringRoIHead)
+from .point_rend_roi_head import (CoarseMaskHead, MaskPointHead, PointRend,
+                                  PointRendRoIHead)
+from .scnet_roi_head import SCNet, SCNetRoIHead
 from .standard_roi_head import StandardRoIHead
 
 __all__ = ['Shared2FCBBoxHead', 'Shared4Conv1FCBBoxHead', 'StandardRoIHead',
            'CascadeRoIHead', 'CascadeRCNN', 'FCNMaskHead', 'MaskRoIHead',
-           'MaskRCNN']
+           'MaskRCNN', 'FusedSemanticHead', 'HTCRoIHead', 'HybridTaskCascade',
+           'MaskIoUHead', 'MaskScoringRoIHead', 'MaskScoringRCNN',
+           'CoarseMaskHead', 'MaskPointHead', 'PointRendRoIHead', 'PointRend',
+           'SCNetRoIHead', 'SCNet']

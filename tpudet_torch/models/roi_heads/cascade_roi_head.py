@@ -96,13 +96,20 @@ class CascadeRCNN(TwoStageDetector):
     mean class probabilities (B, P, C + 1), last stage's deltas (B, P, 4),
     img_hw (2,))``, all that ``get_bboxes`` reads."""
 
+    def stage_context(self, feats) -> dict:
+        """Keyword arguments of every ``run_stage`` call on ``feats``
+        beyond the rois (HTC's semantic embedding, SCNet's global
+        context); none here."""
+        return {}
+
     def detect(self, feats, img_shape):
         head = self.roi_head
         rois, roi_valid = self.eval_proposals(feats, img_shape)
+        ctx = self.stage_context(feats)
         prob_sum = 0.
         for stage in range(head.num_stages):
             cls_logits, deltas = head.run_stage(stage, feats, rois,
-                                                roi_valid)
+                                                roi_valid, **ctx)[:2]
             prob_sum = prob_sum + F.softmax(cls_logits.float(), dim=-1)
             if stage < head.num_stages - 1:
                 rois = head.refine(stage, rois, deltas, img_shape)

@@ -96,28 +96,50 @@ class MaskRoIHead(StandardRoIHead):
                   gt_frame_masks, labels) -> Dict[str, torch.Tensor]:
         """BCE of the matched class's channel over the positive slots, in
         fp32 or the logits' wider dtype (``mask_head.py:72-95``)."""
-        b, p = rois.shape[:2]
-        dtype = torch.promote_types(mask_logits.dtype, torch.float32)
-        gt_idx = gt_idx.clamp_min(0)
-        batch = torch.arange(b, device=rois.device)[:, None]
-        matched_masks = gt_frame_masks.to(dtype)[batch, gt_idx]  # (B, P, S, S)
-        matched_boxes = gt_boxes.to(dtype)[batch, gt_idx]
-        s = matched_masks.shape[-1]
-        targets = mask_targets_from_gt_frame(
-            matched_masks.reshape(b * p, s, s), matched_boxes.reshape(-1, 4),
-            rois.reshape(-1, 4).to(dtype), self.mask_size).reshape(
-                b, p, self.mask_size, self.mask_size)
-        cls_idx = labels.long().clamp(0, self.num_classes - 1)
-        per_roi = torch.gather(
-            mask_logits.to(dtype), -1,
-            cls_idx[:, :, None, None, None].expand(
-                b, p, self.mask_size, self.mask_size, 1))[..., 0]
-        bce = L.binary_cross_entropy_with_logits(per_roi,
-                                                 targets.clamp(0., 1.))
-        pos = pos.to(dtype)
-        denom = torch.clamp_min(global_sum(pos.sum()), 1.0) * \
-            self.mask_size ** 2
-        return dict(loss_mask=(bce * pos[:, :, None, None]).sum() / denom)
+        return dict(loss_mask=mask_bce_loss(
+            mask_logits, rois, pos, gt_idx, gt_boxes, gt_frame_masks, labels,
+            self.num_classes, self.mask_size))
+
+
+def mask_targets(rois, gt_idx, gt_boxes, gt_frame_masks, mask_size: int,
+                 dtype):
+    """The (B, P, s, s) targets of ``rois`` (B, P, 4) from the gt-frame
+    masks of their matched gts (``gt_idx`` clipped at 0), in ``dtype``."""
+    b, p = rois.shape[:2]
+    gt_idx = gt_idx.clamp_min(0)
+    batch = torch.arange(b, device=rois.device)[:, None]
+    matched_masks = gt_frame_masks.to(dtype)[batch, gt_idx]  # (B, P, S, S)
+    matched_boxes = gt_boxes.to(dtype)[batch, gt_idx]
+    s = matched_masks.shape[-1]
+    return mask_targets_from_gt_frame(
+        matched_masks.reshape(b * p, s, s), matched_boxes.reshape(-1, 4),
+        rois.reshape(-1, 4).to(dtype), mask_size).reshape(
+            b, p, mask_size, mask_size)
+
+
+def class_channel(x, labels, num_classes: int):
+    """``x`` (B, P, ..., C) at each slot's class channel (``labels``
+    clipped into the classes): (B, P, ...)."""
+    cls_idx = labels.long().clamp(0, num_classes - 1)
+    cls_idx = cls_idx.reshape(cls_idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, -1, cls_idx.expand(x.shape[:-1] + (1,)))[..., 0]
+
+
+def mask_bce_loss(mask_logits, rois, pos, gt_idx, gt_boxes, gt_frame_masks,
+                  labels, num_classes: int, mask_size: int) -> torch.Tensor:
+    """The mask loss of ``MaskRoIHead`` (and HTC's stages, SCNet's head):
+    the BCE of the matched class's channel of ``mask_logits`` (B, P, s, s,
+    C) against targets resampled from the gt-frame masks, summed over the
+    positive slots, divided by max(positives, 1) x s^2; in fp32 or the
+    logits' wider dtype."""
+    dtype = torch.promote_types(mask_logits.dtype, torch.float32)
+    targets = mask_targets(rois, gt_idx, gt_boxes, gt_frame_masks,
+                           mask_size, dtype)
+    per_roi = class_channel(mask_logits.to(dtype), labels, num_classes)
+    bce = L.binary_cross_entropy_with_logits(per_roi, targets.clamp(0., 1.))
+    pos = pos.to(dtype)
+    denom = torch.clamp_min(global_sum(pos.sum()), 1.0) * mask_size ** 2
+    return (bce * pos[:, :, None, None]).sum() / denom
 
 
 @DETECTORS.register_module()
@@ -128,6 +150,14 @@ class MaskRCNN(TwoStageDetector):
                       gt_frame_masks) -> Dict[str, torch.Tensor]:
         """The two-stage losses of a batch and ``loss_mask``; the gts are
         padded xyxy boxes and their (B, G, S, S) gt-frame masks."""
+        return self.mask_losses(img, gt_bboxes, gt_labels, gt_valid,
+                                gt_frame_masks)[0]
+
+    def mask_losses(self, img, gt_bboxes, gt_labels, gt_valid,
+                    gt_frame_masks):
+        """``forward_train``'s losses, and what the mask branch saw:
+        ``(losses, (feats, rois, sampled, labels, pos, gt_idx, gt_bboxes,
+        mask_logits))``."""
         feats = self.extract_feat(img)
         losses, (rois, sampled, labels, pos) = self.two_stage_losses(
             feats, img, gt_bboxes, gt_labels, gt_valid)
@@ -140,7 +170,8 @@ class MaskRCNN(TwoStageDetector):
             labels))
         losses['num_gts'] = (gt_valid.float().sum() / global_count(
             gt_valid.shape[0], gt_valid.device))
-        return losses
+        return losses, (feats, rois, sampled, labels, pos, gt_idx,
+                        gt_bboxes, mask_logits)
 
     def predict_masks(self, img, det_bboxes, det_valid,
                       feats: Optional[list] = None) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """RoIAlign: port of ``tpudet/ops/roi_align.py`` (``roi_align``,
-``multilevel_roi_align``, ``generic_roi_align``) as torch ops, with
+``multilevel_roi_align``, ``generic_roi_align``, and ``batched_roi_align``
+for tpudet's ``vmap`` of ``roi_align`` over maps) as torch ops, with
 tpudet's semantics:
 
 - sample points at ``roi_start + (i + 0.5) * bin / n - 0.5`` in feature
@@ -100,6 +101,25 @@ def roi_align(feat: torch.Tensor, rois: torch.Tensor, out_size: int = 7,
                  full(spatial_scale, torch.float32), full(h, torch.long),
                  full(w, torch.long), full(True, torch.bool), out_size,
                  sampling_ratio)
+
+
+def batched_roi_align(maps: torch.Tensor, rois: torch.Tensor,
+                      out_size: int = 7, spatial_scale: float = 1.0,
+                      sampling_ratio: int = 2) -> torch.Tensor:
+    """One map per row: ``maps`` (N, H, W, C), ``rois`` (N, P, 4) xyxy ->
+    (N, P, out_size, out_size, C), roi ``p`` of row ``n`` pooled from map
+    ``n`` (tpudet's ``vmap`` of ``roi_align``; no roi is masked)."""
+    n, h, w, c = maps.shape
+    p = rois.shape[1]
+    dev = rois.device
+    full = lambda v, dt: torch.full((n * p,), v, dtype=dt,  # noqa: E731
+                                    device=dev)
+    base = torch.arange(n, device=dev).repeat_interleave(p) * (h * w)
+    pooled = _pool(maps.reshape(n * h * w, c), rois.reshape(-1, 4), base,
+                   full(spatial_scale, torch.float32), full(h, torch.long),
+                   full(w, torch.long), full(True, torch.bool), out_size,
+                   sampling_ratio)
+    return pooled.reshape(n, p, out_size, out_size, c)
 
 
 def batched_multilevel_roi_align(feats: Sequence[torch.Tensor],

@@ -12,7 +12,8 @@ device:
   ``gloo`` on the CPU, or ``gloo`` with CUDA tensors where the caller asks
   for it) and names each rank's device;
 - ``global_sum`` all-reduces a count (a loss denominator, a batch size),
-  so that each rank's loss is its share of the global loss;
+  so that each rank's loss is its share of the global loss; ``global_mean``
+  divides by such a count where tpudet takes a mean over the batch;
 - ``models/layers.BatchNorm2d`` all-reduces its statistics while a group
   is open (SyncBN with flax's biased running variance);
 - ``all_reduce_grads`` sums the ranks' gradients in one flat buffer, once
@@ -35,6 +36,7 @@ runs as on one device.
 from __future__ import annotations
 
 import datetime
+import math
 import socket
 from typing import Dict, Iterable, List, Optional, Sequence, Union
 
@@ -166,6 +168,17 @@ def global_count(n: float, device) -> torch.Tensor:
     """A local count ``n`` (images in this rank's batch, say) summed over
     the ranks: an fp32 0-d tensor on ``device``."""
     return global_sum(torch.tensor(float(n), device=device))
+
+
+def global_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of a per-image ``t`` (B, ...) over every rank's elements:
+    this rank's sum over the global element count (``global_count`` of
+    the images times an image's elements), so that the ranks' shares add
+    up to the mean over the whole batch. Summed and divided in fp32 at
+    least, returned in ``t``'s dtype, as ``t.mean()``."""
+    acc = torch.promote_types(t.dtype, torch.float32)
+    n = global_count(t.shape[0], t.device).to(acc) * math.prod(t.shape[1:])
+    return (t.sum(dtype=acc) / n).to(t.dtype)
 
 
 def _flat(tensors: Sequence[torch.Tensor], dtype: torch.dtype

@@ -26,7 +26,8 @@ path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
   ``weight/bias/running_mean/running_var``; GroupNorm's and flax
   LayerNorm's ``scale/bias`` (params only) become ``weight/bias``;
 - a module's raw parameters (``GeneralizedAttention``'s ``gamma``,
-  ``key_content_bias``, ``geom_bias``; ``L2Norm``'s ``scale``) are
+  ``key_content_bias``, ``geom_bias``; ``L2Norm``'s ``scale``;
+  ``SAConv2d``'s HWIO ``kernel`` and ``weight_diff``, conv kernels) are
   carried under the names its ``flax_leaves`` gives them.
 
 Every leaf must find its tensor, with its shape, and every tensor of the
@@ -352,7 +353,9 @@ def random_flax_variables(model: nn.Module, seed: int = 0,
     ``nn.Conv2d`` takes ``he_normal`` and a zero bias), a deformable
     conv's kernel ``he_normal`` (fan-in K*K*in) and its bias 0, BatchNorm,
     GroupNorm and LayerNorm scale 1, bias 0, mean 0, var 1, and a raw
-    leaf the constant its module's ``leaf_init`` names (0 if none). A
+    leaf the constant its module's ``leaf_init`` names (0 if none; a raw
+    conv kernel leaf, ``SAConv2d``'s, the initializer it names there, or
+    the module's ``kernel_init``). A
     Dense kernel (in, out) is drawn as a 1 x 1 conv's, a ConvTranspose
     kernel in its flax shape (H, W, in, out), a deformable one as the (K,
     K, in, out) conv kernel it reshapes. Kernels are drawn in the order of
@@ -374,7 +377,8 @@ def random_flax_variables(model: nn.Module, seed: int = 0,
         leaf = path[-1]
         if kind == CONV:
             value = _draw_kernel(
-                rng, getattr(module, 'kernel_init', 'he_normal'),
+                rng, getattr(module, 'leaf_init', {}).get(
+                    leaf, getattr(module, 'kernel_init', 'he_normal')),
                 (shape[2], shape[3], shape[1], shape[0]))
         elif kind == DECONV:
             # flax's fan-in of a ConvTranspose kernel is H * W * in
