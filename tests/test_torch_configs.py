@@ -40,9 +40,12 @@ are swept like the RetinaNet configs; LD's (``configs/ld/``) through
 The 5 configs of ROADMAP.md's zoo row h and row j's PAA (``configs/paa/``,
 ``configs/libra_rcnn/`` (a list ``neck``: tpudet's chain of necks, FPN
 then BFP), ``configs/groie/``, ``configs/ghm/``) are swept like the
-RetinaNet configs. The probe over every config under ``configs/`` counts
-what the port builds (95), refuses with ``NotImplementedError`` (1) and
-does not register (``KeyError``, 31).
+RetinaNet configs. The 8 one-stage configs of ROADMAP.md's zoo row j
+that run on the RetinaNet machinery with no RoI head (``configs/fcos/``,
+``nas_fcos/``, ``foveabox/``, ``autoassign/``, ``fsaf/``,
+``free_anchor/``, ``yolof/``, ``nas_fpn/``) too. The probe over every
+config under ``configs/`` counts what the port builds (103), refuses with
+``NotImplementedError`` (1) and does not register (``KeyError``, 23).
 
 Every config whose ``data.train/val/test`` name a dataset other than
 ``CocoDataset`` (9, wrappers' inner datasets included) has each of those
@@ -144,8 +147,18 @@ ZOO_I_CONFIGS = sorted(
                     'configs/scnet/*.py', 'configs/point_rend/*.py',
                     'configs/detectors/*.py', 'configs/yolact/*.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
+# ROADMAP.md's zoo row j, its one-stage detectors on the RetinaNet
+# machinery: FCOS, NAS-FCOS, FoveaBox, AutoAssign, FSAF, FreeAnchor, YOLOF,
+# the NAS-FPN RetinaNet
+ZOO_J_DENSE_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for pattern in ('configs/fcos/*.py', 'configs/nas_fcos/*.py',
+                    'configs/foveabox/*.py', 'configs/autoassign/*.py',
+                    'configs/fsaf/*.py', 'configs/free_anchor/*.py',
+                    'configs/yolof/*.py', 'configs/nas_fpn/*.py')
+    for p in glob.glob(os.path.join(ROOT, pattern)))
 # the probe over configs/: (build, NotImplementedError, KeyError)
-PROBE_COUNTS = (95, 1, 31)
+PROBE_COUNTS = (103, 1, 23)
 
 # configs that build but sit outside the families above: the fork's two
 # recipes and training from scratch
@@ -224,10 +237,18 @@ def test_the_zoo_row_h_sweep_holds_five_configs():
         ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS + KD_CONFIGS)
 
 
+def test_the_zoo_row_j_dense_sweep_holds_eight_configs():
+    assert len(ZOO_J_DENSE_CONFIGS) == 8
+    assert not set(ZOO_J_DENSE_CONFIGS) & set(
+        CONFIGS + RETINA_CONFIGS + TWO_STAGE_CONFIGS + ZOO_ROW_CONFIGS +
+        ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS + KD_CONFIGS + ZOO_H_CONFIGS +
+        ZOO_I_CONFIGS)
+
+
 def test_the_probe_counts_what_builds_and_what_is_refused():
-    """Every config under ``configs/`` built on the meta device: 95 build,
-    1 raises ``NotImplementedError`` (the DCN ResNeXt, refused by design),
-    31 raise ``KeyError`` (types the port does not register)."""
+    """Every config under ``configs/`` built on the meta device: 103
+    build, 1 raises ``NotImplementedError`` (the DCN ResNeXt, refused by
+    design), 23 raise ``KeyError`` (types the port does not register)."""
     counts = [0, 0, 0]
     for p in sorted(glob.glob(os.path.join(ROOT, 'configs/**/*.py'),
                               recursive=True)):
@@ -250,7 +271,8 @@ def test_the_other_sweep_holds_three_configs():
 
 @pytest.mark.parametrize('config', CONFIGS + RETINA_CONFIGS +
                          TWO_STAGE_CONFIGS + OTHER_CONFIGS + ZOO_ROW_CONFIGS +
-                         ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS + ZOO_H_CONFIGS)
+                         ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS + ZOO_H_CONFIGS +
+                         ZOO_J_DENSE_CONFIGS)
 def test_config_builds_with_tpudets_param_tree(config):
     assert_tpudets_tree(os.path.join(ROOT, config))
 

@@ -109,6 +109,29 @@ def test_nvjpeg_decodes_the_fixtures_within_the_limits():
 
 
 @pytest.mark.gpu
+def test_nvjpeg_decodes_queued_behind_work_equal_idle_ones():
+    # matmuls queued ahead of each decode keep the stream behind the host,
+    # as a loader thread's on a busy card; a decoder state reused before
+    # its copies ran gave corrupt images here
+    _card()
+    datas = [data for _, data, _, ref in _fixtures() if ref is not None]
+    want = []
+    for data in datas:
+        want.append(jpeg.decode(data, device='cuda'))
+        torch.cuda.synchronize()
+    busy = torch.randn(4096, 4096, device='cuda')
+    got = []
+    for _ in range(3):
+        for data in datas:
+            for _ in range(4):
+                busy @ busy
+            got.append(jpeg.decode(data, device='cuda'))
+    torch.cuda.synchronize()
+    for i, g in enumerate(got):
+        assert torch.equal(g, want[i % len(datas)]), i
+
+
+@pytest.mark.gpu
 def test_nvjpeg_decodes_in_threads_of_their_own():
     _card()
     fixtures = [f for f in _fixtures() if f[3] is not None][:4]

@@ -250,8 +250,13 @@ def test_delta_coder_matches_tpudet():
                       wh_ratio_clip=0.1).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
     assert got.max() > 100  # not clipped
-    with pytest.raises(NotImplementedError, match='YOLOF'):
-        tbbox.DeltaXYWHBBoxCoder(add_ctr_clamp=True)
+    # YOLOF's variant: the centre's shift clamped at 32 px, dw and dh from
+    # above only
+    ref = np.asarray(jbbox.DeltaXYWHBBoxCoder(add_ctr_clamp=True).decode(
+        jnp.asarray(anchors), jnp.asarray(deltas), max_shape=(100, 90)))
+    got = tbbox.DeltaXYWHBBoxCoder(add_ctr_clamp=True).decode(
+        *_t(anchors, deltas), max_shape=(100, 90)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
 # losses

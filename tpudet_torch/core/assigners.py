@@ -33,6 +33,23 @@ codes.
   positive; an anchor positive for several gts takes the one of highest
   IoU, the first on a tie.
 
+``uniform_assign_batch`` is YOLOF's uniform matching (``:188-247``) in
+the same codes:
+
+- per gt the ``match_times`` predicted boxes and the ``match_times``
+  anchors of least L1 distance in (cx, cy, w, h) are candidates; ties go
+  to the lower anchor index (a stable sort, as ``lax.top_k``'s order);
+- candidates are written in tpudet's flat order (for each of the k
+  ranks, the predictions' candidates of every gt, then the anchors'), the
+  last write to an anchor wins: a scatter-max of the order, as tpudet's;
+- a winner whose anchor IoU with its gt is below ``pos_ignore_thr`` is
+  ignored; any other anchor whose prediction overlaps a gt by more than
+  ``neg_ignore_thr`` is ignored, else negative.
+
+``uniform_match_pairs_batch`` (``:250-290``) lists every candidate pair,
+duplicates included, with ``pair_pos``: the pair's anchor IoU reaches
+``pos_ignore_thr`` and its gt is valid.
+
 ``priority_rank`` ranks entries by a fixed priority, the sampling of the
 two-stage heads (``tpudet/models/dense_heads/rpn_head.py:104-117``).
 """
@@ -42,7 +59,7 @@ from typing import Sequence
 
 import torch
 
-from .bbox import bbox_overlaps
+from .bbox import bbox_cxcywh, bbox_overlaps
 
 IGNORE = -2
 NEGATIVE = -1
@@ -195,6 +212,73 @@ def atss_assign(anchors: torch.Tensor, num_level_anchors: Sequence[int],
     """One image: gt_bboxes (G, 4), gt_valid (G,) -> (A,) codes."""
     return atss_assign_batch(anchors, num_level_anchors, gt_bboxes[None],
                              gt_valid[None], topk)[0]
+
+
+def _uniform_candidates(pred_boxes, anchors, gt_bboxes, match_times: int):
+    """(B, 2 k G) anchor indices of the uniform matching's candidate pairs
+    in tpudet's flat order, their gts (2 k G,), and k."""
+    num_g = gt_bboxes.shape[1]
+    k = min(match_times, anchors.shape[0])
+    gt_c = bbox_cxcywh(gt_bboxes)[:, :, None]  # (B, G, 1, 4)
+
+    def nearest(boxes):  # (B, G, k) by a stable ascending sort
+        cost = (bbox_cxcywh(boxes)[..., None, :, :] - gt_c).abs().sum(-1)
+        return torch.sort(cost, dim=-1, stable=True).indices[..., :k]
+    idx_pred = nearest(pred_boxes)
+    idx_anchor = nearest(anchors[None])
+    # (B, k, 2, G) flattened: [rank 0: predictions g0..gG-1, anchors
+    # g0..gG-1, rank 1: ...], tpudet's cat((index, index1), 1).reshape(-1)
+    flat = torch.stack([idx_pred.transpose(1, 2), idx_anchor.transpose(1, 2)],
+                       dim=2).reshape(gt_bboxes.shape[0], -1)
+    pair_gt = torch.arange(num_g, device=anchors.device).repeat(2 * k)
+    return flat, pair_gt, k
+
+
+def uniform_assign_batch(pred_boxes: torch.Tensor, anchors: torch.Tensor,
+                         gt_bboxes: torch.Tensor, gt_valid: torch.Tensor,
+                         match_times: int = 4, pos_ignore_thr: float = 0.15,
+                         neg_ignore_thr: float = 0.7) -> torch.Tensor:
+    """pred_boxes (B, A, 4) decoded, anchors (A, 4), gt_bboxes (B, G, 4)
+    padded, gt_valid (B, G) -> (B, A) int64 codes."""
+    b, num_a = pred_boxes.shape[:2]
+    num_g = gt_bboxes.shape[1]
+    flat, pair_gt, _ = _uniform_candidates(pred_boxes, anchors, gt_bboxes,
+                                           match_times)
+    order = torch.arange(1, flat.shape[1] + 1, device=flat.device)
+    order = torch.where(gt_valid[:, pair_gt], order, 0)
+    winner = torch.zeros((b, num_a), dtype=order.dtype,
+                         device=flat.device).scatter_reduce_(
+        1, flat, order, 'amax')
+    win_gt = (winner - 1) % num_g  # the flat order -> its gt
+    anchor_ious = bbox_overlaps(anchors[None], gt_bboxes)  # (B, A, G)
+    anchor_ious = torch.where(gt_valid[:, None], anchor_ious,
+                              anchor_ious.new_tensor(-1.0))
+    win_iou = torch.gather(anchor_ious, 2, win_gt[..., None])[..., 0]
+    pred_ious = bbox_overlaps(pred_boxes, gt_bboxes)
+    pred_max = torch.where(gt_valid[:, None], pred_ious,
+                           pred_ious.new_tensor(-1.0)).amax(dim=2)
+    assigned = torch.where(pred_max > neg_ignore_thr, IGNORE, NEGATIVE)
+    assigned = torch.where(
+        winner > 0, torch.where(win_iou < pos_ignore_thr, IGNORE, win_gt),
+        assigned)
+    return torch.where(gt_valid.any(dim=1, keepdim=True), assigned, NEGATIVE)
+
+
+def uniform_match_pairs_batch(pred_boxes: torch.Tensor,
+                              anchors: torch.Tensor, gt_bboxes: torch.Tensor,
+                              gt_valid: torch.Tensor, match_times: int = 4,
+                              pos_ignore_thr: float = 0.15):
+    """The uniform matching's candidate pairs: ``(pair_anchor (B, P),
+    pair_gt (B, P), pair_pos (B, P))``, P = ``2 k G`` in tpudet's flat
+    order."""
+    flat, pair_gt, _ = _uniform_candidates(pred_boxes, anchors, gt_bboxes,
+                                           match_times)
+    pair_gt = pair_gt.expand_as(flat)
+    anchor_ious = bbox_overlaps(anchors[None], gt_bboxes)  # (B, A, G)
+    rows = torch.arange(flat.shape[0], device=flat.device)[:, None]
+    pair_iou = anchor_ious[rows, flat, pair_gt]
+    pair_pos = (pair_iou >= pos_ignore_thr) & gt_valid[rows, pair_gt]
+    return flat, pair_gt, pair_pos
 
 
 def priority_rank(mask: torch.Tensor, priority: torch.Tensor) -> torch.Tensor:

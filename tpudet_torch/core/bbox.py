@@ -1,6 +1,7 @@
 """Box coders and IoU primitives: port of ``tpudet/core/bbox.py``
 (``YOLOV4BBoxCoder``, ``YOLOBBoxCoder``, ``DeltaXYWHBBoxCoder``,
-``bbox_overlaps``, ``bbox_overlaps_aligned``, ``bbox_cxcywh``). All boxes
+``TBLRBBoxCoder``, ``bbox_overlaps``, ``bbox_overlaps_aligned``,
+``bbox_cxcywh``). All boxes
 are xyxy; the functions broadcast over leading axes."""
 from __future__ import annotations
 
@@ -83,18 +84,18 @@ class DeltaXYWHBBoxCoder:
     ``tpudet/core/bbox.py:57-132``): normalized (dx, dy, dw, dh) with
     means and stds; decode clamps dw and dh at ``log(wh_ratio_clip)`` and,
     with ``clip_border``, clips to ``max_shape``. YOLOF's
-    ``add_ctr_clamp`` variant comes with YOLOF."""
+    ``add_ctr_clamp`` variant (``:70-78``, the branch at ``:111``) clamps
+    the centre's shift to ``ctr_clamp`` pixels and dw, dh from above
+    only."""
 
     def __init__(self, target_means=(0., 0., 0., 0.),
                  target_stds=(1., 1., 1., 1.), clip_border=True,
                  add_ctr_clamp=False, ctr_clamp=32):
-        if add_ctr_clamp:
-            raise NotImplementedError(
-                'DeltaXYWHBBoxCoder(add_ctr_clamp=True) is YOLOF\'s; it '
-                'comes with ROADMAP.md\'s "rest of the zoo" item')
         self.means = np.asarray(target_means, dtype=np.float32)
         self.stds = np.asarray(target_stds, dtype=np.float32)
         self.clip_border = clip_border
+        self.add_ctr_clamp = add_ctr_clamp
+        self.ctr_clamp = ctr_clamp
 
     def _stats(self, like):
         return (torch.as_tensor(self.means, device=like.device),
@@ -131,8 +132,15 @@ class DeltaXYWHBBoxCoder:
         ph = bboxes[..., 3] - bboxes[..., 1]
         dx_width = pw * deltas[..., 0]
         dy_height = ph * deltas[..., 1]
-        dw = torch.clamp(deltas[..., 2], -max_ratio, max_ratio)
-        dh = torch.clamp(deltas[..., 3], -max_ratio, max_ratio)
+        if self.add_ctr_clamp:
+            dx_width = torch.clamp(dx_width, -self.ctr_clamp, self.ctr_clamp)
+            dy_height = torch.clamp(dy_height, -self.ctr_clamp,
+                                    self.ctr_clamp)
+            dw = torch.clamp_max(deltas[..., 2], max_ratio)
+            dh = torch.clamp_max(deltas[..., 3], max_ratio)
+        else:
+            dw = torch.clamp(deltas[..., 2], -max_ratio, max_ratio)
+            dh = torch.clamp(deltas[..., 3], -max_ratio, max_ratio)
         gw = pw * torch.exp(dw)
         gh = ph * torch.exp(dh)
         gx = px + dx_width
@@ -141,6 +149,45 @@ class DeltaXYWHBBoxCoder:
         y1 = gy - gh * 0.5
         x2 = gx + gw * 0.5
         y2 = gy + gh * 0.5
+        if self.clip_border and max_shape is not None:
+            x1 = _clip_to(x1, max_shape[1])
+            y1 = _clip_to(y1, max_shape[0])
+            x2 = _clip_to(x2, max_shape[1])
+            y2 = _clip_to(y2, max_shape[0])
+        return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+class TBLRBBoxCoder:
+    """FSAF's top-bottom-left-right coder (``tpudet/core/bbox.py:182-222``):
+    the distances from the anchor's centre to the gt's sides over the
+    anchor's height (t, b) or width (l, r), divided by ``normalizer``.
+    ``encode`` clamps the anchor's sides at 1e-6, as tpudet's; ``decode``
+    with ``clip_border`` clips to ``max_shape`` ``(h, w)`` (numbers or
+    per-image (B, 1) columns)."""
+
+    def __init__(self, normalizer: float = 4.0, clip_border: bool = True):
+        self.normalizer = normalizer
+        self.clip_border = clip_border
+
+    def encode(self, bboxes, gt_bboxes):
+        cx = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        cy = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        w = torch.clamp_min(bboxes[..., 2] - bboxes[..., 0], 1e-6)
+        h = torch.clamp_min(bboxes[..., 3] - bboxes[..., 1], 1e-6)
+        out = torch.stack([(cy - gt_bboxes[..., 1]) / h,
+                           (gt_bboxes[..., 3] - cy) / h,
+                           (cx - gt_bboxes[..., 0]) / w,
+                           (gt_bboxes[..., 2] - cx) / w], dim=-1)
+        return out / self.normalizer
+
+    def decode(self, bboxes, pred_bboxes, max_shape=None):
+        cx = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        cy = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        w = bboxes[..., 2] - bboxes[..., 0]
+        h = bboxes[..., 3] - bboxes[..., 1]
+        tblr = pred_bboxes * self.normalizer
+        x1, y1 = cx - tblr[..., 2] * w, cy - tblr[..., 0] * h
+        x2, y2 = cx + tblr[..., 3] * w, cy + tblr[..., 1] * h
         if self.clip_border and max_shape is not None:
             x1 = _clip_to(x1, max_shape[1])
             y1 = _clip_to(y1, max_shape[0])

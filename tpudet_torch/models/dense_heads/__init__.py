@@ -1,17 +1,28 @@
 from .atss_head import ATSSHead
+from .autoassign_head import AutoAssign, AutoAssignHead
+from .fcos_head import FCOSHead
+from .fovea_head import FoveaHead
+from .free_anchor_retina_head import FreeAnchorRetinaHead
+from .fsaf_head import FSAFHead
 from .gfl_head import GFLHead
 from .ld_head import KnowledgeDistillationSingleStageDetector, LDHead
+from .nasfcos_head import NASFCOS, NASFCOSHead
 from .paa_head import PAAHead
 from .retina_head import RetinaHead
+from .retina_sepbn_head import RetinaSepBNHead
 from .rpn_head import RPNHead
 from .ssd_head import SSD, SSDHead
 from .vfnet_head import VFNetHead
 from .yolocsp_head import YOLOCSPHead
 from .yolact_head import (YOLACT, YOLACTHead, YOLACTProtonet,
                           YOLACTSegmHead)
+from .yolof_head import YOLOFHead
 from .yolov3_head import YOLOV3Head
 
-__all__ = ['ATSSHead', 'GFLHead', 'KnowledgeDistillationSingleStageDetector',
-           'LDHead', 'PAAHead', 'RetinaHead', 'RPNHead', 'SSD', 'SSDHead',
+__all__ = ['ATSSHead', 'AutoAssign', 'AutoAssignHead', 'FCOSHead',
+           'FoveaHead', 'FreeAnchorRetinaHead', 'FSAFHead', 'NASFCOS',
+           'NASFCOSHead', 'RetinaSepBNHead', 'YOLOFHead', 'GFLHead',
+           'KnowledgeDistillationSingleStageDetector', 'LDHead', 'PAAHead',
+           'RetinaHead', 'RPNHead', 'SSD', 'SSDHead',
            'VFNetHead', 'YOLACT', 'YOLACTHead', 'YOLACTProtonet',
            'YOLACTSegmHead', 'YOLOCSPHead', 'YOLOV3Head']

@@ -1,7 +1,8 @@
 """Single-stage detector: backbone -> neck -> dense head. Port of
 ``tpudet/models/detectors/single_stage.py`` (``SingleStageDetector``,
 ``YOLOV4``, ``YOLOV5``, ``YOLOV3``, ``RetinaNet``, ``ATSS``, ``GFL``,
-``VFNet``) and of ``tpudet/models/dense_heads/paa_head.py``'s ``PAA``."""
+``VFNet``, ``FCOS``, ``FSAF``, ``FOVEA``, ``YOLOF``) and of
+``tpudet/models/dense_heads/paa_head.py``'s ``PAA``."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -133,3 +134,27 @@ class PAA(SingleStageDetector):
     config's ``score_voting`` and ``min_bbox_size`` are dropped."""
     default_iou_thr = 0.6
     strip_test_keys = ('score_voting',)
+
+
+@DETECTORS.register_module()
+class FCOS(SingleStageDetector):
+    """Anchor-free FCOS (reference mmdet/models/detectors/fcos.py)."""
+    default_iou_thr = 0.5
+
+
+@DETECTORS.register_module()
+class FSAF(SingleStageDetector):
+    """FSAF (reference mmdet/models/detectors/fsaf.py)."""
+    default_iou_thr = 0.5
+
+
+@DETECTORS.register_module()
+class FOVEA(SingleStageDetector):
+    """FoveaBox (reference mmdet/models/detectors/fovea.py)."""
+    default_iou_thr = 0.5
+
+
+@DETECTORS.register_module()
+class YOLOF(SingleStageDetector):
+    """Single-level YOLOF (reference mmdet/models/detectors/yolof.py)."""
+    default_iou_thr = 0.6

@@ -258,7 +258,8 @@ class Conv2d(nn.Module):
 
 
 class ConvModule(nn.Module):
-    """conv (no bias) + BN + act (``tpudet/models/layers.py:63-104``).
+    """conv + BN + act (``tpudet/models/layers.py:63-104``): the conv
+    bias-free unless ``bias``, the BN left out with ``use_norm=False``.
     Padding defaults to ``kernel_size // 2``. BN takes the CSP family's
     eps and momentum unless given (YOLOv3's Darknet passes tpudet's
     ConvModule defaults, torch's 1e-5 and 0.1)."""
@@ -267,16 +268,20 @@ class ConvModule(nn.Module):
                  kernel_size: int = 1, stride: int = 1,
                  padding: Optional[int] = None, groups: int = 1,
                  act: ActCfg = 'Mish', bn_eps: float = BN_EPS,
-                 bn_momentum: float = BN_MOMENTUM):
+                 bn_momentum: float = BN_MOMENTUM, use_norm: bool = True,
+                 bias: bool = False):
         super().__init__()
         pad = kernel_size // 2 if padding is None else padding
         self.conv = Conv(in_channels, out_channels, kernel_size, stride, pad,
-                         groups=groups, bias=False)
-        self.bn = BatchNorm2d(out_channels, eps=bn_eps, momentum=bn_momentum)
+                         groups=groups, bias=bias)
+        self.bn = (BatchNorm2d(out_channels, eps=bn_eps, momentum=bn_momentum)
+                   if use_norm else None)
         self.act = get_activation(act)
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
         return self.act(x) if self.act is not None else x
 
 

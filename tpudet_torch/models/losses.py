@@ -1,6 +1,6 @@
 """Losses: port of the part of ``tpudet/models/losses.py`` that the ported
 heads use (``reduce_loss``, the BCE with logits, ``bce_loss``,
-``giou_loss``, ``smooth_l1_loss``, ``l1_loss``, ``sigmoid_focal_loss``;
+``giou_loss``, ``iou_loss``, ``smooth_l1_loss``, ``l1_loss``, ``sigmoid_focal_loss``;
 the ATSS family's ``varifocal_loss``, ``quality_focal_loss``,
 ``distribution_focal_loss`` and ``kd_kl_div_loss``; Libra R-CNN's
 ``balanced_l1_loss`` and GHM's ``ghm_c_loss`` and ``ghm_r_loss``). The
@@ -62,6 +62,18 @@ def giou_loss(pred, target, weight=None, reduction: str = 'mean',
               avg_factor=None, loss_weight: float = 1.0, eps: float = 1e-7):
     """``1 - GIoU`` of aligned xyxy boxes."""
     loss = 1.0 - bbox_overlaps_aligned(pred, target, mode='giou', eps=eps)
+    return loss_weight * reduce_loss(loss, reduction, weight, avg_factor)
+
+
+def iou_loss(pred, target, weight=None, reduction: str = 'mean',
+             avg_factor=None, loss_weight: float = 1.0, eps: float = 1e-6,
+             linear: bool = False):
+    """``-log(IoU)``, or ``1 - IoU`` with ``linear``, of aligned xyxy
+    boxes, the IoU clipped below at ``eps`` (``tpudet/models/losses.py:
+    67-73``)."""
+    ious = torch.clamp_min(
+        bbox_overlaps_aligned(pred, target, mode='iou', eps=eps), eps)
+    loss = (1 - ious) if linear else -torch.log(ious)
     return loss_weight * reduce_loss(loss, reduction, weight, avg_factor)
 
 

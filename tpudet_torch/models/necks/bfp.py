@@ -36,8 +36,8 @@ def pool_to(x: torch.Tensor, size) -> torch.Tensor:
     if (th, tw) == (h, w):
         return x
     if h % th or w % tw:
-        raise ValueError(f'BFP: {tuple(x.shape)} does not pool to {size} '
-                         f'by an integer ratio')
+        raise ValueError(f'{tuple(x.shape)} does not pool to {size} by an '
+                         f'integer ratio')
     k = (h // th, w // tw)
     return F.max_pool2d(x, k, stride=k)
 
@@ -50,8 +50,8 @@ def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
     if (th, tw) == (h, w):
         return x
     if th % h or tw % w:
-        raise ValueError(f'BFP: {tuple(x.shape)} does not resize to {size} '
-                         f'by an integer ratio')
+        raise ValueError(f'{tuple(x.shape)} does not resize to {size} by '
+                         f'an integer ratio')
     ry, rx = th // h, tw // w
     return x[:, :, :, None, :, None].expand(b, c, h, ry, w, rx).reshape(
         b, c, th, tw)

@@ -9,10 +9,18 @@
 // copy of the pixels. nvJPEG's default backend (NVJPEG_BACKEND_DEFAULT,
 // nvjpegDecode) picks where the Huffman stage runs.
 //
-// One handle a process and one nvjpegJpegState_t a thread that decodes
-// (the wrapper keeps them). Every function returns nvJPEG's status (0 is
-// NVJPEG_STATUS_SUCCESS); tpudet_nvjpeg_decode returns 1000 + the
-// cudaError_t when nvJPEG succeeded but left a CUDA error behind.
+// One handle a process and one decoder state a thread that decodes (the
+// wrapper keeps them). Every function returns nvJPEG's status (0 is
+// NVJPEG_STATUS_SUCCESS); tpudet_nvjpeg_decode and the state's functions
+// return 1000 + the cudaError_t of a CUDA call that failed.
+//
+// nvjpegDecode returns once its host stage is done and leaves the copies
+// out of the state's pinned buffers queued on the stream. A decode that
+// reuses the state before those copies ran overwrites what they read, and
+// the earlier image comes out corrupt: it happens where the stream runs
+// far behind the host, as on a card that other work keeps busy. So a
+// state records an event after each decode and waits for it before the
+// next one, and before it is destroyed.
 
 #include <cuda_runtime.h>
 #include <nvjpeg.h>
@@ -40,16 +48,39 @@ int tpudet_nvjpeg_destroy(void* handle) {
   return nvjpegDestroy(static_cast<nvjpegHandle_t>(handle));
 }
 
+struct State {
+  nvjpegJpegState_t jpeg;
+  cudaEvent_t done;  // recorded after the state's last decode
+};
+
+static int cuda_status(cudaError_t err) {
+  return err == cudaSuccess ? 0 : 1000 + static_cast<int>(err);
+}
+
 int tpudet_nvjpeg_state_create(void* handle, void** state) {
-  nvjpegJpegState_t s = nullptr;
-  const int st = nvjpegJpegStateCreate(static_cast<nvjpegHandle_t>(handle),
-                                       &s);
+  *state = nullptr;
+  State* s = new State{nullptr, nullptr};
+  int st = nvjpegJpegStateCreate(static_cast<nvjpegHandle_t>(handle),
+                                 &s->jpeg);
+  if (st == NVJPEG_STATUS_SUCCESS)
+    st = cuda_status(cudaEventCreateWithFlags(&s->done,
+                                              cudaEventDisableTiming));
+  if (st != NVJPEG_STATUS_SUCCESS) {
+    if (s->jpeg != nullptr) nvjpegJpegStateDestroy(s->jpeg);
+    delete s;
+    return st;
+  }
   *state = s;
   return st;
 }
 
 int tpudet_nvjpeg_state_destroy(void* state) {
-  return nvjpegJpegStateDestroy(static_cast<nvjpegJpegState_t>(state));
+  State* s = static_cast<State*>(state);
+  int st = cuda_status(cudaEventSynchronize(s->done));
+  cudaEventDestroy(s->done);
+  const int jst = nvjpegJpegStateDestroy(s->jpeg);
+  delete s;
+  return st != 0 ? st : jst;
 }
 
 // Components, chroma subsampling (nvjpegChromaSubsampling_t) and the size
@@ -73,6 +104,7 @@ int tpudet_nvjpeg_info(void* handle, const unsigned char* data, size_t len,
 int tpudet_nvjpeg_decode(void* handle, void* state, const unsigned char* data,
                          size_t len, int bgr, void* out, size_t pitch,
                          void* stream) {
+  State* s = static_cast<State*>(state);
   nvjpegImage_t img;
   for (int c = 0; c < NVJPEG_MAX_COMPONENT; ++c) {
     img.channel[c] = nullptr;
@@ -80,14 +112,19 @@ int tpudet_nvjpeg_decode(void* handle, void* state, const unsigned char* data,
   }
   img.channel[0] = static_cast<unsigned char*>(out);
   img.pitch[0] = pitch;
-  const int st = nvjpegDecode(
-      static_cast<nvjpegHandle_t>(handle),
-      static_cast<nvjpegJpegState_t>(state), data, len,
+  // the state's previous decode has read its buffers (an event that was
+  // never recorded is complete)
+  int st = cuda_status(cudaEventSynchronize(s->done));
+  if (st != 0) return st;
+  st = nvjpegDecode(
+      static_cast<nvjpegHandle_t>(handle), s->jpeg, data, len,
       bgr ? NVJPEG_OUTPUT_BGRI : NVJPEG_OUTPUT_RGBI, &img,
       static_cast<cudaStream_t>(stream));
   if (st != NVJPEG_STATUS_SUCCESS) return st;
-  const cudaError_t err = cudaGetLastError();
-  return err == cudaSuccess ? 0 : 1000 + static_cast<int>(err);
+  st = cuda_status(cudaEventRecord(s->done,
+                                   static_cast<cudaStream_t>(stream)));
+  if (st != 0) return st;
+  return cuda_status(cudaGetLastError());
 }
 
 }  // extern "C"

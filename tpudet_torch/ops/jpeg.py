@@ -27,7 +27,10 @@ raises. EXIF orientation is ignored on the card, as tpudet's libjpeg path
 ignores it; ``cv2.imdecode`` applies it.
 
 Threads: one nvJPEG handle a process, one decoder state a thread that
-decodes (the server's dispatcher, a loader's prefetch thread).
+decodes (the server's dispatcher, a loader's prefetch thread). A state's
+decode first waits for its previous decode's copies to leave the state's
+pinned buffers (``csrc/nvjpeg_shim.cu``): the host stage of the next
+image would otherwise overwrite them while the stream runs behind.
 """
 from __future__ import annotations
 

@@ -164,6 +164,33 @@ def global_sum(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _GlobalSum(torch.autograd.Function):
+    """All-reduce forward and backward: every rank's loss that divides by
+    the global sum sends its gradient to every rank's addend."""
+
+    @staticmethod
+    def forward(ctx, t):
+        out = t.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
+def global_sum_with_grad(t: torch.Tensor) -> torch.Tensor:
+    """``global_sum`` through which the gradient flows: a normalizer that
+    depends on the parameters (AutoAssign's sum of its learned prior).
+    With the step's gradient all-reduce, the ranks' gradients add up to
+    the gradient of the whole batch's loss."""
+    if not is_distributed():
+        return t
+    return _GlobalSum.apply(t)
+
+
 def global_count(n: float, device) -> torch.Tensor:
     """A local count ``n`` (images in this rank's batch, say) summed over
     the ranks: an fp32 0-d tensor on ``device``."""

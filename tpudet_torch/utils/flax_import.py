@@ -27,8 +27,10 @@ path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
   LayerNorm's ``scale/bias`` (params only) become ``weight/bias``;
 - a module's raw parameters (``GeneralizedAttention``'s ``gamma``,
   ``key_content_bias``, ``geom_bias``; ``L2Norm``'s ``scale``;
-  ``SAConv2d``'s HWIO ``kernel`` and ``weight_diff``, conv kernels) are
-  carried under the names its ``flax_leaves`` gives them.
+  ``SAConv2d``'s HWIO ``kernel`` and ``weight_diff``, conv kernels; the
+  dense heads' level ``scales``, AutoAssign's ``center_mean`` and
+  ``center_sigma``) are carried under the names its ``flax_leaves`` gives
+  them.
 
 Every leaf must find its tensor, with its shape, and every tensor of the
 model must be reached: anything else raises. Nothing is dropped. The only
