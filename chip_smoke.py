@@ -6186,9 +6186,9 @@ def run_export(torch, tree):
         calls = {'live': lambda: live('bf16'),
                  'exported': lambda: exported('bf16')}
         walls = {who: [] for who in calls}
-        with torch.inference_mode():
+        with torch.inference_mode():  # both calls ran in (b) and (c)
             for who in ('live', 'exported', 'exported', 'live'):
-                walls[who].append(cuda_ms(calls[who], runs=5))
+                walls[who].append(cuda_ms(calls[who], warmup=1, runs=5))
         numbers.update(live_e2e_ms=walls['live'],
                        exported_e2e_ms=walls['exported'])
         for who, fn in calls.items():
@@ -6244,6 +6244,9 @@ CONFIG_V3 = os.path.join(ROOT,
 ZOO_FP32_IMG = 640  # Cascade R-CNN, card against CPU
 ZOO_TRAIN_STEPS = 2
 ZOO_TIMED_RUNS = 3  # a zoo model's e2e and forward: the median of 3
+# the prediction layers' redraw measures their inputs on the first 2 images
+# of the batch (phase 20's ZOO_I_REDRAW_IMAGES), BatchNorm statistics on all
+ZOO_REDRAW_IMAGES = 2
 V3_IMG, V3_BATCH = 608, 8
 V3_PRED_SPREAD = 2.0  # YOLOv3's pred convs: every attribute's logits
 # phase 17's redraws: each DCN conv_offset's offsets (px) and mask logits;
@@ -6359,15 +6362,19 @@ def zoo_inference(torch, mish, config, name, seed, size=None, batch=None,
     finite detections in every image; e2e and forward ms, device busy and
     kernels a call, peak memory; ``size`` and ``batch`` FRCNN_IMG and
     FRCNN_BATCH unless given. The weights are ``zoo_variables`` (with
-    ``extra`` redraws), then ``leaves(tree)`` where given. Returns (weights
+    ``extra`` redraws, measured on ZOO_REDRAW_IMAGES of the batch unless
+    ``measure_bn``), then ``leaves(tree)`` where given. Returns (weights
     tree, the Detector, the image batch, launches, times)."""
     from tpudet_torch.apis import init_detector
     from tpudet_torch.config import Config
     size, batch = size or FRCNN_IMG, batch or FRCNN_BATCH
     cfg = Config.fromfile(config)
     img_np = retina_images(cfg, batch, size, seed)
+    deferred_checks_start()  # the last model's CPU check beside the draw
     t0 = time.perf_counter()
-    tree = zoo_variables(torch, cfg, img_np, seed, measure_bn, extra=extra)
+    tree = zoo_variables(
+        torch, cfg, img_np if measure_bn else img_np[:ZOO_REDRAW_IMAGES],
+        seed, measure_bn, extra=extra)
     if leaves is not None:
         leaves(tree)
     det = init_detector(cfg, variables=tree, device='cuda',
@@ -6379,6 +6386,7 @@ def zoo_inference(torch, mish, config, name, seed, size=None, batch=None,
         f'{seed}) in '
         f'{time.perf_counter() - t0:.1f} s')
     img = torch.from_numpy(img_np).cuda()
+    deferred_checks_join()  # before anything timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(mish)
@@ -6394,10 +6402,12 @@ def zoo_inference(torch, mish, config, name, seed, size=None, batch=None,
             torch.isfinite(res.scores).all() and min(n_valid) > 0):
         raise AssertionError(f'{name}: non-finite detections or an image '
                              f'without')
+    # the counted call above warmed both paths (the forward is the call's
+    # first part)
     with torch.inference_mode():
-        times = {'e2e_ms': cuda_ms(lambda: det(img), warmup=1,
+        times = {'e2e_ms': cuda_ms(lambda: det(img), warmup=0,
                                    runs=ZOO_TIMED_RUNS),
-                 'forward_ms': cuda_ms(lambda: model(img), warmup=1,
+                 'forward_ms': cuda_ms(lambda: model(img), warmup=0,
                                        runs=ZOO_TIMED_RUNS)}
     times['img_per_s'] = batch / times['e2e_ms'] * 1e3
     times['peak_mem_gib'] = torch.cuda.max_memory_allocated() / 2**30
@@ -6410,41 +6420,97 @@ def zoo_inference(torch, mish, config, name, seed, size=None, batch=None,
     return tree, det, img, launches, times
 
 
+DEFERRED_CHECKS = []  # fp32 checks' CPU halves, queued for untimed work
+RUNNING_CHECKS = []   # the thread running them
+
+
+def deferred_checks_start():
+    """Run the queued CPU halves of the fp32 checks in a thread: until
+    ``deferred_checks_join`` the caller runs only untimed work (the next
+    model's weight draw and build)."""
+    if DEFERRED_CHECKS and not RUNNING_CHECKS:
+        jobs = DEFERRED_CHECKS[:]
+        DEFERRED_CHECKS.clear()
+        RUNNING_CHECKS.append(beside(lambda: [job() for job in jobs]))
+
+
+def deferred_checks_join():
+    """Wait for the running CPU halves (raising a failed check's error)."""
+    while RUNNING_CHECKS:
+        RUNNING_CHECKS.pop()()
+
+
+def deferred_checks_finish():
+    """Run every queued CPU half to its end: a phase's checks all end in
+    the phase."""
+    deferred_checks_start()
+    deferred_checks_join()
+
+
+def beside(fn):
+    """Start ``fn()`` in a thread; the returned callable waits for it and
+    gives its result (or raises its exception)."""
+    out = {}
+
+    def run():
+        try:
+            out['value'] = fn()
+        except BaseException as e:  # re-raised in the caller's thread
+            out['error'] = e
+    thread = threading.Thread(target=run, name='CPU reference')
+    thread.start()
+
+    def result():
+        thread.join()
+        if 'error' in out:
+            raise out['error']
+        return out['value']
+    return result
+
+
 def zoo_fp32_check(torch, cfg, tree, name, size, seed, min_pairs=1):
     """fp32 on the card (TF32 off) against the port's CPU call on
     FRCNN_FP32_IMAGES seeded images of ``size``^2: per image the
     detections pair one-to-one (label, IoU >= MATCH_IOU), all but
-    FRCNN_KEEP_SHARE of the CPU's, and at least ``min_pairs`` pair.
-    Returns the pairs per image."""
+    FRCNN_KEEP_SHARE of the CPU's, and at least ``min_pairs`` pair. The
+    card's call runs now; the CPU's and the comparison are queued
+    (``deferred_checks_start``). Returns the pairs per image, a list
+    filled then."""
     from tpudet_torch.apis import init_detector
+    few = torch.from_numpy(retina_images(cfg, FRCNN_FP32_IMAGES, size, seed))
+    pairs = []
+
+    def cpu_call():
+        t0 = time.perf_counter()
+        ref = init_detector(cfg, variables=tree, device='cpu',
+                            dtype=torch.float32)(few)
+        return ref, time.perf_counter() - t0
+
+    def compare(ref, cpu_s, got):
+        for i in range(FRCNN_FP32_IMAGES):
+            m, n_ref, n_got, gap = match_detections(ref, got, i, MATCH_IOU)
+            log(f'{name} fp32 card vs CPU ({cpu_s:.1f} s on the CPU), image '
+                f'{i} at {size}^2: detections {m} matched of {n_ref} / '
+                f'{n_got} (label and IoU >= {MATCH_IOU}; at least '
+                f'{min_pairs}), largest box delta {gap:.3e} px')
+            if not (n_ref and n_ref - m <= FRCNN_KEEP_SHARE * n_ref and
+                    m >= min_pairs):
+                raise AssertionError(f'{name} fp32 detections on the card '
+                                     f'differ from the CPU, or too few pair')
+            pairs.append(m)
+
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        few = torch.from_numpy(retina_images(cfg, FRCNN_FP32_IMAGES, size,
-                                             seed))
-        t0 = time.perf_counter()
-        ref = init_detector(cfg, variables=tree, device='cpu',
-                            dtype=torch.float32)(few)
-        cpu_s = time.perf_counter() - t0
         got = init_detector(cfg, variables=tree, device='cuda',
                             dtype=torch.float32)(few.cuda())
+        got = type(got)(*(t.cpu() for t in got))
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
             allow_tf32 = flags
-    pairs = []
-    for i in range(FRCNN_FP32_IMAGES):
-        m, n_ref, n_got, gap = match_detections(ref, got, i, MATCH_IOU)
-        log(f'{name} fp32 card vs CPU ({cpu_s:.1f} s on the CPU), image {i} '
-            f'at {size}^2: detections {m} matched of {n_ref} / {n_got} '
-            f'(label and IoU >= {MATCH_IOU}; at least {min_pairs}), largest '
-            f'box delta {gap:.3e} px')
-        if not (n_ref and n_ref - m <= FRCNN_KEEP_SHARE * n_ref and
-                m >= min_pairs):
-            raise AssertionError(f'{name} fp32 detections on the card differ '
-                                 f'from the CPU, or too few pair')
-        pairs.append(m)
+    DEFERRED_CHECKS.append(lambda: compare(*cpu_call(), got))
     torch.cuda.empty_cache()
     return pairs
 
@@ -6772,6 +6838,7 @@ def run_zoo(torch):
         times[name], paths = fn(torch, mish)
         launches.update(paths)
         log(f'phase 16 {name}: {time.perf_counter() - t0:.1f} s')
+    deferred_checks_finish()  # the phase's last fp32 checks
     log('phase 16 inference times: ' + json.dumps(times))
     return {k: {path: counts[k] for path, counts in launches.items()}
             for k in ('mish_fwd', 'mish_bwd')}
@@ -7117,6 +7184,7 @@ def run_zoo_deg(torch):
         times[name], paths = fn(torch, mish)
         launches.update(paths)
         log(f'phase 17 {name}: {time.perf_counter() - t0:.1f} s')
+    deferred_checks_finish()  # the phase's last fp32 checks
     log('phase 17 inference times: ' + json.dumps(times))
     return {k: {path: counts[k] for path, counts in launches.items()}
             for k in ('mish_fwd', 'mish_bwd')}
@@ -7225,6 +7293,7 @@ def run_zoo_atss(torch):
         del tree
         torch.cuda.empty_cache()
         log(f'phase 18 {key}: {time.perf_counter() - t0:.1f} s')
+    deferred_checks_finish()  # the phase's last fp32 checks
     log('phase 18 inference times: ' + json.dumps(times))
     return {k: {path: counts[k] for path, counts in launches.items()}
             for k in ('mish_fwd', 'mish_bwd')}
@@ -7436,6 +7505,7 @@ def run_zoo_paa_libra(torch):
         del tree
         torch.cuda.empty_cache()
         log(f'phase 19 {key}: {time.perf_counter() - t0:.1f} s')
+    deferred_checks_finish()  # the phase's last fp32 checks
     log('phase 19 inference times: ' + json.dumps(times))
     return {k: {path: counts[k] for path, counts in launches.items()}
             for k in ('mish_fwd', 'mish_bwd')}
@@ -7524,6 +7594,7 @@ def zoo_i_inference(torch, mish, config, name, seed):
     cfg = Config.fromfile(config)
     img_np = retina_images(cfg, FRCNN_BATCH, FRCNN_IMG, seed)
     t0 = time.perf_counter()
+    deferred_checks_start()  # the last model's CPU check beside the draw
     tree = zoo_variables(torch, cfg, img_np[:ZOO_I_REDRAW_IMAGES], seed,
                          extra=ZOO_I_SPREADS, run=zoo_i_measure(torch))
     det = init_detector(cfg, variables=tree, device='cuda',
@@ -7550,6 +7621,7 @@ def zoo_i_inference(torch, mish, config, name, seed):
             return res, probs, masks_to_segm_results(probs, res, metas, nc,
                                                      MASK_THR)
 
+    deferred_checks_join()  # before anything timed
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(mish)
@@ -7707,65 +7779,73 @@ def zoo_i_fp32_check(torch, cfg, tree, key, name, seed):
     pair one-to-one (label, IoU >= MATCH_IOU), all but FRCNN_KEEP_SHARE of
     the CPU's; the mask probabilities of the pairs (every mask mode)
     further apart than MRCNN_PROB_ATOL at most at ZOO_I_MASK_SHARE of the
-    pixels. Returns the numbers."""
+    pixels. The CPU's call and the comparison are queued
+    (``deferred_checks_start``); the returned dict of numbers is filled
+    then."""
     from tpudet_torch.apis import init_detector
     from tpudet_torch.apis.test import predict_masks
+    masks = key in ZOO_I_MASK_SHARE
+    n = ZOO_I_FP32_IMAGES
+    few = torch.from_numpy(retina_images(cfg, n, ZOO_FP32_IMG, seed))
+    sf = torch.ones((n, 4))
+    result = dict(pairs=[], mask_prob_max_abs=0.0, mask_pixel_share=0.0)
+
+    def call(device):
+        det = init_detector(cfg, variables=tree, device=device,
+                            dtype=torch.float32)
+        with torch.inference_mode():
+            res, probs = (predict_masks(det.model, few.to(device),
+                                        sf.to(device)) if masks
+                          else (det(few.to(device)), None))
+        return (type(res)(*(t.cpu() for t in res)),
+                None if probs is None else probs.cpu())
+
+    def compare(got, got_p):
+        t0 = time.perf_counter()
+        ref, ref_p = call('cpu')
+        cpu_s = time.perf_counter() - t0
+        far = total = 0
+        for i in range(n):
+            m, n_ref, n_got, gap = match_detections(ref, got, i, MATCH_IOU)
+            result['pairs'].append(m)
+            if masks:
+                pairs = detection_pairs(ref, got, i, MATCH_IOU)
+                r_idx = torch.tensor([r for r, _ in pairs], dtype=torch.long)
+                g_idx = torch.tensor([g for _, g in pairs], dtype=torch.long)
+                d = (ref_p[i][r_idx] - got_p[i][g_idx]).abs()
+                result['mask_prob_max_abs'] = max(
+                    result['mask_prob_max_abs'], float(d.max()))
+                far += int((d > MRCNN_PROB_ATOL).sum())
+                total += d.numel()
+            log(f'{name} fp32 card vs CPU ({cpu_s:.1f} s on the CPU), image '
+                f'{i} at {ZOO_FP32_IMG}^2: detections {m} matched of {n_ref} '
+                f'/ {n_got} (label and IoU >= {MATCH_IOU}), largest box '
+                f'delta {gap:.3e} px')
+            if not (n_ref and n_ref - m <= FRCNN_KEEP_SHARE * n_ref):
+                raise AssertionError(f'{name} fp32 detections on the card '
+                                     f'differ from the CPU')
+        if masks:
+            result['mask_pixel_share'] = far / max(total, 1)
+            log(f'{name} fp32 card vs CPU masks {tuple(ref_p.shape[2:])} on '
+                f'the pairs: max |delta| {result["mask_prob_max_abs"]:.3e}, '
+                f'share further than {MRCNN_PROB_ATOL}: '
+                f'{result["mask_pixel_share"]:.3e} (at most '
+                f'{ZOO_I_MASK_SHARE[key]})')
+            if not (total and result['mask_pixel_share'] <=
+                    ZOO_I_MASK_SHARE[key]):
+                raise AssertionError(f'{name} fp32 masks on the card differ '
+                                     f'from the CPU')
+
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    masks = key in ZOO_I_MASK_SHARE
     try:
-        n = ZOO_I_FP32_IMAGES
-        few = torch.from_numpy(retina_images(cfg, n, ZOO_FP32_IMG, seed))
-        sf = torch.ones((n, 4))
-        out = []
-        t0 = time.perf_counter()
-        for device in ('cpu', 'cuda'):
-            det = init_detector(cfg, variables=tree, device=device,
-                                dtype=torch.float32)
-            with torch.inference_mode():
-                out.append(predict_masks(det.model, few.to(device),
-                                         sf.to(device)) if masks
-                           else (det(few.to(device)), None))
-            if device == 'cpu':
-                cpu_s = time.perf_counter() - t0
-            del det
+        got = call('cuda')
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
             allow_tf32 = flags
-    (ref, ref_p), (got, got_p) = out
-    result = dict(pairs=[], mask_prob_max_abs=0.0, mask_pixel_share=0.0)
-    far = total = 0
-    for i in range(n):
-        m, n_ref, n_got, gap = match_detections(ref, got, i, MATCH_IOU)
-        result['pairs'].append(m)
-        if masks:
-            pairs = detection_pairs(ref, got, i, MATCH_IOU)
-            r_idx = torch.tensor([r for r, _ in pairs], dtype=torch.long)
-            g_idx = torch.tensor([g for _, g in pairs], dtype=torch.long)
-            d = (ref_p[i][r_idx] - got_p[i][g_idx.cuda()].cpu()).abs()
-            result['mask_prob_max_abs'] = max(result['mask_prob_max_abs'],
-                                              float(d.max()))
-            far += int((d > MRCNN_PROB_ATOL).sum())
-            total += d.numel()
-        log(f'{name} fp32 card vs CPU ({cpu_s:.1f} s on the CPU), image {i} '
-            f'at {ZOO_FP32_IMG}^2: detections {m} matched of {n_ref} / '
-            f'{n_got} (label and IoU >= {MATCH_IOU}), largest box delta '
-            f'{gap:.3e} px')
-        if not (n_ref and n_ref - m <= FRCNN_KEEP_SHARE * n_ref):
-            raise AssertionError(f'{name} fp32 detections on the card differ '
-                                 f'from the CPU')
-    if masks:
-        result['mask_pixel_share'] = far / max(total, 1)
-        log(f'{name} fp32 card vs CPU masks {tuple(ref_p.shape[2:])} on the '
-            f'pairs: max |delta| {result["mask_prob_max_abs"]:.3e}, share '
-            f'further than {MRCNN_PROB_ATOL}: {result["mask_pixel_share"]:.3e}'
-            f' (at most {ZOO_I_MASK_SHARE[key]})')
-        if not (total and result['mask_pixel_share'] <=
-                ZOO_I_MASK_SHARE[key]):
-            raise AssertionError(f'{name} fp32 masks on the card differ from '
-                                 f'the CPU')
+    DEFERRED_CHECKS.append(lambda: compare(*got))
     torch.cuda.empty_cache()
     return result
 
@@ -7848,6 +7928,7 @@ def run_zoo_row_i(torch):
         del tree
         torch.cuda.empty_cache()
         log(f'phase 20 {key}: {time.perf_counter() - t0:.1f} s')
+    deferred_checks_finish()  # the phase's last fp32 check
     log('phase 20 inference times: ' + json.dumps(times))
     return {k: {path: counts[k] for path, counts in launches.items()}
             for k in ('mish_fwd', 'mish_bwd')}
@@ -7921,14 +8002,14 @@ def zoo_j_leaves(seed):
     return redraw
 
 
-def module_share(torch, det, img, busy_ms, cls, label):
-    """The ``cls`` modules of the detector's head on the inputs one bf16
-    call gives them (recorded by forward pre-hooks), run alone, device ms,
-    and their share of the call's device busy ms."""
+def module_share(torch, det, img, busy_ms, cls, label, head='bbox_head'):
+    """The ``cls`` modules of the detector's ``head`` on the inputs one
+    bf16 call gives them (recorded by forward pre-hooks), run alone, device
+    ms, and their share of the call's device busy ms."""
     calls = []
     hooks = [m.register_forward_pre_hook(
-        lambda mod, args: calls.append((mod, args[0])))
-        for m in det.model.bbox_head.modules() if isinstance(m, cls)]
+        lambda mod, args: calls.append((mod, args)))
+        for m in getattr(det.model, head).modules() if isinstance(m, cls)]
     try:
         with torch.inference_mode():
             det.model(img)
@@ -7936,7 +8017,8 @@ def module_share(torch, det, img, busy_ms, cls, label):
         for h in hooks:
             h.remove()
     with torch.inference_mode():
-        ms = cuda_ms(lambda: [mod(x) for mod, x in calls], warmup=1, runs=3)
+        ms = cuda_ms(lambda: [mod(*args) for mod, args in calls], warmup=1,
+                     runs=3)
     out = {f'{label}_sites': len(calls), f'{label}_ms': ms,
            f'{label}_share': ms / busy_ms if busy_ms else None}
     log(f'{label} sites of the head on one bf16 call\'s inputs: ' +
@@ -8025,7 +8107,167 @@ def run_zoo_row_j_dense(torch):
         del tree
         torch.cuda.empty_cache()
         log(f'phase 21 {key}: {time.perf_counter() - t0:.1f} s')
+    deferred_checks_finish()  # the phase's last fp32 checks
     log('phase 21 inference times: ' + json.dumps(times))
+    return {k: {path: counts[k] for path, counts in launches.items()}
+            for k in ('mish_fwd', 'mish_bwd')}
+
+
+CONFIG_REPPOINTS = os.path.join(
+    ROOT, 'configs/reppoints/reppoints_moment_r50_fpn_1x_coco.py')
+CONFIG_SABL_RETINA = os.path.join(
+    ROOT, 'configs/sabl/sabl_retinanet_r50_fpn_1x_coco.py')
+CONFIG_SABL_FRCNN = os.path.join(
+    ROOT, 'configs/sabl/sabl_faster_rcnn_r50_fpn_1x_coco.py')
+CONFIG_GA_RETINA = os.path.join(
+    ROOT, 'configs/guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py')
+CONFIG_GA_FRCNN = os.path.join(
+    ROOT, 'configs/guided_anchoring/ga_faster_r50_fpn_1x_coco.py')
+J2A_FP32_IMG = 640  # phase 22's fp32 card-vs-CPU image
+# phase 22's redraws (module name regex -> (spread, bias)) of the layers
+# the earlier phases' table does not name (it names retina_cls,
+# retina_reg, rpn_cls, rpn_reg, fc_cls, fc_reg and every conv_offset,
+# FeatureAdaption's among them): RepPoints' class logits as RetinaNet's,
+# its init points a stride around the grid (tpudet's N(0, 0.01^2) keeps
+# the deformable taps on it) and the refinement half that; SABL's bucket
+# logits and offsets, the RoI head's per position; Guided Anchoring's
+# location logits around -3 (a fifth of the cells under the 0.01 filter)
+# and shapes exp(+-0.5) of the square.
+ZOO_J2A_SPREADS = {
+    'reppoints': {r'bbox_head\.cls_out$': ZOO_J_CLS,
+                  r'bbox_head\.pts_init_out$': (1.0, 0.0),
+                  r'bbox_head\.refine_out$': (0.5, 0.0)},
+    'sabl_retinanet': {r'bbox_head\.retina_bbox_cls$': (2.0, 0.0),
+                       r'bbox_head\.retina_bbox_reg$': (0.3, 0.0)},
+    'sabl_faster_rcnn': {r'roi_head\.bbox_head\.[xy]_cls$': (2.0, 0.0),
+                         r'roi_head\.bbox_head\.[xy]_off$': (0.3, 0.0)},
+    'ga_retinanet': {r'bbox_head\.conv_loc$': (2.0, -3.0),
+                     r'bbox_head\.conv_shape$': (0.5, 0.0)},
+    'ga_faster_rcnn': {r'rpn_head\.conv_loc$': (2.0, -3.0),
+                       r'rpn_head\.conv_shape$': (0.5, 0.0)},
+}
+MOMENT_SPREAD = 0.3  # RepPoints' moment_transfer (0 at tpudet's init)
+
+
+def zoo_j2a_leaves(seed):
+    """RepPoints' ``moment_transfer`` redrawn in [-MOMENT_SPREAD,
+    MOMENT_SPREAD]: the learned scale of the moment boxes."""
+    import numpy as np
+
+    def redraw(tree):
+        head = tree['params'].get('bbox_head', {})
+        if 'moment_transfer' in head:
+            head['moment_transfer'] = np.random.RandomState(seed + 2).uniform(
+                -MOMENT_SPREAD, MOMENT_SPREAD, 2).astype(np.float32)
+    return redraw
+
+
+def proposal_ms(torch, det, img):
+    """The RPN head's ``get_proposals`` (``test_cfg.rpn``) on one bf16
+    call's pred maps, device ms, and the proposals it keeps an image."""
+    from tpudet_torch.models.detectors.two_stage import proposal_kwargs
+    model = det.model
+    kwargs = proposal_kwargs(dict(model.test_cfg or {}).get('rpn', {}), 1000)
+    with torch.inference_mode():
+        preds = model.rpn_head(model.extract_feat(img))
+
+        def call():
+            return model.rpn_head.get_proposals(
+                preds, img_shape=tuple(img.shape[1:3]), **kwargs)
+        kept = [int(v) for v in call()[2].sum(1)]
+        ms = cuda_ms(call, warmup=1, runs=3)
+    out = {'proposals_ms': ms, 'proposals_kept': kept,
+           'max_num': kwargs['max_num']}
+    log(f'{type(model.rpn_head).__name__} proposals on one bf16 call\'s '
+        f'maps: ' + json.dumps(out))
+    if max(kept) > kwargs['max_num'] or min(kept) == 0:
+        raise AssertionError('the RPN kept no proposal or more than the '
+                             'config caps')
+    return out
+
+
+def run_zoo_row_j2a(torch):
+    """Phase 22: RepPoints, SABL RetinaNet, SABL Faster R-CNN, GA
+    RetinaNet and GA Faster R-CNN, R50 at full width and depth: bf16
+    inference at batch 8 on 1344^2 (e2e, forward, device busy, kernels,
+    peak memory; decode and NMS ms of the one-stage three, the RPN's
+    proposal ms of the two Faster R-CNNs; the deformable convs' share of
+    busy for RepPoints and both GA models, RepPoints' GroupNorm share),
+    fp32 card against CPU on one image of J2A_FP32_IMG^2 (at least
+    ATSS_MIN_PAIRS pairs), 2 bf16 steps of 2 images at 1344^2 (peak
+    memory); the test CLI on SABL RetinaNet, ``train_detector`` on GA
+    Faster R-CNN. Returns each path's launches of each kernel (all 0:
+    ReLU)."""
+    import tempfile
+
+    from tpudet_torch.config import Config
+    from tpudet_torch.models.dense_heads import (atss_head,
+                                                 guided_anchor_head,
+                                                 sabl_retina_head)
+    from tpudet_torch.models.plugins import GroupNorm
+    from tpudet_torch.ops import mish
+    from tpudet_torch.ops.deform_conv import DeformConv2d
+    from tpudet_torch.utils.checkpoint import save_variables
+    log('phase 22 redraws: ' + json.dumps(
+        {k: {r: list(v) for r, v in d.items()}
+         for k, d in ZOO_J2A_SPREADS.items()}) + f'; conv_offset spread '
+        f'{DCN_OFFSET_SPREAD}; moment_transfer in +-{MOMENT_SPREAD}')
+    launches, times = {}, {}
+    for key, config, name, seed, nms_module, dcn_head in (
+            ('reppoints', CONFIG_REPPOINTS, 'RepPoints R50-FPN',
+             SEED + 8000, atss_head, 'bbox_head'),
+            ('sabl_retinanet', CONFIG_SABL_RETINA, 'SABL RetinaNet R50-FPN',
+             SEED + 8100, sabl_retina_head, None),
+            ('sabl_faster_rcnn', CONFIG_SABL_FRCNN,
+             'SABL Faster R-CNN R50-FPN', SEED + 8200, None, None),
+            ('ga_retinanet', CONFIG_GA_RETINA, 'GA RetinaNet R50-FPN',
+             SEED + 8300, guided_anchor_head, 'bbox_head'),
+            ('ga_faster_rcnn', CONFIG_GA_FRCNN, 'GA Faster R-CNN R50-FPN',
+             SEED + 8400, None, 'rpn_head')):
+        t0 = time.perf_counter()
+        cfg = Config.fromfile(config)
+        tree, det, img, infer, t = zoo_inference(
+            torch, mish, config, name, seed, extra=ZOO_J2A_SPREADS[key],
+            leaves=zoo_j2a_leaves(seed))
+        launches[f'{key}_inference_forward'] = infer
+        if nms_module is not None:
+            t.update(atss_decode_and_nms_ms(torch, det, img, nms_module))
+        else:
+            t.update(proposal_ms(torch, det, img))
+        if dcn_head is not None:
+            t.update(module_share(torch, det, img, t['busy_ms'],
+                                  DeformConv2d, 'dcn', dcn_head))
+        if key == 'reppoints':
+            t.update(module_share(torch, det, img, t['busy_ms'], GroupNorm,
+                                  'groupnorm'))
+        log(f'{name} split: ' + json.dumps(
+            {k: v for k, v in t.items() if k.endswith(
+                ('decode_ms', 'nms_ms', 'nms_candidates', 'proposals_ms',
+                 '_share'))}))
+        del det, img
+        torch.cuda.empty_cache()
+        t['fp32_pairs'] = zoo_fp32_check(torch, cfg, tree, name,
+                                         J2A_FP32_IMG, seed + 10,
+                                         min_pairs=ATSS_MIN_PAIRS)
+        launches[f'{key}_train_step'] = zoo_train_steps(
+            torch, mish, config, tree, name,
+            zoo_batch_fn(torch, cfg, seed + 20))
+        if key == 'sabl_retinanet':
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = os.path.join(tmp, 'sabl_retinanet.msgpack')
+                save_variables(ckpt, tree)
+                launches['sabl_retinanet_test_cli_batch'] = run_cli_eval(
+                    torch, config, ckpt, img_size=FRCNN_IMG,
+                    mish_per_forward=0)
+        if key == 'ga_faster_rcnn':
+            launches['ga_faster_rcnn_train_detector_step'], _ = \
+                zoo_loop_and_cli(torch, config, name, seed + 30, cli=False)
+        times[key] = t
+        del tree
+        torch.cuda.empty_cache()
+        log(f'phase 22 {key}: {time.perf_counter() - t0:.1f} s')
+    deferred_checks_finish()  # the phase's last fp32 checks
+    log('phase 22 inference times: ' + json.dumps(times))
     return {k: {path: counts[k] for path, counts in launches.items()}
             for k in ('mish_fwd', 'mish_bwd')}
 
@@ -8187,7 +8429,13 @@ def main():
     zoo_j_launches = run_zoo_row_j_dense(torch)
     log(f'zoo row j one-stage phases: {time.perf_counter() - t0:.1f} s')
 
-    # 22. output
+    # 22. RepPoints, SABL RetinaNet and Faster R-CNN, GA RetinaNet and
+    # Faster R-CNN; each path with counts at 0 just before
+    t0 = time.perf_counter()
+    zoo_j2a_launches = run_zoo_row_j2a(torch)
+    log(f'zoo row j2a phases: {time.perf_counter() - t0:.1f} s')
+
+    # 23. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -8233,6 +8481,7 @@ def main():
             paths.update(zoo_h_launches[k['name']])
             paths.update(zoo_i_launches[k['name']])
             paths.update(zoo_j_launches[k['name']])
+            paths.update(zoo_j2a_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all, '

@@ -45,6 +45,8 @@ from tpudet.core import assigners as jassign
 from tpudet.models import losses as jlosses
 from tpudet.models.builder import build_detector as jax_build_detector
 from tpudet.train.optim import YoloSGDConfig as JaxSGDConfig
+from tpudet.train.optim import make_yolo_sgd as jax_make_sgd
+from tpudet.train.train_state import TrainState as JaxTrainState
 from tpudet.train.train_state import create_train_state as jax_create_state
 from tpudet.train.train_state import make_train_step as jax_make_train_step
 from tpudet_torch.apis import init_detector
@@ -434,17 +436,26 @@ def jax_forward_train_loss(jmodel):
     return loss_fn
 
 
-def float64_step(cfg, batch, forward_train=False):
+def float64_step(cfg, batch, forward_train=False, variables=None):
     """One step of tpudet's ``make_train_step`` (x64) and the port's on
     the float64 model, from tpudet's init (through ``forward_train``, and
-    the step's loss through it, with ``forward_train``). Returns
+    the step's loss through it, with ``forward_train``), or from
+    ``variables`` where given (no trace of tpudet's ``init``). Returns
     (tpudet's state before, after, metrics, the port's state as tpudet's
     leaves, metrics, the port's model)."""
     jmodel = jax_build_detector(cfg)
     jopt = JaxSGDConfig(**OPT)
-    state0 = jax.device_get(jax.jit(
-        lambda key, x: jax_create_state(jmodel, key, x, jopt))(
-            jax.random.PRNGKey(0), jnp.zeros((1, STEP_IMG, STEP_IMG, 3))))
+    if variables is None:
+        state0 = jax.device_get(jax.jit(
+            lambda key, x: jax_create_state(jmodel, key, x, jopt))(
+                jax.random.PRNGKey(0), jnp.zeros((1, STEP_IMG, STEP_IMG, 3))))
+    else:
+        params = variables['params']
+        stats = variables.get('batch_stats', {})
+        state0 = JaxTrainState(
+            step=np.zeros((), np.int32), params=params, batch_stats=stats,
+            ema_params=params, ema_batch_stats=stats,
+            opt_state=jax.device_get(jax_make_sgd(jopt)[0](params)))
     state0 = jax.tree.map(lambda a: np.asarray(a, np.float64)
                           if a.dtype == np.float32 else a, state0)
     with jax.enable_x64(True):

@@ -43,9 +43,13 @@ then BFP), ``configs/groie/``, ``configs/ghm/``) are swept like the
 RetinaNet configs. The 8 one-stage configs of ROADMAP.md's zoo row j
 that run on the RetinaNet machinery with no RoI head (``configs/fcos/``,
 ``nas_fcos/``, ``foveabox/``, ``autoassign/``, ``fsaf/``,
-``free_anchor/``, ``yolof/``, ``nas_fpn/``) too. The probe over every
-config under ``configs/`` counts what the port builds (103), refuses with
-``NotImplementedError`` (1) and does not register (``KeyError``, 23).
+``free_anchor/``, ``yolof/``, ``nas_fpn/``) too, and the 5 of its row j2a
+(``configs/reppoints/``, ``sabl/``, ``guided_anchoring/``: RepPoints, SABL
+RetinaNet and Faster R-CNN, GA RetinaNet and Faster R-CNN; their RepPoints
+moment leaf, deformable kernels, GroupNorms and SABL's 1-D conv and
+transposed-conv kernels among the leaves). The probe over every config
+under ``configs/`` counts what the port builds (108), refuses with
+``NotImplementedError`` (1) and does not register (``KeyError``, 18).
 
 Every config whose ``data.train/val/test`` name a dataset other than
 ``CocoDataset`` (9, wrappers' inner datasets included) has each of those
@@ -157,8 +161,16 @@ ZOO_J_DENSE_CONFIGS = sorted(
                     'configs/fsaf/*.py', 'configs/free_anchor/*.py',
                     'configs/yolof/*.py', 'configs/nas_fpn/*.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
+# ROADMAP.md's zoo row j2a, the anchor-refining families: RepPoints,
+# SABL (RetinaNet and Faster R-CNN), Guided Anchoring (RetinaNet and
+# Faster R-CNN)
+ZOO_J2A_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for pattern in ('configs/reppoints/*.py', 'configs/sabl/*.py',
+                    'configs/guided_anchoring/*.py')
+    for p in glob.glob(os.path.join(ROOT, pattern)))
 # the probe over configs/: (build, NotImplementedError, KeyError)
-PROBE_COUNTS = (103, 1, 23)
+PROBE_COUNTS = (108, 1, 18)
 
 # configs that build but sit outside the families above: the fork's two
 # recipes and training from scratch
@@ -245,10 +257,18 @@ def test_the_zoo_row_j_dense_sweep_holds_eight_configs():
         ZOO_I_CONFIGS)
 
 
+def test_the_zoo_row_j2a_sweep_holds_five_configs():
+    assert len(ZOO_J2A_CONFIGS) == 5
+    assert not set(ZOO_J2A_CONFIGS) & set(
+        CONFIGS + RETINA_CONFIGS + TWO_STAGE_CONFIGS + ZOO_ROW_CONFIGS +
+        ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS + KD_CONFIGS + ZOO_H_CONFIGS +
+        ZOO_I_CONFIGS + ZOO_J_DENSE_CONFIGS)
+
+
 def test_the_probe_counts_what_builds_and_what_is_refused():
-    """Every config under ``configs/`` built on the meta device: 103
+    """Every config under ``configs/`` built on the meta device: 108
     build, 1 raises ``NotImplementedError`` (the DCN ResNeXt, refused by
-    design), 23 raise ``KeyError`` (types the port does not register)."""
+    design), 18 raise ``KeyError`` (types the port does not register)."""
     counts = [0, 0, 0]
     for p in sorted(glob.glob(os.path.join(ROOT, 'configs/**/*.py'),
                               recursive=True)):
@@ -300,6 +320,29 @@ def assert_port_tree_is(path, ref):
            for p, (key, kind) in leaf_table(model).items()}
     assert set(got) == set(ref)
     assert got == ref
+
+
+@pytest.mark.parametrize('config', ZOO_J2A_CONFIGS)
+def test_zoo_j2a_config_builds_with_tpudets_param_tree(config):
+    """Each of zoo row j2a's configs, leaf for leaf; the new kinds of leaf
+    among them (RepPoints' ``moment_transfer``, the deformable kernels of
+    RepPoints and of Guided Anchoring's ``FeatureAdaption``, SABL's 1-D
+    ``x_post`` / ``x_up`` kernels)."""
+    path = os.path.join(ROOT, config)
+    assert_tpudets_tree(path)
+    kind = config.split('/')[1]
+    with torch.device('meta'):
+        model = build_detector(Config.fromfile(path)['model'])
+    leaves = {'/'.join(p[1:]): flax_shape(model.state_dict()[key].shape, k)
+              for p, (key, k) in leaf_table(model).items()}
+    want = {'reppoints': ('bbox_head/moment_transfer',
+                          'bbox_head/cls_dcn/kernel'),
+            'guided_anchoring': ('conv_adaption/kernel',),
+            'sabl': ()}[kind]
+    assert all(any(name.endswith(w) for name in leaves) for w in want)
+    if 'sabl_faster' in config:
+        assert leaves['roi_head/bbox_head/x_up/kernel'] == (2, 256, 256)
+        assert leaves['roi_head/bbox_head/x_post/kernel'] == (3, 256, 256)
 
 
 @pytest.mark.parametrize('config', KD_CONFIGS)

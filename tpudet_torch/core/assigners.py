@@ -50,6 +50,11 @@ the same codes:
 duplicates included, with ``pair_pos``: the pair's anchor IoU reaches
 ``pos_ignore_thr`` and its gt is valid.
 
+``approx_max_iou_assign_batch`` is the ApproxMaxIoU assigner of SABL
+RetinaNet and Guided Anchoring: a cell's IoU with a gt is the largest
+over its approx anchors, then the MaxIoU codes. ``point_assign_batch`` is
+RepPoints' PointAssigner.
+
 ``priority_rank`` ranks entries by a fixed priority, the sampling of the
 two-stage heads (``tpudet/models/dense_heads/rpn_head.py:104-117``).
 """
@@ -63,6 +68,7 @@ from .bbox import bbox_cxcywh, bbox_overlaps
 
 IGNORE = -2
 NEGATIVE = -1
+POINT_INF = 1e8  # the point assigner's distance off the gt's level
 
 
 def max_iou_assign_batch(anchors: torch.Tensor,
@@ -75,10 +81,55 @@ def max_iou_assign_batch(anchors: torch.Tensor,
                          gt_max_assign_all: bool = True) -> torch.Tensor:
     """anchors (A, 4) shared by the batch or (B, A, 4) per image,
     gt_bboxes (B, G, 4) padded, gt_valid (B, G) -> (B, A) int64 codes."""
-    b, g = gt_valid.shape
     if anchors.dim() == 2:
         anchors = anchors[None]
-    ious = bbox_overlaps(anchors, gt_bboxes)  # (B, A, G)
+    return assign_by_ious(bbox_overlaps(anchors, gt_bboxes), gt_valid,
+                          pos_iou_thr, neg_iou_thr, min_pos_iou,
+                          match_low_quality, gt_max_assign_all)
+
+
+def approx_max_ious(approx: torch.Tensor, gt_bboxes: torch.Tensor
+                    ) -> torch.Tensor:
+    """The ApproxMaxIoU assigner's IoUs: approx (A, K, 4), K approx
+    anchors a cell, gt_bboxes (B, G, 4) -> (B, A, G), each cell's largest
+    IoU over its K. The max is taken one approx anchor at a time, so no
+    (B, A K, G) tensor is held (1.35 M approx anchors an image at the
+    GA-RPN's strides 4-64 on 1344^2); a max is exact, so the values are
+    tpudet's (``guided_anchor_head.py:269-273``)."""
+    ious = None
+    for k in range(approx.shape[1]):
+        iou = bbox_overlaps(approx[None, :, k], gt_bboxes)
+        ious = iou if ious is None else torch.maximum(ious, iou)
+    return ious
+
+
+def approx_max_iou_assign_batch(approx: torch.Tensor,
+                                gt_bboxes: torch.Tensor,
+                                gt_valid: torch.Tensor,
+                                pos_iou_thr: float = 0.5,
+                                neg_iou_thr: float = 0.4,
+                                match_low_quality: bool = True
+                                ) -> torch.Tensor:
+    """The approx-max-IoU assignment of SABL RetinaNet
+    (``sabl_retina_head.py:139-160``, ``match_low_quality``: every gt
+    claims its best cells at any IoU above 0, the higher gt index on a
+    tie) and of Guided Anchoring's shape targets
+    (``guided_anchor_head.py:269-279, 465-475``, without it): MaxIoU codes
+    over ``approx_max_ious``."""
+    return assign_by_ious(approx_max_ious(approx, gt_bboxes), gt_valid,
+                          pos_iou_thr, neg_iou_thr, 0.0, match_low_quality)
+
+
+def assign_by_ious(ious: torch.Tensor,
+                   gt_valid: torch.Tensor,
+                   pos_iou_thr: float = 0.5,
+                   neg_iou_thr: float = 0.4,
+                   min_pos_iou: float = 0.0,
+                   match_low_quality: bool = True,
+                   gt_max_assign_all: bool = True) -> torch.Tensor:
+    """The MaxIoU codes of (B, A, G) IoUs: ``max_iou_assign_batch``'s
+    rules."""
+    g = gt_valid.shape[1]
     ious = torch.where(gt_valid[:, None, :], ious, ious.new_tensor(-1.0))
     max_iou = ious.amax(dim=2)
     argmax_gt = ious.argmax(dim=2)  # the first maximum on a tie
@@ -91,11 +142,11 @@ def max_iou_assign_batch(anchors: torch.Tensor,
             is_tie = ious == gt_max[:, None, :]
         else:
             first = ious.argmax(dim=1)  # (B, G), the first maximal anchor
-            rows = torch.arange(anchors.shape[1], device=anchors.device)
+            rows = torch.arange(ious.shape[1], device=ious.device)
             is_tie = rows[None, :, None] == first[:, None, :]
         gt_ok = gt_valid & (gt_max >= min_pos_iou) & (gt_max > 0)
         is_best = is_tie & gt_ok[:, None, :]
-        g_idx = torch.arange(g, dtype=torch.int32, device=anchors.device)
+        g_idx = torch.arange(g, dtype=torch.int32, device=ious.device)
         claim = torch.where(is_best, g_idx, torch.full_like(g_idx, -1)
                             ).amax(dim=2).long()  # the highest gt index
         assigned = torch.where(claim >= 0, claim, assigned)
@@ -294,3 +345,38 @@ def priority_rank(mask: torch.Tensor, priority: torch.Tensor) -> torch.Tensor:
     rank.scatter_(1, order, torch.arange(order.shape[1],
                                          device=order.device).expand_as(order))
     return rank
+
+
+def point_assign_batch(points: torch.Tensor, lvl_ids: torch.Tensor,
+                       gt_bboxes: torch.Tensor, gt_valid: torch.Tensor,
+                       lvl_min: int, lvl_max: int, scale: float = 4.0,
+                       pos_num: int = 1) -> torch.Tensor:
+    """RepPoints' PointAssigner (``tpudet/models/dense_heads/
+    reppoints_head.py:187-214``): points (P, 2) at ``lvl_ids`` (P,)
+    (log2 of their strides), gt_bboxes (B, G, 4), gt_valid (B, G) -> (B,
+    P) codes, ``NEGATIVE`` or a gt index.
+
+    A gt's level is ``floor((log2(w / scale) + log2(h / scale)) / 2)``
+    clipped to [lvl_min, lvl_max]; on it the gt takes its ``pos_num``
+    points of least scale-normalised centre distance (ties to the lower
+    point index: a stable sort, as ``lax.top_k``); a point several gts
+    take goes to the closest of them, the lower gt index on a tie."""
+    g_cx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) / 2
+    g_cy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) / 2
+    g_w = torch.clamp_min(gt_bboxes[..., 2] - gt_bboxes[..., 0], 1e-6)
+    g_h = torch.clamp_min(gt_bboxes[..., 3] - gt_bboxes[..., 1], 1e-6)
+    g_lvl = torch.clamp(torch.floor(
+        (torch.log2(g_w / scale) + torch.log2(g_h / scale)) / 2.),
+        lvl_min, lvl_max).to(lvl_ids.dtype)  # (B, G)
+    dist = torch.sqrt(
+        ((points[None, :, 0, None] - g_cx[:, None]) / g_w[:, None]) ** 2 +
+        ((points[None, :, 1, None] - g_cy[:, None]) / g_h[:, None]) ** 2)
+    near = (lvl_ids[None, :, None] == g_lvl[:, None]) & gt_valid[:, None]
+    inf = dist.new_tensor(POINT_INF)
+    dist = torch.where(near, dist, inf)  # (B, P, G)
+    order = torch.sort(dist.transpose(1, 2), dim=-1, stable=True)[1]
+    cand = torch.zeros_like(near).transpose(1, 2).scatter(
+        -1, order[..., :pos_num], True).transpose(1, 2) & (dist < inf)
+    best = torch.where(cand, dist, inf).argmin(dim=2)  # the first minimum
+    return torch.where(cand.any(dim=2), best, NEGATIVE)
+

@@ -1,6 +1,6 @@
 """Box coders and IoU primitives: port of ``tpudet/core/bbox.py``
 (``YOLOV4BBoxCoder``, ``YOLOBBoxCoder``, ``DeltaXYWHBBoxCoder``,
-``TBLRBBoxCoder``, ``bbox_overlaps``, ``bbox_overlaps_aligned``,
+``TBLRBBoxCoder``, ``BucketingBBoxCoder``, ``bbox_overlaps``, ``bbox_overlaps_aligned``,
 ``bbox_cxcywh``). All boxes
 are xyxy; the functions broadcast over leading axes."""
 from __future__ import annotations
@@ -194,6 +194,116 @@ class TBLRBBoxCoder:
             x2 = _clip_to(x2, max_shape[1])
             y2 = _clip_to(y2, max_shape[0])
         return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def _stable_order(x):
+    """Indices sorting ``x`` ascending along the last axis, ties by index
+    (``jnp.argsort``'s order; ``torch.argsort`` promises none unless
+    stable)."""
+    return torch.sort(x, dim=-1, stable=True)[1]
+
+
+class BucketingBBoxCoder:
+    """SABL's side-aware bucketing coder (``tpudet/core/bbox.py:272-373``):
+    each side of a box is placed among ``side_num = ceil(num_buckets / 2)``
+    buckets of its proposal rescaled by ``scale_factor``, then offset from
+    that bucket's centre in bucket widths.
+
+    ``encode`` gives, each (..., 4, side_num) in the order (left, right,
+    top, bottom): the nearest bucket's one-hot, the class weights (0 at
+    every other bucket within one bucket width of the side), the offsets,
+    and the offset weights (1 at the nearest bucket, at the next
+    ``offset_topk - 1`` where their own |offset| is under
+    ``offset_upperbound``). The ranks come from a stable sort: a side
+    midway between two centres gives the lower bucket, as tpudet's.
+
+    ``decode`` takes ``(cls_preds, offset_preds)`` of (..., 4 side_num),
+    a softmax over the buckets, the top two (ties by index), the best
+    bucket's centre shifted by its offset, clipped to ``max_shape - 1``
+    where given, and the rescoring confidence: the mean over the sides of
+    the top probability, plus the runner-up's where the two buckets are
+    adjacent. Returns ``(boxes, confidence)``."""
+
+    def __init__(self, num_buckets: int = 14, scale_factor: float = 3.0,
+                 offset_topk: int = 2, offset_upperbound: float = 1.0,
+                 cls_ignore_neighbor: bool = True):
+        self.num_buckets = num_buckets
+        self.scale_factor = scale_factor
+        self.offset_topk = offset_topk
+        self.offset_upperbound = offset_upperbound
+        self.cls_ignore_neighbor = cls_ignore_neighbor
+
+    @property
+    def side_num(self) -> int:
+        return int(np.ceil(self.num_buckets / 2.0))
+
+    def _sides(self, proposals):
+        """The bucket centres of each side, (..., 4, S), and the bucket
+        widths (..., 4)."""
+        cx = (proposals[..., 0] + proposals[..., 2]) * 0.5
+        cy = (proposals[..., 1] + proposals[..., 3]) * 0.5
+        w = (proposals[..., 2] - proposals[..., 0]) * self.scale_factor
+        h = (proposals[..., 3] - proposals[..., 1]) * self.scale_factor
+        bw = w / self.num_buckets
+        bh = h / self.num_buckets
+        steps = 0.5 + torch.arange(self.side_num, dtype=torch.float32,
+                                   device=proposals.device)
+        steps = steps.to(torch.promote_types(steps.dtype, bw.dtype))
+        px1, px2 = cx - w / 2, cx + w / 2
+        py1, py2 = cy - h / 2, cy + h / 2
+        sides = torch.stack([px1[..., None] + steps * bw[..., None],
+                             px2[..., None] - steps * bw[..., None],
+                             py1[..., None] + steps * bh[..., None],
+                             py2[..., None] - steps * bh[..., None]], dim=-2)
+        return sides, torch.stack([bw, bw, bh, bh], dim=-1)
+
+    def encode(self, proposals, gts):
+        sides, scale = self._sides(proposals)
+        g = torch.stack([gts[..., 0], gts[..., 2], gts[..., 1], gts[..., 3]],
+                        dim=-1)
+        offsets = (sides - g[..., None]) / torch.clamp_min(scale[..., None],
+                                                           1e-6)
+        absoff = offsets.abs()
+        order = _stable_order(absoff)
+        rank = _stable_order(order)
+        labels = (rank == 0).to(offsets.dtype)
+        if self.offset_upperbound is not None:
+            within = (absoff < self.offset_upperbound).to(offsets.dtype)
+        else:
+            within = torch.ones_like(absoff)
+        one, zero = offsets.new_ones(()), offsets.new_zeros(())
+        off_w = torch.where(rank == 0, one, torch.where(
+            rank < self.offset_topk, within, zero))
+        if self.cls_ignore_neighbor:
+            cls_w = 1.0 - ((absoff < 1.0) & (labels == 0)).to(offsets.dtype)
+        else:
+            cls_w = torch.ones_like(labels)
+        return labels, cls_w, offsets, off_w
+
+    def decode(self, proposals, pred_bboxes, max_shape=None):
+        cls_preds, offset_preds = pred_bboxes
+        s = self.side_num
+        shape = cls_preds.shape[:-1] + (4, s)
+        scores = torch.softmax(cls_preds.reshape(shape), dim=-1)
+        offs = offset_preds.reshape(shape)
+        top2, idx2 = torch.sort(scores, dim=-1, descending=True, stable=True)
+        top2, idx2 = top2[..., :2], idx2[..., :2]
+        best = idx2[..., :1]
+        sides, scale = self._sides(proposals)
+        pick_side = torch.gather(sides.expand(shape), -1, best)[..., 0]
+        pick_off = torch.gather(offs, -1, best)[..., 0]
+        edge = pick_side - pick_off * scale  # (..., 4): x1, x2, y1, y2
+        x1, x2, y1, y2 = edge.unbind(-1)
+        if max_shape is not None:
+            x1 = _clip_to(x1, max_shape[1] - 1)
+            x2 = _clip_to(x2, max_shape[1] - 1)
+            y1 = _clip_to(y1, max_shape[0] - 1)
+            y2 = _clip_to(y2, max_shape[0] - 1)
+        boxes = torch.stack([x1, y1, x2, y2], dim=-1)
+        adjacent = (idx2[..., 0] - idx2[..., 1]).abs() == 1
+        side_conf = top2[..., 0] + torch.where(adjacent, top2[..., 1],
+                                               top2.new_zeros(()))
+        return boxes, side_conf.mean(dim=-1)
 
 
 def _area(boxes):

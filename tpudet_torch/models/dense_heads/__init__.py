@@ -5,12 +5,15 @@ from .fovea_head import FoveaHead
 from .free_anchor_retina_head import FreeAnchorRetinaHead
 from .fsaf_head import FSAFHead
 from .gfl_head import GFLHead
+from .guided_anchor_head import FeatureAdaption, GARetinaHead, GARPNHead
 from .ld_head import KnowledgeDistillationSingleStageDetector, LDHead
 from .nasfcos_head import NASFCOS, NASFCOSHead
 from .paa_head import PAAHead
+from .reppoints_head import RepPointsHead
 from .retina_head import RetinaHead
 from .retina_sepbn_head import RetinaSepBNHead
 from .rpn_head import RPNHead
+from .sabl_retina_head import SABLRetinaHead
 from .ssd_head import SSD, SSDHead
 from .vfnet_head import VFNetHead
 from .yolocsp_head import YOLOCSPHead
@@ -22,6 +25,8 @@ from .yolov3_head import YOLOV3Head
 __all__ = ['ATSSHead', 'AutoAssign', 'AutoAssignHead', 'FCOSHead',
            'FoveaHead', 'FreeAnchorRetinaHead', 'FSAFHead', 'NASFCOS',
            'NASFCOSHead', 'RetinaSepBNHead', 'YOLOFHead', 'GFLHead',
+           'FeatureAdaption', 'GARetinaHead', 'GARPNHead', 'RepPointsHead',
+           'SABLRetinaHead',
            'KnowledgeDistillationSingleStageDetector', 'LDHead', 'PAAHead',
            'RetinaHead', 'RPNHead', 'SSD', 'SSDHead',
            'VFNetHead', 'YOLACT', 'YOLACTHead', 'YOLACTProtonet',

@@ -1,8 +1,10 @@
 """Single-stage detector: backbone -> neck -> dense head. Port of
 ``tpudet/models/detectors/single_stage.py`` (``SingleStageDetector``,
 ``YOLOV4``, ``YOLOV5``, ``YOLOV3``, ``RetinaNet``, ``ATSS``, ``GFL``,
-``VFNet``, ``FCOS``, ``FSAF``, ``FOVEA``, ``YOLOF``) and of
-``tpudet/models/dense_heads/paa_head.py``'s ``PAA``."""
+``VFNet``, ``FCOS``, ``FSAF``, ``FOVEA``, ``YOLOF``, ``RepPointsDetector``),
+of ``tpudet/models/dense_heads/paa_head.py``'s ``PAA``, and of the
+``SABLRetinaNet`` and ``GARetinaNet`` of ``sabl_retina_head.py`` and
+``guided_anchor_head.py``."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -158,3 +160,23 @@ class FOVEA(SingleStageDetector):
 class YOLOF(SingleStageDetector):
     """Single-level YOLOF (reference mmdet/models/detectors/yolof.py)."""
     default_iou_thr = 0.6
+
+
+@DETECTORS.register_module()
+class RepPointsDetector(SingleStageDetector):
+    """RepPoints (reference mmdet/models/detectors/reppoints_detector.py)."""
+    default_iou_thr = 0.5
+
+
+@DETECTORS.register_module()
+class SABLRetinaNet(SingleStageDetector):
+    """SABL RetinaNet (``tpudet/models/dense_heads/sabl_retina_head.py:
+    236-246``)."""
+    default_iou_thr = 0.5
+
+
+@DETECTORS.register_module()
+class GARetinaNet(SingleStageDetector):
+    """Guided-anchoring RetinaNet (``tpudet/models/dense_heads/
+    guided_anchor_head.py:585-595``)."""
+    default_iou_thr = 0.5

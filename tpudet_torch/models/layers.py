@@ -1,6 +1,7 @@
 """Shared conv/norm/act building blocks, port of ``tpudet/models/layers.py``,
-the dense layer of the RoI heads (flax's ``nn.Dense``) and the mask head's
-transposed conv (flax's ``nn.ConvTranspose``).
+the dense layer of the RoI heads (flax's ``nn.Dense``), the mask head's
+transposed conv (flax's ``nn.ConvTranspose``) and SABL's 1-D conv and
+transposed conv.
 
 Modules run NCHW (``channels_last`` memory on the card); the detector
 takes and returns tpudet's NHWC layout at its surface. Attribute names
@@ -127,12 +128,49 @@ class ConvTranspose(nn.ConvTranspose2d):
                                   self.dilation)
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in its input's dtype, as ``Conv``: flax's
+    1-D ``nn.Conv`` (kernel (K, in, out)); ``kernel_init`` and
+    ``bias_init`` as ``Conv``'s."""
+
+    def __init__(self, *args, kernel_init='he_normal', bias_init=0.,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """``nn.ConvTranspose1d`` computing in its input's dtype: flax's 1-D
+    ``nn.ConvTranspose`` with its default ``'SAME'`` padding where the
+    kernel equals the stride (SABL's 2x upsample), which is torch's
+    padding 0. The kernel is flipped on the way in and out
+    (``utils/flax_import``), as ``ConvTranspose``'s."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 kernel_init='he_normal', bias_init=0.):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=kernel_size)
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose1d(x, self.weight.to(x.dtype), bias,
+                                  self.stride)
+
+
 def cast_weights(model: nn.Module, dtype: torch.dtype) -> None:
     """Store every conv's and dense layer's parameters in ``dtype``, the
     inference compute dtype (BatchNorm, GroupNorm and the weight-standardized
     convs, which standardize in fp32 at each call, keep fp32)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and \
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d,
+                          nn.ConvTranspose2d, nn.Linear)) and \
                 not getattr(m, 'keeps_fp32', False):
             m.to(dtype)
 

@@ -1,6 +1,7 @@
 """Losses: port of the part of ``tpudet/models/losses.py`` that the ported
 heads use (``reduce_loss``, the BCE with logits, ``bce_loss``,
-``giou_loss``, ``iou_loss``, ``smooth_l1_loss``, ``l1_loss``, ``sigmoid_focal_loss``;
+``giou_loss``, ``iou_loss``, ``bounded_iou_loss``, ``smooth_l1_loss``,
+``l1_loss``, ``sigmoid_focal_loss``;
 the ATSS family's ``varifocal_loss``, ``quality_focal_loss``,
 ``distribution_focal_loss`` and ``kd_kl_div_loss``; Libra R-CNN's
 ``balanced_l1_loss`` and GHM's ``ghm_c_loss`` and ``ghm_r_loss``). The
@@ -74,6 +75,38 @@ def iou_loss(pred, target, weight=None, reduction: str = 'mean',
     ious = torch.clamp_min(
         bbox_overlaps_aligned(pred, target, mode='iou', eps=eps), eps)
     loss = (1 - ious) if linear else -torch.log(ious)
+    return loss_weight * reduce_loss(loss, reduction, weight, avg_factor)
+
+
+def bounded_iou_loss(pred, target, beta: float = 0.2, weight=None,
+                     reduction: str = 'mean', avg_factor=None,
+                     loss_weight: float = 1.0, eps: float = 1e-3):
+    """Bounded IoU loss (``tpudet/models/losses.py:76-100``): per
+    coordinate, ``1 - max((t - 2d) / (t + 2d + eps), 0)`` of the centre
+    shift ``d`` and ``1 - min(t / (p + eps), p / (t + eps))`` of each side,
+    through a smooth-L1 envelope at ``beta``; the target is held constant.
+    ``reduction='none'`` gives the (..., 4) terms."""
+    pcx = (pred[..., 0] + pred[..., 2]) * 0.5
+    pcy = (pred[..., 1] + pred[..., 3]) * 0.5
+    pw = pred[..., 2] - pred[..., 0]
+    ph = pred[..., 3] - pred[..., 1]
+    t = target.detach()
+    tcx = (t[..., 0] + t[..., 2]) * 0.5
+    tcy = (t[..., 1] + t[..., 3]) * 0.5
+    tw = t[..., 2] - t[..., 0]
+    th = t[..., 3] - t[..., 1]
+    # |d| with jnp.abs's gradient at 0 (+1, where torch's abs gives 0): a
+    # centre that sits on the target's still gets the centre terms' pull
+    dx = torch.where(tcx >= pcx, tcx - pcx, pcx - tcx)
+    dy = torch.where(tcy >= pcy, tcy - pcy, pcy - tcy)
+    zero = pred.new_zeros(())
+    loss_dx = 1 - torch.maximum((tw - 2 * dx) / (tw + 2 * dx + eps), zero)
+    loss_dy = 1 - torch.maximum((th - 2 * dy) / (th + 2 * dy + eps), zero)
+    loss_dw = 1 - torch.minimum(tw / (pw + eps), pw / (tw + eps))
+    loss_dh = 1 - torch.minimum(th / (ph + eps), ph / (th + eps))
+    comb = torch.stack([loss_dx, loss_dy, loss_dw, loss_dh], dim=-1)
+    loss = torch.where(comb < beta, 0.5 * comb * comb / beta,
+                       comb - 0.5 * beta)
     return loss_weight * reduce_loss(loss, reduction, weight, avg_factor)
 
 

@@ -6,6 +6,7 @@ from .mask_scoring_roi_head import (MaskIoUHead, MaskScoringRCNN,
                                     MaskScoringRoIHead)
 from .point_rend_roi_head import (CoarseMaskHead, MaskPointHead, PointRend,
                                   PointRendRoIHead)
+from .sabl_roi_head import SABLBBoxHead, SABLFasterRCNN, SABLRoIHead
 from .scnet_roi_head import SCNet, SCNetRoIHead
 from .standard_roi_head import StandardRoIHead
 
@@ -14,4 +15,5 @@ __all__ = ['Shared2FCBBoxHead', 'Shared4Conv1FCBBoxHead', 'StandardRoIHead',
            'MaskRCNN', 'FusedSemanticHead', 'HTCRoIHead', 'HybridTaskCascade',
            'MaskIoUHead', 'MaskScoringRoIHead', 'MaskScoringRCNN',
            'CoarseMaskHead', 'MaskPointHead', 'PointRendRoIHead', 'PointRend',
-           'SCNetRoIHead', 'SCNet']
+           'SCNetRoIHead', 'SCNet', 'SABLBBoxHead', 'SABLRoIHead',
+           'SABLFasterRCNN']

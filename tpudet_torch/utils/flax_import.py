@@ -19,6 +19,9 @@ path: ``params/backbone/conv0/conv/kernel`` is ``backbone.conv0.conv.weight``.
   so a Dense kernel there is 3-D. The port flattens a pooled RoI in
   tpudet's HWC order (``Shared2FCBBoxHead``), so the rows of
   ``shared_fc0`` need no permutation;
+- a 1-D conv ``kernel`` (K, in, out) becomes ``weight`` (out, in, K), and
+  a 1-D ConvTranspose ``kernel`` (K, in, out) becomes ``weight`` (in,
+  out, K) flipped, as the 2-D ones (the ``CONV1`` and ``DECONV1`` kinds);
 - a deformable conv's ``kernel`` (K*K, in, out) becomes ``weight``
   (out, in, K, K), a conv's layout (``ops/deform_conv.py``; the
   ``DEFORM`` kind);
@@ -55,6 +58,7 @@ Path = Tuple[str, ...]
 
 
 CONV, DENSE, DECONV, DEFORM = 'conv', 'dense', 'deconv', 'deform'
+CONV1, DECONV1 = 'conv1d', 'deconv1d'
 
 
 def leaf_table(model: nn.Module) -> Dict[Path, Tuple[str, str]]:
@@ -72,7 +76,9 @@ def leaf_table(model: nn.Module) -> Dict[Path, Tuple[str, str]]:
             if getattr(m, pname, None) is not None:
                 table[('params', *path, leaf)] = (prefix + pname, kind)
         kind = (CONV if isinstance(m, nn.Conv2d) else
+                CONV1 if isinstance(m, nn.Conv1d) else
                 DECONV if isinstance(m, nn.ConvTranspose2d) else
+                DECONV1 if isinstance(m, nn.ConvTranspose1d) else
                 DENSE if isinstance(m, nn.Linear) else '')
         if kind:
             table[('params', *path, 'kernel')] = (prefix + 'weight', kind)
@@ -126,16 +132,17 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
     return model
 
 
-KERNEL_RANK = {CONV: 4, DENSE: 2, DECONV: 4, DEFORM: 3}  # flax's rank
+KERNEL_RANK = {CONV: 4, CONV1: 3, DENSE: 2, DECONV: 4, DECONV1: 3,
+               DEFORM: 3}  # flax's rank
 
 
 def flax_shape(shape, kind: str) -> Tuple[int, ...]:
     """The flax shape of a tensor of torch ``shape`` with ``leaf_table``'s
     ``kind``."""
     shape = tuple(shape)
-    if kind == CONV:
+    if kind in (CONV, CONV1):
         return shape[2:] + shape[1::-1]
-    if kind == DECONV:
+    if kind in (DECONV, DECONV1):
         return shape[2:] + shape[:2]
     if kind == DENSE:
         return shape[::-1]
@@ -163,6 +170,10 @@ def _from_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
     if kind == DECONV:
         return np.flip(np.transpose(value, lead + (n - 2, n - 1, n - 4,
                                                    n - 3)), (-2, -1))
+    if kind == DECONV1:
+        return np.flip(np.transpose(value, lead + (n - 2, n - 1, n - 3)), -1)
+    if kind == CONV1:
+        return np.transpose(value, lead + (n - 1, n - 2, n - 3))
     return np.transpose(value, lead + (n - 1, n - 2, n - 4, n - 3))
 
 
@@ -184,6 +195,10 @@ def _to_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
     if kind == DECONV:
         return np.transpose(np.flip(value, (-2, -1)),
                             lead + (n - 2, n - 1, n - 4, n - 3))
+    if kind == DECONV1:
+        return np.transpose(np.flip(value, -1), lead + (n - 1, n - 3, n - 2))
+    if kind == CONV1:
+        return np.transpose(value, lead + (n - 1, n - 2, n - 3))
     return np.transpose(value, lead + (n - 2, n - 1, n - 3, n - 4))
 
 
@@ -386,6 +401,11 @@ def random_flax_variables(model: nn.Module, seed: int = 0,
             # flax's fan-in of a ConvTranspose kernel is H * W * in
             value = _draw_kernel(rng, module.kernel_init,
                                  flax_shape(shape, kind))
+        elif kind in (CONV1, DECONV1):
+            # a 1-D kernel (K, in, out) drawn as a 1 x K conv's: fan-in
+            # K * in, as flax's
+            value = _draw_kernel(rng, module.kernel_init,
+                                 (1,) + flax_shape(shape, kind))[0]
         elif kind == DENSE:
             value = _draw_kernel(
                 rng, module.kernel_init, (1, 1, shape[1], shape[0]))[0, 0]
@@ -393,8 +413,8 @@ def random_flax_variables(model: nn.Module, seed: int = 0,
             value = _draw_kernel(
                 rng, 'he_normal', (shape[2], shape[3], shape[1], shape[0])
             ).reshape(flax_shape(shape, kind))
-        elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d,
-                                 nn.Linear)):  # a bias
+        elif isinstance(module, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d,
+                                 nn.ConvTranspose2d, nn.Linear)):  # a bias
             value = np.broadcast_to(np.asarray(
                 getattr(module, 'bias_init', 0.), np.float32), shape).copy()
         elif leaf in getattr(module, 'leaf_init', {}):
