@@ -245,7 +245,22 @@ Phases, in order; any failure exits non-zero:
    640^2 (at least ATSS_MIN_PAIRS pairs), 2 bf16 steps of 2 with peak
    memory (FSAF's and FreeAnchor's gradient clips from their configs);
    the test CLI on FCOS, ``train_detector`` on FSAF;
-22. output: a ``kernels`` JSON line (with each kernel's share of its
+22. ROADMAP.md's zoo row j2a at full width and depth, no mish: RepPoints,
+   SABL RetinaNet and Faster R-CNN, GA RetinaNet and Faster R-CNN, each
+   bf16 at batch 8 on 1344^2 (decode and NMS or RPN proposal ms, the
+   deformable and GroupNorm shares), fp32 on the card against the CPU on
+   1 image of 640^2, 2 bf16 steps of 2; the test CLI on SABL RetinaNet,
+   ``train_detector`` on GA Faster R-CNN;
+23. ROADMAP.md's zoo row j2b at full width and depth, no mish:
+   Double-Head R-CNN (its RoI bbox head's share of busy), Grid R-CNN
+   (``refine_boxes`` ms on the call's detections; its refined boxes fp32
+   card against CPU) and the Cascade RPN Faster R-CNN (proposal ms, the
+   deformable share, peak memory), each bf16 at batch 8 on 1344^2, fp32
+   on the card against the CPU on 1 image of 640^2, 2 bf16 steps of 2;
+   the test CLI on Grid R-CNN, ``train_detector`` on the Cascade RPN
+   Faster R-CNN; 2 bf16 steps each of Dynamic R-CNN and PISA, whose eval
+   is Faster R-CNN's (a CPU test holds it bit for bit);
+24. output: a ``kernels`` JSON line (with each kernel's share of its
    bound and its launches on every path), the whole run's seconds, the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
@@ -2456,7 +2471,11 @@ def retina_images(cfg, n, size, seed):
     import numpy as np
     mean, std = retina_norm(cfg)
     px = np.random.RandomState(seed).randint(0, 256, (n, size, size, 3))
-    return ((px - mean) / std).astype(np.float32)
+    # each channel's 256 values normalized once, in float64 as the
+    # elementwise (px - mean) / std, then looked up: the same fp32 numbers
+    # in about a third of the host's time
+    lut = ((np.arange(256)[:, None] - mean) / std).astype(np.float32)
+    return lut[px, np.arange(3)]
 
 
 def redrawn_variables(torch, cfg, img, layers, seed, measure_bn=False,
@@ -6468,22 +6487,29 @@ def beside(fn):
     return result
 
 
-def zoo_fp32_check(torch, cfg, tree, name, size, seed, min_pairs=1):
+def zoo_fp32_check(torch, cfg, tree, name, size, seed, min_pairs=1,
+                   extra=None):
     """fp32 on the card (TF32 off) against the port's CPU call on
     FRCNN_FP32_IMAGES seeded images of ``size``^2: per image the
     detections pair one-to-one (label, IoU >= MATCH_IOU), all but
     FRCNN_KEEP_SHARE of the CPU's, and at least ``min_pairs`` pair. The
     card's call runs now; the CPU's and the comparison are queued
-    (``deferred_checks_start``). Returns the pairs per image, a list
-    filled then."""
+    (``deferred_checks_start``). ``extra``, a pair ``(fn(model, img,
+    detections), check(card out, CPU out))``, runs ``fn`` on both sides'
+    models with the card's detections and checks the two outputs. Returns
+    the pairs per image, a list filled then."""
     from tpudet_torch.apis import init_detector
     few = torch.from_numpy(retina_images(cfg, FRCNN_FP32_IMAGES, size, seed))
     pairs = []
 
     def cpu_call():
         t0 = time.perf_counter()
-        ref = init_detector(cfg, variables=tree, device='cpu',
-                            dtype=torch.float32)(few)
+        det = init_detector(cfg, variables=tree, device='cpu',
+                            dtype=torch.float32)
+        ref = det(few)
+        if extra is not None:
+            with torch.inference_mode():
+                extra[1](extra_card, extra[0](det.model, few, got))
         return ref, time.perf_counter() - t0
 
     def compare(ref, cpu_s, got):
@@ -6504,8 +6530,14 @@ def zoo_fp32_check(torch, cfg, tree, name, size, seed, min_pairs=1):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        got = init_detector(cfg, variables=tree, device='cuda',
-                            dtype=torch.float32)(few.cuda())
+        det = init_detector(cfg, variables=tree, device='cuda',
+                            dtype=torch.float32)
+        got = det(few.cuda())
+        extra_card = None
+        if extra is not None:
+            with torch.inference_mode():
+                extra_card = extra[0](det.model, few.cuda(), got).cpu()
+        del det
         got = type(got)(*(t.cpu() for t in got))
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
@@ -6516,14 +6548,15 @@ def zoo_fp32_check(torch, cfg, tree, name, size, seed, min_pairs=1):
 
 
 def zoo_train_steps(torch, mish, config, tree, name, batch_fn,
-                    steps=ZOO_TRAIN_STEPS, grad_clip=None):
+                    steps=ZOO_TRAIN_STEPS, grad_clip=None, want=None):
     """``steps`` bf16 steps (fp32 master weights) of ``config``'s model
     through ``init_trainer(...).step`` on ``batch_fn(step)``, each with
     its launch counts (0), ms and peak memory; the losses finite and the
     params moved; the gradient clip the trainer took from the config is
-    logged, and must be ``grad_clip`` where given. A KD detector's teacher
-    forward is timed on the device within each step (its share of the
-    step's wall logged), and it must stay fp32, in eval mode, with its
+    logged, and must be ``grad_clip`` where given; ``want`` names a metric
+    that every step must report, finite and above 0. A KD detector's
+    teacher forward is timed on the device within each step (its share of
+    the step's wall logged), and it must stay fp32, in eval mode, with its
     BatchNorm statistics unchanged. Returns the launches of a step.
     """
     from tpudet_torch.apis import init_trainer
@@ -6578,6 +6611,8 @@ def zoo_train_steps(torch, mish, config, tree, name, batch_fn,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
             launches=launches, **extra)))
         bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if want is not None and not m.get(want, 0.0) > 0:
+            bad.append(want)
         if bad or any(launches.values()) or not any(
                 'loss' in k and k != 'loss' for k in m):
             raise AssertionError(f'{name} step {step}: non-finite {bad}, '
@@ -8272,6 +8307,194 @@ def run_zoo_row_j2a(torch):
             for k in ('mish_fwd', 'mish_bwd')}
 
 
+CONFIG_DOUBLE_HEAD = os.path.join(
+    ROOT, 'configs/double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py')
+CONFIG_DYNAMIC = os.path.join(
+    ROOT, 'configs/dynamic_rcnn/dynamic_rcnn_r50_fpn_1x_coco.py')
+CONFIG_GRID = os.path.join(
+    ROOT, 'configs/grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py')
+CONFIG_PISA = os.path.join(
+    ROOT, 'configs/pisa/pisa_faster_rcnn_r50_fpn_1x_coco.py')
+CONFIG_CRPN = os.path.join(
+    ROOT, 'configs/cascade_rpn/crpn_faster_rcnn_r50_caffe_fpn_1x_coco.py')
+J2B_FP32_IMG = 640  # phase 23's fp32 card-vs-CPU image
+# phase 23's redraws (module name regex -> (spread, bias)) beside the
+# table's (rpn_cls, rpn_reg, fc_cls, fc_reg): the Cascade RPN's stage-0
+# regression (tpudet's N(0, 0.01^2) leaves the refined anchors, and so the
+# deformable taps, on the grid)
+ZOO_J2B_SPREADS = {
+    'double_head': {},
+    'grid': {},
+    'cascade_rpn': {r'rpn_head\.stage0\.rpn_reg$': (1.0, 0.0)},
+}
+# the Grid head's raw transposed-conv kernels redrawn at GRID_DECONV_GAIN /
+# sqrt(fan-in) (tpudet's N(0, 0.001^2) leaves every heatmap flat at its
+# -log 99 bias, and the votes without a maximum); the bias stays
+GRID_DECONV_GAIN = 2.0
+# the refined boxes of GRID_REFINE_BOXES detections, card against CPU (fp32,
+# TF32 off): at least GRID_REFINE_SHARE of them within GRID_REFINE_ATOL px
+# (a heatmap's argmax on a near-tie may pick another cell)
+GRID_REFINE_BOXES, GRID_REFINE_ATOL, GRID_REFINE_SHARE = 20, 1e-2, 0.95
+
+
+def zoo_j2b_leaves(seed):
+    """The Grid head's ``deconv{1,2}_kernel`` redrawn (GRID_DECONV_GAIN)."""
+    import numpy as np
+
+    def redraw(tree):
+        grid = tree['params'].get('roi_head', {}).get('grid_head')
+        if grid is None:
+            return
+        rng = np.random.RandomState(seed + 3)
+        for k in ('deconv1_kernel', 'deconv2_kernel'):
+            shape = grid[k].shape
+            grid[k] = (rng.randn(*shape) * GRID_DECONV_GAIN / math.sqrt(
+                np.prod(shape[:-1]))).astype(np.float32)
+    return redraw
+
+
+def grid_refine(model, img, res):
+    """``GridRCNN.refine_boxes`` of the first GRID_REFINE_BOXES detections
+    an image (boxes where not valid)."""
+    k = GRID_REFINE_BOXES
+    return model.refine_boxes(img, res.bboxes[:, :k].to(img.device),
+                              res.valid[:, :k].to(img.device))
+
+
+def grid_refine_check(card, cpu):
+    """The refined boxes, card against CPU (``grid_refine``)."""
+    gap = (card - cpu).abs().amax(-1).flatten()
+    share = float((gap <= GRID_REFINE_ATOL).float().mean())
+    log(f'Grid R-CNN refine_boxes fp32 card vs CPU on {gap.numel()} boxes: '
+        f'largest delta {float(gap.max()):.3e} px, share within '
+        f'{GRID_REFINE_ATOL} px {share:.3f} (at least {GRID_REFINE_SHARE})')
+    if not (bool(card.isfinite().all()) and share >= GRID_REFINE_SHARE):
+        raise AssertionError('Grid R-CNN refined boxes differ card vs CPU')
+
+
+def refine_boxes_ms(torch, det, img):
+    """``GridRCNN.refine_boxes`` on one bf16 call's detections (8 x 100, the
+    call's features reused), device ms, and how far it moves them."""
+    model = det.model
+    with torch.inference_mode():
+        feats = model.extract_feat(img)
+        res = model.get_bboxes(model.detect(feats, tuple(img.shape[1:3])))
+
+        def call():
+            return model.refine_boxes(img, res.bboxes, res.valid,
+                                      feats=feats)
+        refined = call()
+        ms = cuda_ms(call, warmup=1, runs=3)
+    moved = (refined - res.bboxes).abs().amax(-1)[res.valid]
+    out = {'refine_ms': ms, 'refined_boxes': int(res.valid.sum()),
+           'median_move_px': float(moved.float().median())}
+    log('Grid R-CNN refine_boxes: ' + json.dumps(out))
+    if not (refined.isfinite().all() and out['median_move_px'] > 0):
+        raise AssertionError('Grid R-CNN refine_boxes: non-finite or no '
+                             'box moved')
+    return out
+
+
+def run_zoo_row_j2b(torch):
+    """Phase 23: Double-Head, Grid R-CNN and the Cascade RPN Faster R-CNN,
+    R50 at full width and depth: bf16 inference at batch 8 on 1344^2
+    (e2e, forward, device busy, kernels, peak memory; the Double head's
+    RoI bbox head's share of busy, Grid R-CNN's ``refine_boxes`` ms, the
+    Cascade RPN's proposal ms and its deformable convs' share), fp32 card
+    against CPU on one image of J2B_FP32_IMG^2 (at least ATSS_MIN_PAIRS
+    pairs; Grid R-CNN's refined boxes too), 2 bf16 steps of 2 images at
+    1344^2 (peak memory); the test CLI on Grid R-CNN, ``train_detector``
+    on the Cascade RPN Faster R-CNN. Dynamic R-CNN and PISA change only
+    training (their eval is Faster R-CNN's, bit for bit, a CPU test holds
+    it): their 2 bf16 steps each, on one weight draw (their trees are
+    Faster R-CNN's), ``dynamic_beta`` and ``loss_carl`` logged. Returns
+    each path's launches of each kernel (all 0: ReLU)."""
+    import tempfile
+
+    from tpudet_torch.config import Config
+    from tpudet_torch.models.roi_heads.double_roi_head import \
+        DoubleConvFCBBoxHead
+    from tpudet_torch.ops import mish
+    from tpudet_torch.ops.deform_conv import DeformConv2d
+    from tpudet_torch.utils.checkpoint import save_variables
+    log('phase 23 redraws: ' + json.dumps(
+        {k: {r: list(v) for r, v in d.items()}
+         for k, d in ZOO_J2B_SPREADS.items()}) + f'; the Grid head\'s '
+        f'transposed-conv kernels at {GRID_DECONV_GAIN} / sqrt(fan-in)')
+    launches, times = {}, {}
+    for key, config, name, seed in (
+            ('double_head', CONFIG_DOUBLE_HEAD, 'Double-Head R-CNN R50-FPN',
+             SEED + 9000),
+            ('grid', CONFIG_GRID, 'Grid R-CNN R50-FPN', SEED + 9100),
+            ('cascade_rpn', CONFIG_CRPN, 'Cascade RPN Faster R-CNN R50-FPN',
+             SEED + 9200)):
+        t0 = time.perf_counter()
+        cfg = Config.fromfile(config)
+        tree, det, img, infer, t = zoo_inference(
+            torch, mish, config, name, seed, extra=ZOO_J2B_SPREADS[key],
+            leaves=zoo_j2b_leaves(seed))
+        launches[f'{key}_inference_forward'] = infer
+        if key == 'double_head':
+            t.update(module_share(torch, det, img, t['busy_ms'],
+                                  DoubleConvFCBBoxHead, 'roi_bbox_head',
+                                  'roi_head'))
+        elif key == 'grid':
+            t.update(refine_boxes_ms(torch, det, img))
+        else:
+            t.update(proposal_ms(torch, det, img))
+            t.update(module_share(torch, det, img, t['busy_ms'],
+                                  DeformConv2d, 'dcn', 'rpn_head'))
+        log(f'{name} split: ' + json.dumps(
+            {k: v for k, v in t.items() if k.endswith(
+                ('proposals_ms', 'refine_ms', '_share'))}))
+        del det, img
+        torch.cuda.empty_cache()
+        t['fp32_pairs'] = zoo_fp32_check(
+            torch, cfg, tree, name, J2B_FP32_IMG, seed + 10,
+            min_pairs=ATSS_MIN_PAIRS,
+            extra=(grid_refine, grid_refine_check) if key == 'grid'
+            else None)
+        launches[f'{key}_train_step'] = zoo_train_steps(
+            torch, mish, config, tree, name,
+            zoo_batch_fn(torch, cfg, seed + 20))
+        if key == 'grid':
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = os.path.join(tmp, 'grid_rcnn.msgpack')
+                save_variables(ckpt, tree)
+                launches['grid_test_cli_batch'] = run_cli_eval(
+                    torch, config, ckpt, img_size=FRCNN_IMG,
+                    mish_per_forward=0)
+        if key == 'cascade_rpn':
+            launches['cascade_rpn_train_detector_step'], _ = \
+                zoo_loop_and_cli(torch, config, name, seed + 30, cli=False)
+        times[key] = t
+        del tree
+        torch.cuda.empty_cache()
+        log(f'phase 23 {key}: {time.perf_counter() - t0:.1f} s')
+    # the training-only heads: one Faster R-CNN weight draw for both
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(CONFIG_DYNAMIC)
+    img_np = retina_images(cfg, ZOO_REDRAW_IMAGES, FRCNN_IMG, SEED + 9300)
+    deferred_checks_start()
+    tree = zoo_variables(torch, cfg, img_np, SEED + 9300)
+    deferred_checks_join()
+    for key, config, name, want in (
+            ('dynamic', CONFIG_DYNAMIC, 'Dynamic R-CNN R50-FPN',
+             'dynamic_beta'),
+            ('pisa', CONFIG_PISA, 'PISA Faster R-CNN R50-FPN', 'loss_carl')):
+        launches[f'{key}_train_step'] = zoo_train_steps(
+            torch, mish, config, tree, name,
+            zoo_batch_fn(torch, Config.fromfile(config), SEED + 9320),
+            want=want)
+    del tree
+    torch.cuda.empty_cache()
+    log(f'phase 23 dynamic and pisa: {time.perf_counter() - t0:.1f} s')
+    deferred_checks_finish()  # the phase's last fp32 checks
+    log('phase 23 inference times: ' + json.dumps(times))
+    return {k: {path: counts[k] for path, counts in launches.items()}
+            for k in ('mish_fwd', 'mish_bwd')}
+
+
 def main():
     try:
         import torch
@@ -8435,7 +8658,13 @@ def main():
     zoo_j2a_launches = run_zoo_row_j2a(torch)
     log(f'zoo row j2a phases: {time.perf_counter() - t0:.1f} s')
 
-    # 23. output
+    # 23. Double-Head, Grid R-CNN, the Cascade RPN Faster R-CNN; Dynamic
+    # R-CNN's and PISA's steps; each path with counts at 0 just before
+    t0 = time.perf_counter()
+    zoo_j2b_launches = run_zoo_row_j2b(torch)
+    log(f'zoo row j2b phases: {time.perf_counter() - t0:.1f} s')
+
+    # 24. output
     def row(name, replaces, worst, timed):
         return dict(
             name=name, route='cuda', source='tpudet_torch/ops/csrc/mish.cu',
@@ -8482,6 +8711,7 @@ def main():
             paths.update(zoo_i_launches[k['name']])
             paths.update(zoo_j_launches[k['name']])
             paths.update(zoo_j2a_launches[k['name']])
+            paths.update(zoo_j2b_launches[k['name']])
             paths['serve_batch'] = serve_launches[k['name']]
             paths['files_eval_batch'] = files_launches[k['name']]
     log(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all, '

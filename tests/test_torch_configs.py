@@ -47,9 +47,12 @@ that run on the RetinaNet machinery with no RoI head (``configs/fcos/``,
 (``configs/reppoints/``, ``sabl/``, ``guided_anchoring/``: RepPoints, SABL
 RetinaNet and Faster R-CNN, GA RetinaNet and Faster R-CNN; their RepPoints
 moment leaf, deformable kernels, GroupNorms and SABL's 1-D conv and
-transposed-conv kernels among the leaves). The probe over every config
-under ``configs/`` counts what the port builds (108), refuses with
-``NotImplementedError`` (1) and does not register (``KeyError``, 18).
+transposed-conv kernels among the leaves). The 5 of its row j2b
+(``configs/double_heads/``, ``dynamic_rcnn/``, ``grid_rcnn/``, ``pisa/``,
+``cascade_rpn/``) through ``forward_train`` (the Grid head's params exist
+only there). The probe over every config under ``configs/`` counts what
+the port builds (113), refuses with ``NotImplementedError`` (1) and does
+not register (``KeyError``, 13).
 
 Every config whose ``data.train/val/test`` name a dataset other than
 ``CocoDataset`` (9, wrappers' inner datasets included) has each of those
@@ -169,8 +172,16 @@ ZOO_J2A_CONFIGS = sorted(
     for pattern in ('configs/reppoints/*.py', 'configs/sabl/*.py',
                     'configs/guided_anchoring/*.py')
     for p in glob.glob(os.path.join(ROOT, pattern)))
+# ROADMAP.md's zoo row j2b, the R-CNN heads on Faster R-CNN's machinery:
+# Double-Head, Dynamic R-CNN, Grid R-CNN, PISA and the Cascade RPN
+ZOO_J2B_CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for pattern in ('configs/double_heads/*.py', 'configs/dynamic_rcnn/*.py',
+                    'configs/grid_rcnn/*.py', 'configs/pisa/*.py',
+                    'configs/cascade_rpn/*.py')
+    for p in glob.glob(os.path.join(ROOT, pattern)))
 # the probe over configs/: (build, NotImplementedError, KeyError)
-PROBE_COUNTS = (108, 1, 18)
+PROBE_COUNTS = (113, 1, 13)
 
 # configs that build but sit outside the families above: the fork's two
 # recipes and training from scratch
@@ -265,10 +276,18 @@ def test_the_zoo_row_j2a_sweep_holds_five_configs():
         ZOO_I_CONFIGS + ZOO_J_DENSE_CONFIGS)
 
 
+def test_the_zoo_row_j2b_sweep_holds_five_configs():
+    assert len(ZOO_J2B_CONFIGS) == 5
+    assert not set(ZOO_J2B_CONFIGS) & set(
+        CONFIGS + RETINA_CONFIGS + TWO_STAGE_CONFIGS + ZOO_ROW_CONFIGS +
+        ZOO_DEG_CONFIGS + ATSS_FAMILY_CONFIGS + KD_CONFIGS + ZOO_H_CONFIGS +
+        ZOO_I_CONFIGS + ZOO_J_DENSE_CONFIGS + ZOO_J2A_CONFIGS)
+
+
 def test_the_probe_counts_what_builds_and_what_is_refused():
-    """Every config under ``configs/`` built on the meta device: 108
+    """Every config under ``configs/`` built on the meta device: 113
     build, 1 raises ``NotImplementedError`` (the DCN ResNeXt, refused by
-    design), 18 raise ``KeyError`` (types the port does not register)."""
+    design), 13 raise ``KeyError`` (types the port does not register)."""
     counts = [0, 0, 0]
     for p in sorted(glob.glob(os.path.join(ROOT, 'configs/**/*.py'),
                               recursive=True)):
@@ -343,6 +362,42 @@ def test_zoo_j2a_config_builds_with_tpudets_param_tree(config):
     if 'sabl_faster' in config:
         assert leaves['roi_head/bbox_head/x_up/kernel'] == (2, 256, 256)
         assert leaves['roi_head/bbox_head/x_post/kernel'] == (3, 256, 256)
+
+
+@pytest.mark.parametrize('config', ZOO_J2B_CONFIGS)
+def test_zoo_j2b_config_builds_with_tpudets_param_tree(config):
+    """Each of zoo row j2b's configs, leaf for leaf, tpudet's tree from
+    ``init`` through ``forward_train`` (the Grid head's params exist only
+    there); the new kinds of leaf among them (the Grid head's raw
+    transposed-conv kernels and biases, its depthwise kernels and
+    GroupNorms, the Double head's BatchNorms, the Cascade RPN's dilated and
+    deformable kernels)."""
+    path = os.path.join(ROOT, config)
+    jmodel = jax_build_detector(JaxConfig.fromfile(path)['model'])
+    g = 4
+    args = (jnp.zeros((1, 64, 64, 3)),
+            jnp.tile(jnp.asarray([[0., 0., 32., 32.]]), (1, g, 1)),
+            jnp.zeros((1, g), jnp.int32), jnp.ones((1, g), bool))
+    ref = _flat_shapes(jax.eval_shape(
+        partial(jmodel.init, method='forward_train'), jax.random.PRNGKey(0),
+        *args))
+    assert_port_tree_is(path, ref)
+    leaves = {'/'.join(p[1:]): shape for p, shape in ref.items()}
+    want = {'double_heads': {
+                'roi_head/bbox_head/res_ds_bn/mean': (1024,),
+                'roi_head/bbox_head/conv_branch3/bn3/var': (1024,)},
+            'dynamic_rcnn': {},
+            'grid_rcnn': {
+                'roi_head/grid_head/deconv1_kernel': (4, 4, 64, 576),
+                'roi_head/grid_head/deconv2_bias': (9,),
+                'roi_head/grid_head/so8_1_dw/kernel': (5, 5, 1, 64),
+                'roi_head/grid_head/gn7/scale': (576,)},
+            'pisa': {},
+            'cascade_rpn': {
+                'rpn_head/stage0/rpn_conv/kernel': (3, 3, 256, 256),
+                'rpn_head/stage1/rpn_conv/kernel': (9, 256, 256)}}[
+                    config.split('/')[1]]
+    assert all(leaves[k] == v for k, v in want.items())
 
 
 @pytest.mark.parametrize('config', KD_CONFIGS)

@@ -356,3 +356,32 @@ def test_a_faster_rcnn_train_step_matches_tpudet_in_float64():
                          adjust=linear_heads)
     assert_step_matches(*results[:5], ROI_KEYS + ('loss_rpn_cls',))
     assert results[4]['loss_bucket_reg'] > 0
+
+
+@pytest.mark.parametrize('scale', [3.0, 1.7])
+def test_whole_pixel_sides_take_tpudets_eager_division(scale):
+    """20,000 proposals and gts with every side on a whole pixel, where a
+    bucket offset can be exactly 1.0 (the neighbour rule's bound): the
+    port divides by the bucket width, as tpudet's eager arithmetic does,
+    and its targets equal those, labels and weights exactly. tpudet's
+    jitted encode multiplies by the reciprocal instead: the labels and
+    class weights it gives differ from the eager ones on such sides,
+    printed here (ROADMAP.md §3 records the counts and the choice)."""
+    rng = np.random.RandomState(0 if scale == 3.0 else 1)
+    n = 20000
+    xy = rng.randint(0, 200, (n, 2)).astype(np.float32)
+    wh = rng.randint(4, 120, (n, 2)).astype(np.float32)
+    props = np.concatenate([xy, xy + wh], -1)
+    gxy = xy + np.round(rng.uniform(-0.4, 0.4, (n, 2)) * wh)
+    gwh = np.maximum(np.round(wh * rng.uniform(0.6, 1.4, (n, 2))), 1)
+    gts_ = np.concatenate([gxy, gxy + gwh], -1).astype(np.float32)
+    jc, tc = JCoder(14, scale), BucketingBBoxCoder(14, scale)
+    eager = jc.encode(jnp.asarray(props), jnp.asarray(gts_))
+    jitted = jax.jit(jc.encode)(jnp.asarray(props), jnp.asarray(gts_))
+    got = tc.encode(torch.from_numpy(props), torch.from_numpy(gts_))
+    for g, r in zip(got, eager):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    diffs = tuple(int((np.asarray(j) != np.asarray(e)).sum())
+                  for j, e in zip(jitted[:2], eager[:2]))
+    print(f'scale {scale}: jitted vs eager labels, class weights {diffs}')
+    assert diffs[1] > 0

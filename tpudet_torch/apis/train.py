@@ -212,7 +212,8 @@ def _build_trainer(cfg: Config, variables: Optional[Dict],
     accumulation = _accumulation(cfg)
     opt_cfg = opt_config_from_cfg(cfg, total_steps, steps_per_epoch,
                                   accumulation)
-    model = build_detector(cfg['model'])
+    with device:  # parameters made, and weights copied, on the device
+        model = build_detector(cfg['model'])
     if variables is None:
         variables = random_flax_variables(model, seed=cfg.get('seed', 0))
     load_flax_variables(model, variables)

@@ -1,5 +1,6 @@
 from .atss_head import ATSSHead
 from .autoassign_head import AutoAssign, AutoAssignHead
+from .cascade_rpn_head import CascadeRPNHead, StageCascadeRPN
 from .fcos_head import FCOSHead
 from .fovea_head import FoveaHead
 from .free_anchor_retina_head import FreeAnchorRetinaHead
@@ -22,7 +23,8 @@ from .yolact_head import (YOLACT, YOLACTHead, YOLACTProtonet,
 from .yolof_head import YOLOFHead
 from .yolov3_head import YOLOV3Head
 
-__all__ = ['ATSSHead', 'AutoAssign', 'AutoAssignHead', 'FCOSHead',
+__all__ = ['ATSSHead', 'AutoAssign', 'AutoAssignHead', 'CascadeRPNHead',
+           'StageCascadeRPN', 'FCOSHead',
            'FoveaHead', 'FreeAnchorRetinaHead', 'FSAFHead', 'NASFCOS',
            'NASFCOSHead', 'RetinaSepBNHead', 'YOLOFHead', 'GFLHead',
            'FeatureAdaption', 'GARetinaHead', 'GARPNHead', 'RepPointsHead',

@@ -1,7 +1,12 @@
 from .bbox_head import Shared2FCBBoxHead, Shared4Conv1FCBBoxHead
 from .cascade_roi_head import CascadeRCNN, CascadeRoIHead
+from .double_roi_head import (DoubleConvFCBBoxHead, DoubleHeadRCNN,
+                              DoubleHeadRoIHead)
+from .dynamic_roi_head import DynamicRCNN, DynamicRoIHead
+from .grid_roi_head import GridHead, GridRCNN, GridRoIHead
 from .mask_head import FCNMaskHead, MaskRCNN, MaskRoIHead
 from .htc_roi_head import FusedSemanticHead, HTCRoIHead, HybridTaskCascade
+from .pisa_roi_head import PISAFasterRCNN, PISARoIHead
 from .mask_scoring_roi_head import (MaskIoUHead, MaskScoringRCNN,
                                     MaskScoringRoIHead)
 from .point_rend_roi_head import (CoarseMaskHead, MaskPointHead, PointRend,
@@ -16,4 +21,6 @@ __all__ = ['Shared2FCBBoxHead', 'Shared4Conv1FCBBoxHead', 'StandardRoIHead',
            'MaskIoUHead', 'MaskScoringRoIHead', 'MaskScoringRCNN',
            'CoarseMaskHead', 'MaskPointHead', 'PointRendRoIHead', 'PointRend',
            'SCNetRoIHead', 'SCNet', 'SABLBBoxHead', 'SABLRoIHead',
-           'SABLFasterRCNN']
+           'SABLFasterRCNN', 'DoubleConvFCBBoxHead', 'DoubleHeadRoIHead',
+           'DoubleHeadRCNN', 'DynamicRoIHead', 'DynamicRCNN', 'GridHead',
+           'GridRoIHead', 'GridRCNN', 'PISARoIHead', 'PISAFasterRCNN']

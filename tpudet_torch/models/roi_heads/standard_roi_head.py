@@ -227,14 +227,7 @@ class StandardRoIHead(nn.Module):
         ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
         loss_cls = (ce * sampled).sum() / num_total
 
-        b, s = labels.shape
-        if deltas.shape[-1] == 4:
-            reg = deltas.float()
-        else:
-            reg = deltas.reshape(b, s, self.num_classes, 4).float()
-            cls_idx = labels.clamp(0, self.num_classes - 1)
-            reg = torch.gather(reg, 2, cls_idx[..., None, None].expand(
-                b, s, 1, 4))[:, :, 0]
+        reg = class_deltas(deltas, labels, self.num_classes)
         weight = pos[..., None].float()
         if self.loss_bbox_type == 'balanced_l1':
             loss_bbox = L.balanced_l1_loss(reg, targets, weight=weight,
@@ -295,6 +288,20 @@ class StandardRoIHead(nn.Module):
                 scale_factors, dtype=boxes_pc.dtype,
                 device=boxes_pc.device)[:, None, None, :]
         return pair_nms(boxes_pc, scores, score_thr, iou_thr, max_per_img)
+
+
+def class_deltas(deltas, labels, num_classes: int):
+    """Each slot's deltas for its label (B, S, 4), fp32: the 4-wide
+    deltas as they are, or the label's 4 of class-specific (B, S, 4C) ones
+    (the background's clipped to the last class; ``standard_roi_head.py:
+    230-238``)."""
+    if deltas.shape[-1] == 4:
+        return deltas.float()
+    b, s = labels.shape
+    reg = deltas.reshape(b, s, num_classes, 4).float()
+    cls_idx = labels.clamp(0, num_classes - 1)
+    return torch.gather(reg, 2, cls_idx[..., None, None].expand(
+        b, s, 1, 4))[:, :, 0]
 
 
 def pair_nms(boxes_pc, scores, score_thr: float, iou_thr: float,

@@ -19,7 +19,10 @@ device:
 - ``all_reduce_grads`` sums the ranks' gradients in one flat buffer, once
   per optimizer step: the sum of the shares' gradients is the gradient of
   the global loss;
-- ``broadcast_`` makes every rank start from rank 0's tensors.
+- ``broadcast_`` makes every rank start from rank 0's tensors;
+- ``all_gather`` stacks every rank's tensor of one shape, for a statistic
+  tpudet takes over its whole batch (PISA's ranks, Dynamic R-CNN's k-th
+  smallest error).
 
 tpudet's ``make_mesh``, ``data_sharding``, ``replicated_sharding``,
 ``mesh_process_count``, ``shard_batch``, ``replicate`` and
@@ -252,6 +255,19 @@ def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0) -> None:
         flat = _flat(group, dtype)
         dist.broadcast(flat, src)
         _unflatten_into(flat, group)
+
+
+def all_gather(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (of one shape on every rank) stacked in rank
+    order on a new leading axis, with no gradient; ``t[None]`` with no
+    group open. A statistic that tpudet takes over its whole batch axis (a
+    rank, a k-th value) is taken over this."""
+    if not is_distributed():
+        return t.detach()[None]
+    t = t.detach().contiguous()
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    return torch.stack(out)
 
 
 def all_gather_object(obj) -> list:

@@ -151,30 +151,41 @@ def flax_shape(shape, kind: str) -> Tuple[int, ...]:
     return shape
 
 
-def _from_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
+def _transpose(value, axes):
+    return value.permute(axes) if torch.is_tensor(value) else np.transpose(
+        value, axes)
+
+
+def _flip(value, axes):
+    return value.flip(axes) if torch.is_tensor(value) else np.flip(value,
+                                                                    axes)
+
+
+def _from_flax_layout(value, kind: str):
     """HWIO -> OIHW on the last four axes of a conv kernel leaf, (in, out)
     -> (out, in) on the last two of a Dense one, (H, W, in, out) -> (in,
     out, H, W) spatially flipped for a ConvTranspose one, (K*K, in, out) ->
     (out, in, K, K) for a deformable one (a leading axis, as in Adam's
-    stacked (m, v) buffers, is kept)."""
+    stacked (m, v) buffers, is kept). A numpy array or a tensor, as views
+    where the layout allows."""
     if not kind:
         return value
     n = value.ndim
     lead = tuple(range(n - KERNEL_RANK[kind]))
     if kind == DEFORM:
         k = int(round(value.shape[-3] ** 0.5))
-        value = np.transpose(value, lead + (n - 1, n - 2, n - 3))
-        return value.reshape(value.shape[:-1] + (k, k))
+        value = _transpose(value, lead + (n - 1, n - 2, n - 3))
+        return value.reshape(tuple(value.shape[:-1]) + (k, k))
     if kind == DENSE:
-        return np.transpose(value, lead + (n - 1, n - 2))
+        return _transpose(value, lead + (n - 1, n - 2))
     if kind == DECONV:
-        return np.flip(np.transpose(value, lead + (n - 2, n - 1, n - 4,
-                                                   n - 3)), (-2, -1))
+        return _flip(_transpose(value, lead + (n - 2, n - 1, n - 4, n - 3)),
+                     (-2, -1))
     if kind == DECONV1:
-        return np.flip(np.transpose(value, lead + (n - 2, n - 1, n - 3)), -1)
+        return _flip(_transpose(value, lead + (n - 2, n - 1, n - 3)), (-1,))
     if kind == CONV1:
-        return np.transpose(value, lead + (n - 1, n - 2, n - 3))
-    return np.transpose(value, lead + (n - 1, n - 2, n - 4, n - 3))
+        return _transpose(value, lead + (n - 1, n - 2, n - 3))
+    return _transpose(value, lead + (n - 1, n - 2, n - 4, n - 3))
 
 
 def _to_flax_layout(value: np.ndarray, kind: str) -> np.ndarray:
@@ -234,7 +245,8 @@ def _tensors(tree, table, like: Dict[str, torch.Tensor], what: str,
     devices, strictly: a leaf with no place or a shape that does not fit
     raises, and so does a float tensor of ``like`` that no leaf fills.
     Tensors that are not floating point (``num_batches_tracked``) start at
-    zero."""
+    zero. Each leaf goes to the device in tpudet's layout and is laid out
+    there: the transposes on the host were most of a load's time."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(tree, prefix).items():
         if path not in table:
@@ -245,13 +257,13 @@ def _tensors(tree, table, like: Dict[str, torch.Tensor], what: str,
             raise ValueError(f'{"/".join(path)}: expected a {kind} kernel '
                              f'of rank {KERNEL_RANK[kind]}, got shape '
                              f'{value.shape}')
-        value = _from_flax_layout(value, kind)
         ref = like[key]
-        if value.shape != tuple(ref.shape):
-            raise ValueError(f'{"/".join(path)}: shape {value.shape} does '
-                             f'not fit {key} {tuple(ref.shape)}')
-        out[key] = torch.from_numpy(np.array(
-            value, dtype=np.float32, order='C')).to(ref.device)
+        value = _from_flax_layout(torch.from_numpy(np.array(
+            value, dtype=np.float32)).to(ref.device), kind)
+        if tuple(value.shape) != tuple(ref.shape):
+            raise ValueError(f'{"/".join(path)}: shape {tuple(value.shape)} '
+                             f'does not fit {key} {tuple(ref.shape)}')
+        out[key] = value.contiguous()
     for key, ref in like.items():
         if key in out:
             continue
